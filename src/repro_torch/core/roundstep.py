@@ -1,0 +1,209 @@
+"""Pluggable per-round data plane of the broadcast, in PyTorch.
+
+Port of ``repro.core.roundstep`` (the host half and the interface).
+The paper separates the O(log p) *schedule computation* from the
+per-round *data movement*; the broadcast's per-round step is
+
+  ``pack`` one block per row into the outgoing message -> exchange ->
+  ``unpack`` into one slot per row,
+
+with ``shuffle`` fusing round t's unpack and round t+1's pack.  Buffers
+are ``[R, nslots, bs]`` tensors (R rows: one per rank in the host data
+plane); slot vectors are ``[R]`` int32 rows of the clamped per-round
+tables (:func:`broadcast_slot_plan`).
+
+Two backends implement :class:`RoundStep`:
+
+  * ``"torch"`` -- the plain PyTorch versions
+    (:mod:`repro_torch.kernels.ref`), on any device;
+  * ``"cuda"`` -- the hand-written CUDA kernels
+    (:mod:`repro_torch.kernels.block_pack`); on a CPU tensor each
+    wrapper takes its plain version, on a CUDA tensor it launches the
+    kernel or raises.
+
+Unlike the JAX package, both backends update the buffer **in place**
+and return it, so a round never copies the ``[R, nslots, bs]`` buffer.
+Both follow the same update order (unpack, then pack from the updated
+buffer), so they agree bit for bit.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Optional, Tuple
+
+import numpy as np
+
+__all__ = [
+    "BACKENDS",
+    "RoundStep",
+    "TorchRoundStep",
+    "CudaRoundStep",
+    "get_round_step",
+    "clamp_slots",
+    "broadcast_slot_plan",
+    "PhaseStatic",
+    "broadcast_phase_static",
+]
+
+BACKENDS = ("torch", "cuda")
+
+
+# ------------------------------------------------------------ slot plans
+
+
+def clamp_slots(eff: np.ndarray, n: int, garbage: Optional[int] = None) -> np.ndarray:
+    """Effective block indices -> buffer slots: negative ("idle this
+    round") entries address the garbage slot, entries > n-1 are capped
+    to n-1 (final-phase re-sends), exactly as in Algorithm 1."""
+    g = n if garbage is None else garbage
+    return np.where(eff < 0, g, np.minimum(eff, n - 1)).astype(np.int32)
+
+
+def _frozen(*arrays: np.ndarray) -> Tuple[np.ndarray, ...]:
+    for a in arrays:
+        a.setflags(write=False)
+    return arrays
+
+
+def broadcast_slot_plan(bundle, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(recv_slots, send_slots, ks): clamped [R, p] forward slot tables.
+
+    Row t is the slot column of forward round t; buffers carry ``n+1``
+    slots with slot ``n`` the garbage slot (Correctness Condition 1
+    guarantees sender and receiver address garbage in the same rounds).
+    Cached process-wide; the returned arrays are immutable and shared.
+    """
+    from .engine import cached_plan
+
+    def build():
+        recv_eff, send_eff, ks = bundle.per_round_tables(n)
+        return _frozen(clamp_slots(recv_eff, n), clamp_slots(send_eff, n), ks)
+
+    return cached_plan(("slots/bcast", bundle.p, bundle.root, int(n)), build)
+
+
+# ------------------------------------------------------- phase statics
+
+
+@dataclass(frozen=True, eq=False)
+class PhaseStatic:
+    """Static per-phase audit record of a plan.
+
+    ``kind`` is the phase family (``"broadcast"`` in this slice);
+    ``direction`` is ``"fwd"`` for broadcast-direction phases.
+    ``slots`` holds the clamped [R, p] tables in execution order --
+    ``(recv, send)`` -- and ``shifts[t]`` is the rotation applied on the
+    wire in round t (rank r sends to ``(r + shifts[t]) % p``).
+    ``nslots`` is the buffer slot count the tables address (n+1).
+    """
+
+    kind: str
+    direction: str
+    p: int
+    root: int
+    n: int
+    nslots: int
+    slots: Tuple[np.ndarray, ...]
+    ks: np.ndarray
+    shifts: Tuple[int, ...]
+    axis: Optional[str] = None
+    overlap: bool = False
+
+
+def broadcast_phase_static(bundle, n: int, axis: Optional[str] = None,
+                           overlap: bool = False) -> PhaseStatic:
+    """Audit record of a forward broadcast phase (cached tables shared)."""
+    recv, send, ks = broadcast_slot_plan(bundle, n)
+    shifts = tuple(int(bundle.skip[int(k)]) for k in ks)
+    return PhaseStatic(kind="broadcast", direction="fwd", p=bundle.p,
+                       root=bundle.root, n=int(n), nslots=int(n) + 1,
+                       slots=(recv, send), ks=ks, shifts=shifts, axis=axis,
+                       overlap=overlap)
+
+
+# ------------------------------------------------------------- interface
+
+
+class RoundStep:
+    """One broadcast round's data movement on [R, nslots, bs] buffers.
+
+    ``pack``/``unpack`` are the plain first/last-round primitives;
+    ``shuffle`` fuses unpack(t) + pack(t+1) -- one backend call per
+    steady-state round.  Buffers are updated in place.
+    """
+
+    backend: str
+
+    def pack(self, buf, idx):
+        """[R, S, B], [R] -> [R, B]: out[r] = buf[r, idx[r]]."""
+        raise NotImplementedError
+
+    def unpack(self, buf, msg, idx):
+        """buf[r, idx[r]] = msg[r] in place -> buf; other slots keep
+        their contents."""
+        raise NotImplementedError
+
+    def shuffle(self, buf, msg, recv_idx, send_idx):
+        """Fused unpack+pack in place -> (buf, out_msg); the pack reads
+        the *updated* buffer (pipeline: forward next what was just
+        received)."""
+        raise NotImplementedError
+
+
+class TorchRoundStep(RoundStep):
+    """The plain PyTorch versions (advanced-indexing gathers and
+    scatters), on whatever device the tensors lie."""
+
+    backend = "torch"
+
+    def pack(self, buf, idx):
+        from ..kernels import ref
+
+        return ref.block_pack_ref(buf, idx)
+
+    def unpack(self, buf, msg, idx):
+        from ..kernels import ref
+
+        return ref.block_unpack_ref(buf, msg, idx)
+
+    def shuffle(self, buf, msg, recv_idx, send_idx):
+        from ..kernels import ref
+
+        return ref.block_shuffle_ref(buf, msg, recv_idx, send_idx)
+
+
+class CudaRoundStep(RoundStep):
+    """The hand-written CUDA kernels, through their checked wrappers
+    (which count launches).  The library is built at the first launch,
+    never at import."""
+
+    backend = "cuda"
+
+    def pack(self, buf, idx):
+        from ..kernels.block_pack import block_pack
+
+        return block_pack(buf, idx)
+
+    def unpack(self, buf, msg, idx):
+        from ..kernels.block_pack import block_unpack
+
+        return block_unpack(buf, msg, idx)
+
+    def shuffle(self, buf, msg, recv_idx, send_idx):
+        from ..kernels.block_pack import block_shuffle
+
+        return block_shuffle(buf, msg, recv_idx, send_idx)
+
+
+_STEPS = {"torch": TorchRoundStep(), "cuda": CudaRoundStep()}
+
+
+def get_round_step(backend: str = "cuda") -> RoundStep:
+    """Round-step backend: ``"cuda"`` (the kernels) or ``"torch"`` (the
+    plain versions).  Handles are stateless and shared."""
+    if backend not in BACKENDS:
+        raise ValueError(
+            f"unknown round-step backend {backend!r} (use one of {BACKENDS})"
+        )
+    return _STEPS[backend]

@@ -1,0 +1,9 @@
+"""Round-step kernels of the port: the plain PyTorch versions
+(:mod:`.ref`) and the checked, counted wrappers of the hand-written CUDA
+kernels (:mod:`.block_pack`, as in ``repro.kernels.block_pack``).
+Nothing here builds or loads a kernel at import; :mod:`._build`
+compiles ``csrc/*.cu`` at the first launch."""
+
+from . import block_pack, ref
+
+__all__ = ["block_pack", "ref"]

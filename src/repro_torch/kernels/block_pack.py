@@ -1,0 +1,121 @@
+"""Checked wrappers of the broadcast's round-step CUDA kernels.
+
+Port of the TPU kernels ``repro.kernels.block_pack.block_pack``,
+``block_unpack`` and ``block_shuffle``; the kernels themselves are in
+``csrc/block_pack.cu`` (CUDA C++ for sm_90a, built by
+:mod:`repro_torch.kernels._build` at the first launch).
+
+Each wrapper checks device, dtype, shape, contiguity and the int32
+index type, then
+
+  * on CPU tensors runs its plain version (:mod:`repro_torch.kernels.ref`);
+  * on CUDA tensors launches its kernel on the current stream, adds one
+    to its count in :data:`LAUNCHES`, and raises if the launch failed.
+
+There is no fallback from a CUDA tensor to the plain version.  Slot
+indices must lie in ``[0, nslots)``; a kernel that meets one outside
+traps, which ends the CUDA context.  Buffers are updated in place (the
+JAX kernels aliased them): ``block_unpack`` and ``block_shuffle``
+return the very ``buffers`` tensor they were given.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import ref
+
+#: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
+#: one where it launches its kernel, and nowhere else.
+LAUNCHES = {"block_pack": 0, "block_unpack": 0, "block_shuffle": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(buffers: torch.Tensor, msg=None, *idx: torch.Tensor) -> bool:
+    """Validate the operands; True when they lie on a CUDA device, False
+    on the CPU.  Raises on anything the kernels do not take."""
+    if buffers.dim() != 3:
+        raise ValueError(f"buffers must be [R, nslots, bs], got {tuple(buffers.shape)}")
+    R, _, bs = buffers.shape
+    tensors = [buffers]
+    if msg is not None:
+        if tuple(msg.shape) != (R, bs):
+            raise ValueError(f"msg must be [{R}, {bs}], got {tuple(msg.shape)}")
+        if msg.dtype != buffers.dtype:
+            raise TypeError(f"msg dtype {msg.dtype} != buffers dtype {buffers.dtype}")
+        tensors.append(msg)
+    for i in idx:
+        if tuple(i.shape) != (R,):
+            raise ValueError(f"slot index must be [{R}], got {tuple(i.shape)}")
+        if i.dtype != torch.int32:
+            raise TypeError(f"slot index must be int32, got {i.dtype}")
+        tensors.append(i)
+    device = buffers.device
+    for t in tensors:
+        if t.device != device:
+            raise ValueError(f"operands on {t.device} and {device}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {device}")
+    return device.type == "cuda"
+
+
+def _launch(name: str, buffers: torch.Tensor, *args) -> None:
+    from . import _build
+
+    lib = _build.load("block_pack")
+    R, nslots, bs = buffers.shape
+    device = buffers.device
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, name + "_launch")(
+        *args, R, nslots, bs * buffers.element_size(), device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed: CUDA error {err} "
+                           f"({lib.block_pack_error_string(err).decode()})")
+    LAUNCHES[name] += 1
+
+
+def block_pack(buffers: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """buffers: [R, nslots, bs]; idx: [R] int32 slot per row -> [R, bs]
+    with ``out[r] = buffers[r, idx[r]]`` (the round's send blocks)."""
+    if not _check(buffers, None, idx):
+        return ref.block_pack_ref(buffers, idx)
+    out = torch.empty((buffers.shape[0], buffers.shape[2]),
+                      dtype=buffers.dtype, device=buffers.device)
+    if out.numel():
+        _launch("block_pack", buffers, buffers.data_ptr(),
+                idx.data_ptr(), out.data_ptr())
+    return out
+
+
+def block_unpack(buffers: torch.Tensor, msg: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """``buffers[r, idx[r]] = msg[r]`` in place; returns ``buffers``
+    (untouched slots keep their contents)."""
+    if not _check(buffers, msg, idx):
+        return ref.block_unpack_ref(buffers, msg, idx)
+    if msg.numel():
+        _launch("block_unpack", buffers, buffers.data_ptr(),
+                msg.data_ptr(), idx.data_ptr())
+    return buffers
+
+
+def block_shuffle(buffers: torch.Tensor, msg: torch.Tensor,
+                  recv_idx: torch.Tensor, send_idx: torch.Tensor):
+    """Fused unpack(t) + pack(t+1), in place -> ``(buffers, out_msg)``:
+    ``buffers[r, recv_idx[r]] = msg[r]``, then ``out_msg[r] =
+    buffers[r, send_idx[r]]`` read from the updated buffer (the round-t+1
+    send of a round-t delivery).  ``msg`` must not overlap ``buffers``."""
+    if not _check(buffers, msg, recv_idx, send_idx):
+        return ref.block_shuffle_ref(buffers, msg, recv_idx, send_idx)
+    out = torch.empty_like(msg)
+    if msg.numel():
+        _launch("block_shuffle", buffers, buffers.data_ptr(),
+                msg.data_ptr(), recv_idx.data_ptr(), send_idx.data_ptr(),
+                out.data_ptr())
+    return buffers, out

@@ -1,0 +1,95 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, its entry points do not fall back to
+the CPU, and the ``"cuda"`` path leaves the kernels' work to the
+kernels."""
+
+import ast
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.core import host_plan, simulate_broadcast
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+_FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
+
+
+def _env():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(ROOT / "src")
+    return env
+
+
+def test_importing_the_port_loads_no_jax_and_no_repro():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('isolated', len([m for m in sys.modules if m.startswith('repro_torch')]))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=_env(), timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_import_in_source(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or ""]
+        else:
+            continue
+        bad = [n for n in names if _FORBIDDEN.match(n)]
+        assert not bad, f"{path}:{node.lineno} imports {bad}"
+
+
+def test_cuda_path_holds_no_library_indexing():
+    # What the kernels compute must not be done by library gathers or
+    # scatters on the "cuda" path; only ref.py (the plain versions) may.
+    pattern = re.compile(r"\b(gather|index_select|take_along_dim|index_put_?)\b")
+    for name in ("kernels/block_pack.py", "core/comm.py", "core/roundstep.py"):
+        src = (PKG / name).read_text()
+        assert not pattern.search(src), name
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        host_plan("broadcast", 5, 3)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate_broadcast(5, 3, backend="cuda")
+
+
+def _run_smoke(cwd):
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          capture_output=True, text=True, timeout=120,
+                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+
+
+def test_chip_smoke_fails_without_a_card():
+    res = _run_smoke(ROOT)
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr
+    assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    res = _run_smoke(tmp_path)
+    assert res.returncode != 0 and "checkout" in res.stderr
+    assert '"ok"' not in res.stdout
