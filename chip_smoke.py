@@ -4,21 +4,34 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each kernel against its plain
-PyTorch version on the card (at the broadcast path's shapes and at a
-small odd shape in several dtypes), then drives the port's main path
-through its entry point: the paper's n-block circulant broadcast of a
-16 MiB float32 payload from root 100 to p = 1152 ranks (the paper's
-36 x 32 cluster), n = 58 blocks in 68 rounds, on a [1152, 59, 72316]
-float32 buffer.  It checks that every rank holds the root's payload,
-that the result equals the plain ("torch") backend's bit for bit, and
-that the path launched each kernel (pack 1, shuffle 67, unpack 1).
+``src/repro_torch/kernels/csrc``, holds each of the six kernels against
+its plain PyTorch version on the card (at the main path's shapes, and at
+a small odd shape in several dtypes and in both ops), then drives the
+port's paths through their entry points at p = 1152 ranks (the paper's
+36 x 32 cluster):
 
-Every phase prints one JSON line.  The last line is
-``{"ok": true, "device": {...}}``; any failed check ends the run with a
-nonzero exit before it.  Without a CUDA device, or outside a checkout,
-the script exits nonzero and prints no result.  It imports nothing of
-JAX and nothing of the JAX package.
+  * broadcast: a 16 MiB float32 payload from root 100, n = 58 blocks in
+    68 rounds on a [1152, 59, 72316] float32 buffer; every rank must hold
+    the payload, the "cuda" backend must equal the "torch" one, and the
+    overlapped round loop must equal the sequential one;
+  * reduce (sum and max) and allreduce: 16 MiB float32 contributions per
+    rank made on the card, n = 58, 68 rounds, root 100, on a
+    [1152, 60, 72316] buffer; the root must hold the exact sum of
+    integer-valued contributions (and their max) with every other rank
+    drained, "cuda" must equal "torch" on standard-normal contributions,
+    the overlapped loop must equal the sequential one, and allreduce
+    must leave the sum on every rank;
+  * allgather: 8 KiB float32 per rank, n = 43, 53 rounds, on
+    [1152 * 1152, 44, 48] rank-major rows; every rank must hold every
+    rank's blocks, "cuda" must equal "torch", overlapped must equal
+    sequential.
+
+Each path is run with the launch counts set to 0 just before it and read
+just after, and must have gone through its kernels.  Every phase prints
+one JSON line.  The last line is ``{"ok": true, "device": {...}}``; any
+failed check ends the run with a nonzero exit before it.  Without a CUDA
+device, or outside a checkout, the script exits nonzero and prints no
+result.  It imports nothing of JAX and nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -34,7 +47,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 P = 1152                      # ranks: the paper's 36 x 32 cluster
-PAYLOAD_BYTES = 16 << 20      # 16 MiB float32 payload at the root
+PAYLOAD_BYTES = 16 << 20      # 16 MiB float32 per rank (broadcast, reduce)
+GATHER_BYTES = 8 << 10        # 8 KiB float32 per rank (allgather)
 BCAST_ROOT = 100              # a nonzero root catches relabelling faults
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -44,6 +58,15 @@ REPLACES = {
     "block_pack": "src/repro/kernels/block_pack.py:140",
     "block_unpack": "src/repro/kernels/block_pack.py:172",
     "block_shuffle": "src/repro/kernels/block_pack.py:216",
+    "block_shuffle_staged": "src/repro/kernels/block_pack.py:273",
+    "block_acc_shuffle": "src/repro/kernels/block_pack.py:342",
+    "block_acc_shuffle_staged": "src/repro/kernels/block_pack.py:417",
+}
+#: The path whose run gives each kernel's launch count in the kernels line.
+PATH_OF = {
+    "block_pack": "broadcast", "block_unpack": "broadcast",
+    "block_shuffle": "broadcast", "block_shuffle_staged": "broadcast_overlap",
+    "block_acc_shuffle": "reduce", "block_acc_shuffle_staged": "reduce_overlap",
 }
 
 
@@ -75,19 +98,52 @@ def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
+def median_ms(torch, fn, runs: int):
+    """Median and list of ``runs`` single-call device times (the first
+    run warms up)."""
+    times = [cuda_ms(torch, fn, 1, warm=int(i == 0)) for i in range(runs)]
+    return sorted(times)[runs // 2], times
+
+
+def bits(torch, t):
+    """``t`` viewed as integers of its width, so NaN lanes compare by bits."""
+    width = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    return t.view(width[t.element_size()])
+
+
+def same_bits(torch, a, b, rows: int = 64) -> bool:
+    """Bitwise equality over the leading dimension in chunks (no
+    full-size temporaries on a 20 GB buffer)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    return all(torch.equal(bits(torch, a[i:i + rows]), bits(torch, b[i:i + rows]))
+               for i in range(0, a.shape[0], rows))
+
+
 def max_abs_err(torch, a, b, rows: int = 64) -> float:
-    """max |a - b| over the leading dimension in chunks (no full-size
-    temporaries on a 20 GB buffer)."""
+    """max |a - b| over the leading dimension in chunks; elements equal
+    bit for bit count 0 (so matching infinities and NaNs do too)."""
     worst = 0.0
     for i in range(0, a.shape[0], rows):
-        d = (a[i:i + rows].double() - b[i:i + rows].double()).abs().max()
-        worst = max(worst, float(d))
+        x, y = a[i:i + rows], b[i:i + rows]
+        d = (x.double() - y.double()).abs()
+        d[bits(torch, x) == bits(torch, y)] = 0
+        worst = max(worst, float(d.max()))
     return worst
+
+
+def all_equal_to(torch, t, value, rows: int = 64) -> bool:
+    return all(bool((t[i:i + rows] == value).all())
+               for i in range(0, t.shape[0], rows))
+
+
+def ms_of_bytes(nbytes: float) -> float:
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def random_operands(torch, g, R, nslots, bs, dtype):
     """Random buffer, message and slot vectors; about a quarter of the
-    rows take the pipeline case send == recv."""
+    rows take the case of coinciding slots (send == recv, fwd == acc)."""
     dev = "cuda"
     if dtype.is_floating_point:
         buf = torch.randn((R, nslots, bs), generator=g, device=dev).to(dtype)
@@ -107,26 +163,28 @@ def random_operands(torch, g, R, nslots, bs, dtype):
 
 
 def compare_kernels(torch, bp, ref, g, R, nslots, bs, dtype, timed: bool):
-    """Each kernel vs its plain version (torch.equal) on the same inputs;
-    at the path's shapes also their times.  Returns {name: record}."""
+    """The broadcast's kernels vs their plain versions (bitwise) on the
+    same inputs; at the path's shapes also their times.  Returns
+    {name: record}."""
     buf, msg, recv, send = random_operands(torch, g, R, nslots, bs, dtype)
     out = {}
     k = bp.block_pack(buf, send)
     r = ref.block_pack_ref(buf, send)
-    check(torch.equal(k, r), f"block_pack != plain at {R, nslots, bs} {dtype}")
+    check(same_bits(torch, k, r), f"block_pack != plain at {R, nslots, bs} {dtype}")
     out["block_pack"] = {"max_abs_err": max_abs_err(torch, k, r)}
     del k, r
 
     snap = buf.clone()
     bp.block_unpack(buf, msg, recv)
     ref.block_unpack_ref(snap, msg, recv)
-    check(torch.equal(buf, snap), f"block_unpack != plain at {R, nslots, bs} {dtype}")
+    check(same_bits(torch, buf, snap),
+          f"block_unpack != plain at {R, nslots, bs} {dtype}")
     out["block_unpack"] = {"max_abs_err": max_abs_err(torch, buf, snap)}
 
     snap.copy_(buf)
     _, k = bp.block_shuffle(buf, msg, recv, send)
     _, r = ref.block_shuffle_ref(snap, msg, recv, send)
-    check(torch.equal(buf, snap) and torch.equal(k, r),
+    check(same_bits(torch, buf, snap) and same_bits(torch, k, r),
           f"block_shuffle != plain at {R, nslots, bs} {dtype}")
     out["block_shuffle"] = {"max_abs_err": max(max_abs_err(torch, buf, snap),
                                                max_abs_err(torch, k, r))}
@@ -145,18 +203,133 @@ def compare_kernels(torch, bp, ref, g, R, nslots, bs, dtype, timed: bool):
         ms=cuda_ms(torch, lambda: bp.block_pack(buf, send), 10),
         plain_ms=cuda_ms(torch, lambda: ref.block_pack_ref(buf, send), 5),
         library_ms=cuda_ms(torch, lambda: torch.gather(buf, 1, gidx), 5),
-        bound_ms=2 * R * row_bytes / HBM_BYTES_PER_S * 1e3)
+        bound_ms=ms_of_bytes(2 * R * row_bytes))
     out["block_unpack"].update(
         ms=cuda_ms(torch, lambda: bp.block_unpack(buf, msg, recv), 10),
         plain_ms=cuda_ms(torch, lambda: ref.block_unpack_ref(buf, msg, recv), 5),
         library_ms=cuda_ms(torch, lambda: buf.index_put_((rows, recv.long()), msg), 5),
-        bound_ms=2 * R * row_bytes / HBM_BYTES_PER_S * 1e3)
+        bound_ms=ms_of_bytes(2 * R * row_bytes))
     out["block_shuffle"].update(
         ms=cuda_ms(torch, lambda: bp.block_shuffle(buf, msg, recv, send), 10),
         plain_ms=cuda_ms(torch, lambda: ref.block_shuffle_ref(buf, msg, recv, send), 5),
         library_ms=None,
-        bound_ms=(4 * R - coincide) * row_bytes / HBM_BYTES_PER_S * 1e3)
+        bound_ms=ms_of_bytes((4 * R - coincide) * row_bytes))
     return out
+
+
+def seed_specials(torch, buf, msg):
+    """NaN, +-0 and the least f32 denormal at fixed places of a float
+    buffer and message (the cases where max and sum are easiest to get
+    wrong)."""
+    fb, fm = buf.view(-1), msg.view(-1)
+    fb[0::7] = float("nan")
+    fm[1::11] = float("nan")
+    fb[2::5], fm[2::5] = -0.0, 0.0
+    fb[3::5], fm[3::5] = 0.0, -0.0
+    fb[4::13], fm[4::13] = 1e-45, 1e-45
+
+
+def compare_reduce_kernels(torch, bp, ref, g, R, nslots, bs, dtype, op,
+                           timed: bool, specials: bool = False):
+    """The three kernels of this slice vs their plain versions (bitwise)
+    on the same inputs; at the reduce path's shapes also their times.
+    Returns {name: record}."""
+    buf, msg, acc, fwd = random_operands(torch, g, R, nslots, bs, dtype)
+    if specials:
+        seed_specials(torch, buf, msg)
+    where = f"at {R, nslots, bs} {dtype} {op}"
+    out = {}
+    snap = buf.clone()
+    pre = ref.block_pack_ref(buf, fwd)
+    _, k = bp.block_shuffle_staged(buf, msg, pre, acc, fwd)
+    _, r = ref.block_shuffle_staged_ref(snap, msg, pre, acc, fwd)
+    check(same_bits(torch, buf, snap) and same_bits(torch, k, r),
+          f"block_shuffle_staged != plain {where}")
+    out["block_shuffle_staged"] = {"max_abs_err": max(
+        max_abs_err(torch, buf, snap), max_abs_err(torch, k, r))}
+
+    snap.copy_(buf)
+    _, k = bp.block_acc_shuffle(buf, msg, acc, fwd, op=op)
+    _, r = ref.block_acc_shuffle_ref(snap, msg, acc, fwd, op)
+    check(same_bits(torch, buf, snap) and same_bits(torch, k, r),
+          f"block_acc_shuffle != plain {where}")
+    out["block_acc_shuffle"] = {"max_abs_err": max(
+        max_abs_err(torch, buf, snap), max_abs_err(torch, k, r))}
+
+    pre = ref.block_pack_ref(buf, fwd)
+    snap.copy_(buf)
+    _, k = bp.block_acc_shuffle_staged(buf, msg, pre, acc, fwd, op=op)
+    _, r = ref.block_acc_shuffle_staged_ref(snap, msg, pre, acc, fwd, op)
+    check(same_bits(torch, buf, snap) and same_bits(torch, k, r),
+          f"block_acc_shuffle_staged != plain {where}")
+    out["block_acc_shuffle_staged"] = {"max_abs_err": max(
+        max_abs_err(torch, buf, snap), max_abs_err(torch, k, r))}
+    del snap, k, r
+    torch.cuda.synchronize()
+    if not timed:
+        return out
+
+    row_bytes = bs * buf.element_size()
+    coincide = int((acc == fwd).sum())
+    out["block_shuffle_staged"].update(
+        ms=cuda_ms(torch, lambda: bp.block_shuffle_staged(buf, msg, pre, acc, fwd), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.block_shuffle_staged_ref(
+            buf, msg, pre, acc, fwd), 5),
+        library_ms=None,
+        bound_ms=ms_of_bytes((4 * R - coincide) * row_bytes))
+    out["block_acc_shuffle"].update(
+        ms=cuda_ms(torch, lambda: bp.block_acc_shuffle(buf, msg, acc, fwd, op=op), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.block_acc_shuffle_ref(
+            buf, msg, acc, fwd, op), 5),
+        library_ms=None,
+        bound_ms=ms_of_bytes((6 * R - 2 * coincide) * row_bytes))
+    out["block_acc_shuffle_staged"].update(
+        ms=cuda_ms(torch, lambda: bp.block_acc_shuffle_staged(
+            buf, msg, pre, acc, fwd, op=op), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.block_acc_shuffle_staged_ref(
+            buf, msg, pre, acc, fwd, op), 5),
+        library_ms=None,
+        bound_ms=ms_of_bytes((6 * R - 2 * coincide) * row_bytes))
+    return out
+
+
+def counted_run(torch, bp, fn):
+    """``fn()`` with every launch count set to 0 just before it and read
+    just after -> (result, {kernel: launches > 0})."""
+    bp.reset_launches()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {k: v for k, v in bp.LAUNCHES.items() if v}
+
+
+def bcast_bytes(P_, n, rows, row, recv_h, send_h, upload_rows) -> dict:
+    """Bytes the broadcast must move, from the plan's own tables."""
+    coincide = sum(int((recv_h[t] == send_h[t + 1]).sum())
+                   for t in range(rows - 1))
+    return {
+        "zero_fill": P_ * (n + 1) * row,
+        "root_upload": upload_rows * n * row,
+        "pack": 2 * P_ * row,
+        "roll": rows * 2 * P_ * row,
+        # a row whose receive slot is its next send slot reads nothing of buf
+        "shuffle": (4 * (rows - 1) * P_ - coincide) * row,
+        "unpack": 2 * P_ * row,
+    }, coincide
+
+
+def reduce_bytes(P_, n, R, row, fwd_h, acc_h) -> dict:
+    """Bytes the reduce must move, from the plan's own tables: a row of an
+    acc_shuffle whose acc slot is its fwd slot moves four rows, not six."""
+    nxt = list(fwd_h[1:]) + [[n] * P_]
+    coincide = int((fwd_h[0] == n).sum()) + sum(
+        int((acc_h[t] == nxt[t]).sum()) for t in range(R))
+    return {
+        "initial_copy": 2 * P_ * n * row,
+        "fills": 2 * P_ * row,
+        "zero_message": P_ * row,
+        "roll": R * 2 * P_ * row,
+        "acc_shuffle": (6 * (R + 1) * P_ - 2 * coincide) * row,
+    }, coincide
 
 
 def main() -> None:
@@ -173,7 +346,9 @@ def main() -> None:
         get_bundle,
         host_plan,
         num_rounds,
+        optimal_num_blocks_allgather,
         optimal_num_blocks_bcast,
+        optimal_num_blocks_reduce,
         verify_bundle,
     )
     from repro_torch.kernels import _build, ref
@@ -197,12 +372,17 @@ def main() -> None:
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
     emit({"phase": "build", "seconds": build_s, "nvcc": _build.nvcc_path(),
-          "ptxas": ptxas})
+          "ptxas_lines": len(ptxas),
+          "max_registers": max(int(ln.split("Used ")[1].split()[0])
+                               for ln in ptxas if "registers" in ln),
+          "spills": sorted({ln for ln in ptxas if "spill" in ln})})
 
     # 3. kernels vs plain versions on the card
     n = optimal_num_blocks_bcast(P, PAYLOAD_BYTES, DEFAULT_MODEL)
+    n_red = optimal_num_blocks_reduce(P, PAYLOAD_BYTES, DEFAULT_MODEL)
     elems = PAYLOAD_BYTES // 4
     bs = math.ceil(elems / n)
+    bs_red = math.ceil(elems / n_red)
     g = torch.Generator(device="cuda").manual_seed(SEED)
     kern = compare_kernels(torch, bp, ref, g, P, n + 1, bs, torch.float32,
                            timed=True)
@@ -215,8 +395,34 @@ def main() -> None:
               "dtype": str(dtype).removeprefix("torch."), "equal": True,
               "max_abs_diff": {k: v["max_abs_err"] for k, v in odd.items()}})
     torch.cuda.empty_cache()
+    for op in ("max", "sum"):       # sum last: its times go in the kernels line
+        rec = compare_reduce_kernels(torch, bp, ref, g, P, n_red + 2, bs_red,
+                                     torch.float32, op, timed=op == "sum")
+        emit({"phase": "kernels_vs_plain", "shape": [P, n_red + 2, bs_red],
+              "dtype": "float32", "op": op, "equal": True,
+              "max_abs_diff": {k: v["max_abs_err"] for k, v in rec.items()}})
+        torch.cuda.empty_cache()
+    kern.update(rec)
+    for dtype in (torch.bfloat16, torch.float16, torch.float64, torch.int64,
+                  torch.int32, torch.int8):
+        for op in ("sum", "max"):
+            odd = compare_reduce_kernels(torch, bp, ref, g, *ODD, dtype, op,
+                                         timed=False)
+            emit({"phase": "kernels_vs_plain", "shape": list(ODD),
+                  "dtype": str(dtype).removeprefix("torch."), "op": op,
+                  "equal": True,
+                  "max_abs_diff": {k: v["max_abs_err"] for k, v in odd.items()}})
+    for op in ("sum", "max"):
+        odd = compare_reduce_kernels(torch, bp, ref, g, *ODD, torch.float32, op,
+                                     timed=False, specials=True)
+        emit({"phase": "kernels_vs_plain", "shape": list(ODD),
+              "dtype": "float32", "op": op, "inputs": "nan, +-0, denormal",
+              "equal": True,
+              "max_abs_diff": {k: v["max_abs_err"] for k, v in odd.items()}})
 
-    # 4. the path: the broadcast through its entry point
+    launches = {}               # kernel -> launches on its path's run
+
+    # 4. the broadcast through its entry point, sequential and overlapped
     t0 = time.perf_counter()
     for root in (0, BCAST_ROOT):
         verify_bundle(get_bundle(P, root))
@@ -230,12 +436,10 @@ def main() -> None:
     values = flat.reshape(n, bs)
 
     plan = host_plan("broadcast", P, n, root=BCAST_ROOT, backend="cuda")
-    bp.reset_launches()
-    out = plan.run(values)
-    torch.cuda.synchronize()
-    launches = dict(bp.LAUNCHES)
+    out, got = counted_run(torch, bp, lambda: plan.run(values))
     expect = {"block_pack": 1, "block_shuffle": rounds - 1, "block_unpack": 1}
-    check(launches == expect, f"launches {launches} != {expect}")
+    check(got == expect, f"broadcast launches {got} != {expect}")
+    launches.update(got)
     check(tuple(out.shape) == (P, n, bs), f"result shape {tuple(out.shape)}")
     vals_dev = torch.from_numpy(values).cuda()
     for i in range(0, P, 64):
@@ -244,18 +448,24 @@ def main() -> None:
               f"ranks {i}..{j - 1} do not hold the root payload")
     out_plain = host_plan("broadcast", P, n, root=BCAST_ROOT,
                           backend="torch").run(values)
-    check(torch.equal(out, out_plain), "cuda backend != torch backend")
-    del out, out_plain
+    check(same_bits(torch, out, out_plain), "broadcast: cuda backend != torch backend")
+    del out_plain
+    plan_ov = host_plan("broadcast", P, n, root=BCAST_ROOT, overlap=True)
+    out_ov, got = counted_run(torch, bp, lambda: plan_ov.run(values))
+    expect = {"block_pack": rounds, "block_shuffle_staged": rounds - 1,
+              "block_unpack": 1}
+    check(got == expect, f"overlapped broadcast launches {got} != {expect}")
+    launches["block_shuffle_staged"] = got["block_shuffle_staged"]
+    check(same_bits(torch, out_ov, out), "overlapped broadcast != sequential")
+    del out, out_ov
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    reps = 5
-    times = [cuda_ms(torch, lambda: plan.run(values), 1, warm=int(i == 0))
-             for i in range(reps)]
+    bcast_ms, times = median_ms(torch, lambda: plan.run(values), 5)
     peak_bytes = torch.cuda.max_memory_allocated()
     plain = host_plan("broadcast", P, n, root=BCAST_ROOT, backend="torch")
-    plain_times = [cuda_ms(torch, lambda: plain.run(values), 1,
-                           warm=int(i == 0)) for i in range(3)]
+    plain_ms, plain_times = median_ms(torch, lambda: plain.run(values), 3)
+    ov_ms, ov_times = median_ms(torch, lambda: plan_ov.run(values), 5)
     zeros_ms = cuda_ms(torch, lambda: torch.zeros((P, n + 1, bs),
                                                   device="cuda"), 3)
     upload_ms = cuda_ms(torch, lambda: vals_dev.copy_(torch.from_numpy(values)), 3)
@@ -282,37 +492,264 @@ def main() -> None:
     del work, msg
 
     row = bs * 4
-    recv_h, send_h = plan.slots
-    coincide = sum(int((recv_h[t] == send_h[t + 1]).sum())
-                   for t in range(rounds - 1))
-    bytes_moved = {
-        "zero_fill": P * (n + 1) * row,
-        "root_upload": n * row,
-        "pack": 2 * P * row,
-        "roll": rounds * 2 * P * row,
-        # a row whose receive slot is its next send slot reads nothing of buf
-        "shuffle": (4 * (rounds - 1) * P - coincide) * row,
-        "unpack": 2 * P * row,
-    }
-    total_bytes = sum(bytes_moved.values())
+    bytes_moved, coincide = bcast_bytes(P, n, rounds, row, *plan.slots,
+                                        upload_rows=1)
+    bcast_bound_bytes = sum(bytes_moved.values())
+    # The overlapped loop packs the next send block each round as well.
+    ov_bytes = bcast_bound_bytes + (rounds - 1) * 2 * P * row
     emit({"phase": "broadcast", "p": P, "n": n, "bs": bs, "rounds": rounds,
           "root": BCAST_ROOT, "payload_bytes": PAYLOAD_BYTES,
-          "buffer_bytes": P * (n + 1) * row, "launches": launches,
+          "buffer_bytes": P * (n + 1) * row,
+          "launches": {k: launches[k] for k in
+                       ("block_pack", "block_shuffle", "block_unpack")},
           "all_ranks_hold_payload": True, "equal_to_torch_backend": True,
-          "ms": sorted(times)[reps // 2], "ms_runs": times,
-          "plain_ms": sorted(plain_times)[1], "plain_ms_runs": plain_times,
-          "bytes_moved": total_bytes, "bytes_by_step": bytes_moved,
-          "bytes_bound_ms": total_bytes / HBM_BYTES_PER_S * 1e3,
+          "ms": bcast_ms, "ms_runs": times,
+          "plain_ms": plain_ms, "plain_ms_runs": plain_times,
+          "bytes_moved": bcast_bound_bytes, "bytes_by_step": bytes_moved,
+          "bytes_bound_ms": ms_of_bytes(bcast_bound_bytes),
           "shuffle_rows_recv_eq_next_send": coincide,
           "breakdown_ms": {"zero_fill": zeros_ms, "root_upload": upload_ms,
                            **step_ms},
           "max_memory_allocated": peak_bytes,
           "card": card})
+    emit({"phase": "broadcast_overlap", "p": P, "n": n, "rounds": rounds,
+          "launches": {"block_pack": rounds, "block_shuffle_staged": rounds - 1,
+                       "block_unpack": 1},
+          "equal_to_sequential": True, "ms": ov_ms, "ms_runs": ov_times,
+          "sequential_ms": bcast_ms, "bytes_bound_ms": ms_of_bytes(ov_bytes),
+          "card": card})
+    del vals_dev
+    torch.cuda.empty_cache()
 
-    # 5. the kernels line, with the path's launch counts
+    # 5. reduce, max, overlapped reduce and allreduce (contributions on the card)
+    R = num_rounds(P, n_red)
+    torch.cuda.reset_peak_memory_stats()
+    contrib = torch.randint(-8, 9, (P, n_red, bs_red), generator=g,
+                            device="cuda", dtype=torch.float32)
+    contrib.view(P, -1)[:, elems:] = 0           # the last block's padding
+    plan_r = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum")
+    out, got = counted_run(torch, bp, lambda: plan_r.run(contrib))
+    check(got == {"block_acc_shuffle": R + 1},
+          f"reduce launches {got} != {{'block_acc_shuffle': {R + 1}}}")
+    launches["block_acc_shuffle"] = got["block_acc_shuffle"]
+    exact = contrib.sum(0)
+    check(torch.equal(out[BCAST_ROOT], exact), "reduce: root != values.sum(0)")
+    check(all_equal_to(torch, out[:BCAST_ROOT], 0)
+          and all_equal_to(torch, out[BCAST_ROOT + 1:], 0),
+          "reduce: a non-root rank was not drained to 0")
+    root_rows = out[BCAST_ROOT].clone()
+    del out
+    plan_rov = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum",
+                         overlap=True)
+    out, got = counted_run(torch, bp, lambda: plan_rov.run(contrib))
+    expect = {"block_acc_shuffle": 1, "block_pack": R,
+              "block_acc_shuffle_staged": R}
+    check(got == expect, f"overlapped reduce launches {got} != {expect}")
+    launches["block_acc_shuffle_staged"] = got["block_acc_shuffle_staged"]
+    # Sequential non-root rows are all +0 (checked above), so this is the
+    # whole result compared bit for bit.
+    check(same_bits(torch, out[BCAST_ROOT], root_rows)
+          and all(same_bits(torch, out[r], torch.zeros_like(root_rows))
+                  for r in range(P) if r != BCAST_ROOT),
+          "overlapped reduce != sequential")
+    del out, root_rows
+    red_ms, red_times = median_ms(torch, lambda: plan_r.run(contrib), 5)
+    red_peak = torch.cuda.max_memory_allocated()
+    red_ov_ms, red_ov_times = median_ms(torch, lambda: plan_rov.run(contrib), 5)
+    plan_r_plain = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum",
+                             backend="torch")
+    red_plain_ms, red_plain_times = median_ms(
+        torch, lambda: plan_r_plain.run(contrib), 3)
+
+    # allreduce: reduce to the root, then broadcast the root's blocks
+    plan_b = host_plan("broadcast", P, n_red, root=BCAST_ROOT)
+
+    def allreduce():
+        return plan_b.run(plan_r.run(contrib)[BCAST_ROOT].clone())
+
+    torch.cuda.empty_cache()
+    out, got = counted_run(torch, bp, allreduce)
+    expect = {"block_acc_shuffle": R + 1, "block_pack": 1,
+              "block_shuffle": R - 1, "block_unpack": 1}
+    check(got == expect, f"allreduce launches {got} != {expect}")
+    for i in range(0, P, 64):
+        j = min(i + 64, P)
+        check(torch.equal(out[i:j], exact.expand(j - i, n_red, bs_red)),
+              f"allreduce: ranks {i}..{j - 1} do not hold values.sum(0)")
+    del out
+    allred_ms, allred_times = median_ms(torch, allreduce, 5)
+    allred_peak = torch.cuda.max_memory_allocated()
+    del exact
+    torch.cuda.empty_cache()
+
+    # standard-normal contributions: cuda == torch, bit for bit
+    contrib.normal_(generator=g)
+    contrib.view(P, -1)[:, elems:] = 0
+    root_rows = plan_r.run(contrib)[BCAST_ROOT].clone()
+    torch.cuda.empty_cache()
+    plain_root = plan_r_plain.run(contrib)[BCAST_ROOT].clone()
+    check(same_bits(torch, root_rows, plain_root),
+          "reduce: cuda backend != torch backend on normal contributions")
+    del root_rows, plain_root
+    torch.cuda.empty_cache()
+    plan_max = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="max")
+    out, got = counted_run(torch, bp, lambda: plan_max.run(contrib))
+    check(got == {"block_acc_shuffle": R + 1}, f"max launches {got}")
+    check(torch.equal(out[BCAST_ROOT], contrib.amax(0)),
+          "reduce max: root != values.amax(0)")
+    check(all_equal_to(torch, out[:BCAST_ROOT], float("-inf"))
+          and all_equal_to(torch, out[BCAST_ROOT + 1:], float("-inf")),
+          "reduce max: a non-root rank was not drained to -inf")
+    del out, contrib
+    torch.cuda.empty_cache()
+
+    # breakdown of one reduce, each step timed alone over the plan's own
+    # skips and slot rows on a buffer of the path's shape
+    row_r = bs_red * 4
+    work = torch.zeros((P, n_red + 2, bs_red), device="cuda")
+    src = torch.zeros((P, n_red, bs_red), device="cuda")
+    msg = torch.randn((P, bs_red), generator=g, device="cuda")
+    fwd_d, acc_d = plan_r.device_slots
+
+    def red_fills():
+        work[:, n_red].zero_()
+        work[:, n_red + 1].fill_(0)
+
+    def red_rolls():
+        for s in plan_r.skips:
+            torch.roll(msg, -s, dims=0)
+
+    def acc_shuffles():
+        bp.block_acc_shuffle(work, msg, fwd_d[R], fwd_d[0])
+        for t in range(R):
+            bp.block_acc_shuffle(work, msg, acc_d[t], fwd_d[t + 1])
+
+    red_steps = {
+        "initial_copy": cuda_ms(torch, lambda: work[:, :n_red].copy_(src), 3),
+        "fills": cuda_ms(torch, red_fills, 3),
+        "zero_message": cuda_ms(torch, lambda: torch.zeros((P, bs_red),
+                                                           device="cuda"), 3),
+        "roll": cuda_ms(torch, red_rolls, 1),
+        "acc_shuffle": cuda_ms(torch, acc_shuffles, 1),
+    }
+    del work, src, msg
+    torch.cuda.empty_cache()
+    red_bytes, red_coincide = reduce_bytes(P, n_red, R, row_r, *plan_r.slots)
+    red_bound = sum(red_bytes.values())
+    red_ov_bound = red_bound + R * 2 * P * row_r      # + the per-round pack
+    # The root's rows reach the broadcast by two device copies (the clone,
+    # then into the buffer): four row transfers per block.
+    bc_bytes, _ = bcast_bytes(P, n_red, R, row_r, *plan_b.slots, upload_rows=4)
+    allred_bound = red_bound + sum(bc_bytes.values())
+    emit({"phase": "reduce", "p": P, "n": n_red, "bs": bs_red, "rounds": R,
+          "root": BCAST_ROOT, "op": "sum", "payload_bytes": PAYLOAD_BYTES,
+          "buffer_bytes": P * (n_red + 2) * row_r,
+          "contribution_bytes": P * n_red * row_r,
+          "launches": {"block_acc_shuffle": R + 1},
+          "root_equals_exact_sum": True, "non_roots_drained": True,
+          "equal_to_torch_backend_on_normal_values": True,
+          "max_root_equals_amax": True, "max_non_roots_drained": True,
+          "ms": red_ms, "ms_runs": red_times,
+          "plain_ms": red_plain_ms, "plain_ms_runs": red_plain_times,
+          "bytes_moved": red_bound, "bytes_by_step": red_bytes,
+          "bytes_bound_ms": ms_of_bytes(red_bound),
+          "acc_rows_acc_eq_fwd": red_coincide,
+          "breakdown_ms": red_steps,
+          "max_memory_allocated": red_peak, "card": card})
+    emit({"phase": "reduce_overlap", "p": P, "n": n_red, "rounds": R,
+          "launches": {"block_acc_shuffle": 1, "block_pack": R,
+                       "block_acc_shuffle_staged": R},
+          "equal_to_sequential": True, "ms": red_ov_ms,
+          "ms_runs": red_ov_times, "sequential_ms": red_ms,
+          "bytes_bound_ms": ms_of_bytes(red_ov_bound), "card": card})
+    emit({"phase": "allreduce", "p": P, "n": n_red, "rounds": 2 * R,
+          "root": BCAST_ROOT, "op": "sum",
+          "launches": {"block_acc_shuffle": R + 1, "block_pack": 1,
+                       "block_shuffle": R - 1, "block_unpack": 1},
+          "every_rank_holds_exact_sum": True,
+          "ms": allred_ms, "ms_runs": allred_times,
+          "bytes_bound_ms": ms_of_bytes(allred_bound),
+          "max_memory_allocated": allred_peak, "card": card})
+
+    # 6. allgather, sequential and overlapped
+    n_ag = optimal_num_blocks_allgather(P, P * GATHER_BYTES, DEFAULT_MODEL)
+    ag_elems = GATHER_BYTES // 4
+    bs_ag = math.ceil(ag_elems / n_ag)
+    R_ag = num_rounds(P, n_ag)
+    t0 = time.perf_counter()
+    plan_ag = host_plan("allgather", P, n_ag)
+    plan_s = time.perf_counter() - t0
+    vals_ag = torch.zeros((P, n_ag, bs_ag), device="cuda")
+    vals_ag.view(P, -1)[:, :ag_elems] = torch.randn(
+        (P, ag_elems), generator=g, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    out, got = counted_run(torch, bp, lambda: plan_ag.run(vals_ag))
+    expect = {"block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1}
+    check(got == expect, f"allgather launches {got} != {expect}")
+    for i in range(0, P, 64):
+        j = min(i + 64, P)
+        check(torch.equal(out[i:j], vals_ag.expand(j - i, P, n_ag, bs_ag)),
+              f"allgather: ranks {i}..{j - 1} do not hold every rank's blocks")
+    plain_ag = host_plan("allgather", P, n_ag, backend="torch")
+    out_plain = plain_ag.run(vals_ag)
+    check(same_bits(torch, out, out_plain), "allgather: cuda backend != torch backend")
+    del out_plain
+    torch.cuda.empty_cache()
+    plan_agov = host_plan("allgather", P, n_ag, overlap=True)
+    out_ov, got = counted_run(torch, bp, lambda: plan_agov.run(vals_ag))
+    expect = {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
+              "block_unpack": 1}
+    check(got == expect, f"overlapped allgather launches {got} != {expect}")
+    check(same_bits(torch, out_ov, out), "overlapped allgather != sequential")
+    del out, out_ov
+    torch.cuda.empty_cache()
+    ag_ms, ag_times = median_ms(torch, lambda: plan_ag.run(vals_ag), 5)
+    ag_peak = torch.cuda.max_memory_allocated()
+    ag_ov_ms, ag_ov_times = median_ms(torch, lambda: plan_agov.run(vals_ag), 5)
+    ag_plain_ms, ag_plain_times = median_ms(torch, lambda: plain_ag.run(vals_ag), 3)
+    rows_ag, row_ag = P * P, bs_ag * 4
+    recv_rows, send_rows = plan_ag.device_slots
+    ag_coincide = sum(int((recv_rows[t] == send_rows[t + 1]).sum())
+                      for t in range(R_ag - 1))
+    idx = rows_ag * 4                                   # one int32 slot vector
+    ag_bytes = {
+        "zero_fill": rows_ag * (n_ag + 1) * row_ag,
+        "own_blocks": 2 * P * n_ag * row_ag,
+        "pack": 2 * rows_ag * row_ag + idx,
+        "roll": R_ag * 2 * rows_ag * row_ag,
+        "shuffle": (4 * (R_ag - 1) * rows_ag - ag_coincide) * row_ag
+        + (R_ag - 1) * 2 * idx,
+        "unpack": 2 * rows_ag * row_ag + idx,
+    }
+    ag_bound = sum(ag_bytes.values())
+    ag_ov_bound = ag_bound + (R_ag - 1) * (2 * rows_ag * row_ag + idx)
+    emit({"phase": "allgather", "p": P, "n": n_ag, "bs": bs_ag,
+          "rounds": R_ag, "bytes_per_rank": GATHER_BYTES,
+          "buffer_bytes": rows_ag * (n_ag + 1) * row_ag,
+          "plan_build_s": plan_s, "launches": {
+              "block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1},
+          "every_rank_holds_every_block": True,
+          "equal_to_torch_backend": True,
+          "ms": ag_ms, "ms_runs": ag_times,
+          "plain_ms": ag_plain_ms, "plain_ms_runs": ag_plain_times,
+          "bytes_moved": ag_bound, "bytes_by_step": ag_bytes,
+          "bytes_bound_ms": ms_of_bytes(ag_bound),
+          "shuffle_rows_recv_eq_next_send": ag_coincide,
+          "max_memory_allocated": ag_peak, "card": card})
+    emit({"phase": "allgather_overlap", "p": P, "n": n_ag, "rounds": R_ag,
+          "launches": {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
+                       "block_unpack": 1},
+          "equal_to_sequential": True, "ms": ag_ov_ms,
+          "ms_runs": ag_ov_times, "sequential_ms": ag_ms,
+          "bytes_bound_ms": ms_of_bytes(ag_ov_bound), "card": card})
+    del vals_ag
+    torch.cuda.empty_cache()
+
+    # 7. the kernels line, each kernel with the launch count of its path
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": REPLACES[name], "launches": launches[name],
+         "replaces": REPLACES[name], "path": PATH_OF[name],
+         "launches": launches[name],
          "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],
          "bound_ms": rec["bound_ms"], "bound_by": "bytes",

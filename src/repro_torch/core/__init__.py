@@ -1,17 +1,30 @@
 """Core of the port: schedules (Träff 2023) in O(log p), the cached
 schedule engine, verification, the cost model, the round-step data
-plane and the single-device broadcast host plan."""
+plane and the single-device host plans of the exact collectives
+(broadcast, allgather, reduce; sequential and overlapped)."""
 
 from .comm import HostDataPlan, host_plan
-from .costmodel import DEFAULT_MODEL, CommModel, optimal_num_blocks_bcast
+from .costmodel import (
+    DEFAULT_MODEL,
+    CommModel,
+    optimal_num_blocks_allgather,
+    optimal_num_blocks_allreduce,
+    optimal_num_blocks_bcast,
+    optimal_num_blocks_reduce,
+)
 from .engine import ScheduleBundle, cached_plan, get_bundle, plan_cache_limit
 from .roundstep import (
     PhaseStatic,
     RoundStep,
+    allgather_phase_static,
     broadcast_phase_static,
     broadcast_slot_plan,
     clamp_slots,
     get_round_step,
+    reduce_phase_static,
+    reduce_slot_plan,
+    scatter_phase_static,
+    scatter_slot_plan,
 )
 from .schedule import (
     baseblock,
@@ -23,7 +36,14 @@ from .schedule import (
     send_schedule,
     virtual_rounds,
 )
-from .simulator import SimResult, simulate_broadcast
+from .simulator import (
+    SimResult,
+    simulate_allbroadcast,
+    simulate_allgather,
+    simulate_allreduce,
+    simulate_broadcast,
+    simulate_reduce,
+)
 from .verify import verify_bundle, verify_reversed_schedules, verify_schedules
 
 __all__ = [
@@ -31,17 +51,25 @@ __all__ = [
     "host_plan",
     "DEFAULT_MODEL",
     "CommModel",
+    "optimal_num_blocks_allgather",
+    "optimal_num_blocks_allreduce",
     "optimal_num_blocks_bcast",
+    "optimal_num_blocks_reduce",
     "ScheduleBundle",
     "cached_plan",
     "get_bundle",
     "plan_cache_limit",
     "PhaseStatic",
     "RoundStep",
+    "allgather_phase_static",
     "broadcast_phase_static",
     "broadcast_slot_plan",
     "clamp_slots",
     "get_round_step",
+    "reduce_phase_static",
+    "reduce_slot_plan",
+    "scatter_phase_static",
+    "scatter_slot_plan",
     "baseblock",
     "ceil_log2",
     "compute_skips",
@@ -51,7 +79,11 @@ __all__ = [
     "send_schedule",
     "virtual_rounds",
     "SimResult",
+    "simulate_allbroadcast",
+    "simulate_allgather",
+    "simulate_allreduce",
     "simulate_broadcast",
+    "simulate_reduce",
     "verify_bundle",
     "verify_reversed_schedules",
     "verify_schedules",

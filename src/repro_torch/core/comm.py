@@ -1,35 +1,53 @@
-"""Host data plans: the whole n-block broadcast on one device.
+"""Host data plans: whole collectives on one device.
 
 Port of the host data plans of ``repro.core.comm`` (``_as_blocks``,
-``HostDataPlan``, ``host_plan``), for ``kind="broadcast"``.  The p
-ranks are the rows of one ``[p, n+1, bs]`` buffer and the network
-exchange is a row rotation (the circulant round's r -> (r + skip) mod p
-is exactly ``torch.roll`` along the rank axis).  Each round is
-pack -> exchange -> shuffle, and the last round is unpack; the round
-steps are the backend's (:mod:`repro_torch.core.roundstep`).
+``HostDataPlan``, ``host_plan``) for the exact kinds: ``"broadcast"``,
+``"allgather"`` and ``"reduce"`` (allreduce is a reduce followed by a
+broadcast of the root's blocks).  The p ranks are the rows of one
+device buffer and the network exchange is a row rotation (the circulant
+round's r -> (r + skip) mod p is exactly ``torch.roll`` along the rank
+axis; the reduction's partials travel the other way, by ``-skip``).
+The round steps are the backend's (:mod:`repro_torch.core.roundstep`):
+
+  * broadcast: pack -> exchange -> shuffle, and the last round unpack,
+    on a ``[p, n+1, bs]`` buffer (slot n garbage);
+  * allgather: the same on ``[p*p, n+1, bs]`` rank-major rows (row
+    ``r*p + j`` is rank r's copy of root j's blocks), send slots from
+    Condition 2's base rotation of the one receive table;
+  * reduce: exchange -> acc_shuffle on a ``[p, n+2, bs]`` buffer (slot n
+    garbage, slot n+1 the op identity).
+
+``overlap=True`` runs the reference's overlapped round loop: each round
+packs the next send block from the pre-update buffer, then calls the
+staged step, all on the current stream in the reference's order.  It
+equals the sequential loop bit for bit.
 
 Plans are cached like the JAX package's: the clamped slot tables, the
-skip sequence and the step handle are resolved once per
-(p, n, root, backend, device), and the ``[R, p]`` int32 slot tables are
-uploaded to the device once per plan, not once per round.
+skip sequence and the step handle are resolved once per plan, and the
+int32 slot tables (for allgather the ``[R, p*p]`` row tables) are built
+on the device once per plan, not once per round.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple, Union
+from typing import Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from ..kernels.reduce_ops import _validate, op_identity
 from .engine import cached_plan, get_bundle
 from .roundstep import (
     BACKENDS,
     PhaseStatic,
     RoundStep,
+    allgather_phase_static,
     broadcast_phase_static,
     broadcast_slot_plan,
     get_round_step,
+    reduce_phase_static,
+    reduce_slot_plan,
 )
 
 __all__ = ["HostDataPlan", "host_plan", "resolve_device"]
@@ -37,10 +55,13 @@ __all__ = ["HostDataPlan", "host_plan", "resolve_device"]
 #: Kinds of the JAX package's host plans, with the ROADMAP item that
 #: ports each one this slice does not.
 _LATER_KINDS = {
-    "reduce": "Queue 1 item 3 (reduce and allreduce data plane)",
-    "allgather": "Queue 1 item 4 (allgather and allbroadcast data plane)",
     "quantized_allreduce": "Queue 1 item 6 (quantized allreduce)",
 }
+
+#: The ported kinds, with the audit record of each one's phase.
+_STATICS = {"broadcast": broadcast_phase_static,
+            "allgather": allgather_phase_static,
+            "reduce": reduce_phase_static}
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -67,6 +88,26 @@ def _as_tensor(values) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(values))
 
 
+def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(np.array(table, np.int32)).to(device)
+
+
+def _allgather_rows(recv: np.ndarray, skips: Tuple[int, ...], p: int,
+                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The allgather's [R, p*p] int32 row-slot tables, built on the
+    device: row ``r*p + j`` (rank r, root j) of round t takes
+    ``recv[t][(r - j + shift) % p]`` (Condition 2's base rotation), with
+    shift 0 for the receive slots and ``skips[t]`` for the send slots."""
+    recv_d = _upload(recv, device)
+    r = torch.arange(p, device=device)
+    base = (r[:, None] - r[None, :]).remainder(p).reshape(-1)
+    recv_rows = recv_d[:, base]
+    send_rows = torch.empty_like(recv_rows)
+    for t, s in enumerate(skips):
+        send_rows[t] = recv_d[t][(base + s) % p]
+    return recv_rows, send_rows
+
+
 @dataclass(frozen=True, eq=False)
 class HostDataPlan:
     """Precomputed single-device data-plane execution: slot tables (on
@@ -78,24 +119,57 @@ class HostDataPlan:
     p: int
     n: int
     root: int
+    op: Optional[str]
     backend: str
     device: torch.device
     slots: Tuple[np.ndarray, ...] = field(repr=False)
     ks: np.ndarray = field(repr=False)
     skips: Tuple[int, ...] = field(repr=False)
     step: RoundStep = field(repr=False)
-    #: ``slots`` as int32 tensors on ``device``, uploaded once.
+    #: The slot tables the rounds index, as int32 tensors on ``device``,
+    #: built once: broadcast ``(recv, send)`` [R, p]; allgather
+    #: ``(recv_rows, send_rows)`` [R, p*p]; reduce ``(fwd, acc)`` with
+    #: ``fwd`` [R+1, p], its last row the garbage slot n (the capture
+    #: slot after the last round).
     device_slots: Tuple[torch.Tensor, ...] = field(repr=False)
+    overlap: bool = False
 
     @property
     def statics(self) -> Tuple[PhaseStatic, ...]:
         """Auditable per-phase schedule statics.  Built from the same
         process-cached slot plans ``run`` executes, so the audited arrays
         ARE the executed ones by identity."""
-        return (broadcast_phase_static(get_bundle(self.p, self.root), self.n),)
+        return (_STATICS[self.kind](get_bundle(self.p, self.root), self.n,
+                                    overlap=self.overlap),)
 
     def run(self, values) -> torch.Tensor:
-        return self._run_broadcast(values)
+        if self.kind == "broadcast":
+            return self._run_broadcast(values)
+        if self.kind == "allgather":
+            return self._run_allgather(values)
+        return self._run_reduce(values)
+
+    def _forward_rounds(self, buf, recv_rows, send_rows, roll):
+        """The broadcast family's round loop on ``buf`` (in place):
+        pack, then per round exchange (``roll(msg, t)``) and shuffle, the
+        last round unpack.  Overlapped: each round first packs the next
+        send block from the pre-update buffer, then takes the staged
+        shuffle."""
+        step, R = self.step, len(self.ks)
+        msg = step.pack(buf, send_rows[0])
+        for t in range(R):
+            got = roll(msg, t)
+            if t + 1 < R:
+                if self.overlap:
+                    pre = step.pack(buf, send_rows[t + 1])
+                    buf, msg = step.shuffle_staged(buf, got, pre, recv_rows[t],
+                                                   send_rows[t + 1])
+                else:
+                    buf, msg = step.shuffle(buf, got, recv_rows[t],
+                                            send_rows[t + 1])
+            else:
+                buf = step.unpack(buf, got, recv_rows[t])
+        return buf
 
     def _run_broadcast(self, values) -> torch.Tensor:
         """``values``: [n] (or [n, bs], or [n, ...]) block payloads at the
@@ -112,58 +186,124 @@ class HostDataPlan:
         buf = torch.zeros((p, n + 1, vals.shape[-1]), dtype=vals.dtype,
                           device=self.device)
         buf[self.root, :n] = vals
+        if len(self.ks):                             # p == 1: nothing moves
+            buf = self._forward_rounds(
+                buf, *self.device_slots,
+                lambda msg, t: torch.roll(msg, self.skips[t], dims=0))
+        return buf[:, :n]
+
+    def _run_allgather(self, values) -> torch.Tensor:
+        """``values``: [p, n(, bs)] per-root payloads -> the final
+        [p_rank, p_root, n, bs] data slots, a view of the device buffer
+        of p*p rank-major rows.  The exchange rolls the messages of all
+        p roots of a rank together: ``msg.view(p, p, bs)`` along dim 0."""
+        p, n = self.p, self.n
+        vals = _as_blocks(_as_tensor(values), 1)     # [p, n, bs]
+        if tuple(vals.shape[:2]) != (p, n):
+            raise ValueError(f"expected [{p}, {n}, ...] values, got "
+                             f"{tuple(vals.shape)}")
+        bs = vals.shape[-1]
+        buf = torch.zeros((p * p, n + 1, bs), dtype=vals.dtype,
+                          device=self.device)
+        buf[:: p + 1, :n] = vals                     # row j*p + j: root j's own
+        if len(self.ks):
+            buf = self._forward_rounds(
+                buf, *self.device_slots,
+                lambda msg, t: torch.roll(msg.view(p, p, bs), self.skips[t],
+                                          dims=0).view(p * p, bs))
+        return buf.view(p, p, n + 1, bs)[:, :, :n]
+
+    def _run_reduce(self, values) -> torch.Tensor:
+        """``values``: [p, n(, bs)] per-rank contributions, a numpy array or
+        a tensor (on the device already, it is not copied to the host) ->
+        the final [p, n, bs] data slots, a view of the device buffer: row
+        ``root`` holds the op-reduction, every other row is drained to the
+        op identity."""
+        p, n, op = self.p, self.n, self.op
+        vals = _as_blocks(_as_tensor(values), 1)     # [p, n, bs]
+        if tuple(vals.shape[:2]) != (p, n):
+            raise ValueError(f"expected [{p}, {n}, ...] values, got "
+                             f"{tuple(vals.shape)}")
+        bs = vals.shape[-1]
+        buf = torch.empty((p, n + 2, bs), dtype=vals.dtype, device=self.device)
+        buf[:, :n] = vals
+        buf[:, n].zero_()                            # garbage slot n
+        buf[:, n + 1].fill_(op_identity(op, vals.dtype))  # identity slot n+1
         R = len(self.ks)
-        if R == 0:                                   # p == 1: nothing moves
+        if R == 0:
             return buf[:, :n]
-        recv_slots, send_slots = self.device_slots
-        msg = self.step.pack(buf, send_slots[0])
+        step = self.step
+        fwd, acc = self.device_slots                 # fwd[R]: the garbage slot
+        # Initial capture+drain of round 0's forwarded partials (the acc
+        # part folds a zero message into the garbage slot).
+        buf, msg = step.acc_shuffle(
+            buf, torch.zeros((p, bs), dtype=vals.dtype, device=self.device),
+            fwd[R], fwd[0], op=op)
         for t in range(R):
-            got = torch.roll(msg, self.skips[t], dims=0)
-            if t + 1 < R:
-                buf, msg = self.step.shuffle(buf, got, recv_slots[t],
-                                             send_slots[t + 1])
+            got = torch.roll(msg, -self.skips[t], dims=0)
+            if self.overlap:
+                pre = step.pack(buf, fwd[t + 1])
+                buf, msg = step.acc_shuffle_staged(buf, got, pre, acc[t],
+                                                   fwd[t + 1], op=op)
             else:
-                buf = self.step.unpack(buf, got, recv_slots[t])
+                buf, msg = step.acc_shuffle(buf, got, acc[t], fwd[t + 1],
+                                            op=op)
         return buf[:, :n]
 
 
-def host_plan(kind: str, p: int, n: int, *, root: int = 0,
+def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
               backend: str = "cuda", overlap: bool = False,
               device: Union[str, torch.device, None] = None) -> HostDataPlan:
-    """The cached :class:`HostDataPlan` of an n-block broadcast over p
-    ranks on one device.
+    """The cached :class:`HostDataPlan` of a collective over p ranks on
+    one device.
 
-    ``backend``: ``"cuda"`` (the kernels) or ``"torch"`` (the plain
-    versions).  ``device=None`` means ``"cuda"`` and raises with no
-    card.  Only ``kind="broadcast"`` is ported; the other kinds of the
-    JAX package and ``overlap=True`` raise ``NotImplementedError``.
-    Equal arguments return the identical plan object.
+    ``kind``: ``"broadcast"``, ``"allgather"`` (every rank a root; ``root``
+    is ignored) or ``"reduce"`` (``op``: ``"sum"``/``"+"`` or ``"max"``;
+    ignored by the other kinds).  ``overlap=True`` runs the overlapped
+    round loop.  ``backend``: ``"cuda"`` (the kernels) or ``"torch"``
+    (the plain versions).  ``device=None`` means ``"cuda"`` and raises
+    with no card.  ``"quantized_allreduce"`` is not ported yet and raises
+    ``NotImplementedError``.  Equal arguments return the identical plan
+    object.
     """
     if kind in _LATER_KINDS:
         raise NotImplementedError(
             f"host_plan kind {kind!r} is not ported yet: ROADMAP "
             f"{_LATER_KINDS[kind]}")
-    if kind != "broadcast":
+    if kind not in _STATICS:
         raise ValueError(f"unknown host data-plane kind {kind!r}")
-    if overlap:
-        raise NotImplementedError(
-            "overlap=True is not ported yet: ROADMAP Queue 1 item 7 "
-            "(overlapped executor)")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown round-step backend {backend!r} (use one of {BACKENDS})")
+    if kind == "reduce":
+        _validate(op)
     dev = resolve_device(device)
-    key = ("hostplan", kind, int(p), int(n), int(root), backend, str(dev))
+    root_key = int(root) if kind != "allgather" else 0
+    op_key = op if kind == "reduce" else None
+    key = ("hostplan", kind, int(p), int(n), root_key, op_key, backend,
+           bool(overlap), str(dev))
 
     def build():
-        bundle = get_bundle(p, root)
-        recv, send, ks = broadcast_slot_plan(bundle, n)
+        bundle = get_bundle(p, root_key)
+        if kind == "reduce":
+            fwd, acc, ks = reduce_slot_plan(bundle, n)
+            slots = (fwd, acc)
+        else:
+            recv, send, ks = broadcast_slot_plan(bundle, n)
+            slots = (recv, send) if kind == "broadcast" else (recv,)
+        skips = tuple(int(bundle.skip[int(k)]) for k in ks)
+        if kind == "broadcast":
+            device_slots = (_upload(recv, dev), _upload(send, dev))
+        elif kind == "allgather":
+            device_slots = _allgather_rows(recv, skips, int(p), dev)
+        else:
+            garbage = np.full((1, int(p)), n, np.int32)
+            device_slots = (_upload(np.concatenate([fwd, garbage]), dev),
+                            _upload(acc, dev))
         return HostDataPlan(
-            kind=kind, p=int(p), n=int(n), root=int(root), backend=backend,
-            device=dev, slots=(recv, send), ks=ks,
-            skips=tuple(int(bundle.skip[int(k)]) for k in ks),
-            step=get_round_step(backend),
-            device_slots=tuple(torch.from_numpy(np.array(s)).to(dev)
-                               for s in (recv, send)))
+            kind=kind, p=int(p), n=int(n), root=root_key, op=op_key,
+            backend=backend, device=dev, slots=slots, ks=ks, skips=skips,
+            step=get_round_step(backend), device_slots=device_slots,
+            overlap=bool(overlap))
 
     return cached_plan(key, build)

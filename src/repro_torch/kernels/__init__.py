@@ -1,9 +1,10 @@
 """Round-step kernels of the port: the plain PyTorch versions
-(:mod:`.ref`) and the checked, counted wrappers of the hand-written CUDA
+(:mod:`.ref`, with the reduction ops of :mod:`.reduce_ops`) and the
+checked, counted wrappers of the hand-written CUDA
 kernels (:mod:`.block_pack`, as in ``repro.kernels.block_pack``).
 Nothing here builds or loads a kernel at import; :mod:`._build`
 compiles ``csrc/*.cu`` at the first launch."""
 
-from . import block_pack, ref
+from . import block_pack, reduce_ops, ref
 
-__all__ = ["block_pack", "ref"]
+__all__ = ["block_pack", "reduce_ops", "ref"]

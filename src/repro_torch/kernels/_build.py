@@ -33,6 +33,12 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "block_pack_launch": ((_P, _P, _P, _I, _I, _I, _E, _P), _E),
         "block_unpack_launch": ((_P, _P, _P, _I, _I, _I, _E, _P), _E),
         "block_shuffle_launch": ((_P, _P, _P, _P, _P, _I, _I, _I, _E, _P), _E),
+        "block_shuffle_staged_launch": (
+            (_P, _P, _P, _P, _P, _P, _I, _I, _I, _E, _P), _E),
+        "block_acc_shuffle_launch": (
+            (_P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _E, _P), _E),
+        "block_acc_shuffle_staged_launch": (
+            (_P, _P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _E, _P), _E),
         "block_pack_error_string": ((_E,), ctypes.c_char_p),
     },
 }

@@ -1,12 +1,14 @@
-"""Checked wrappers of the broadcast's round-step CUDA kernels.
+"""Checked wrappers of the round-step CUDA kernels.
 
 Port of the TPU kernels ``repro.kernels.block_pack.block_pack``,
-``block_unpack`` and ``block_shuffle``; the kernels themselves are in
-``csrc/block_pack.cu`` (CUDA C++ for sm_90a, built by
+``block_unpack``, ``block_shuffle``, ``block_shuffle_staged``,
+``block_acc_shuffle`` and ``block_acc_shuffle_staged``; the kernels
+themselves are in ``csrc/block_pack.cu`` (CUDA C++ for sm_90a, built by
 :mod:`repro_torch.kernels._build` at the first launch).
 
 Each wrapper checks device, dtype, shape, contiguity and the int32
-index type, then
+index type (and, for the two accumulating kernels, the op and that the
+dtype is one the kernel is written for), then
 
   * on CPU tensors runs its plain version (:mod:`repro_torch.kernels.ref`);
   * on CUDA tensors launches its kernel on the current stream, adds one
@@ -15,8 +17,8 @@ index type, then
 There is no fallback from a CUDA tensor to the plain version.  Slot
 indices must lie in ``[0, nslots)``; a kernel that meets one outside
 traps, which ends the CUDA context.  Buffers are updated in place (the
-JAX kernels aliased them): ``block_unpack`` and ``block_shuffle``
-return the very ``buffers`` tensor they were given.
+JAX kernels aliased them): every wrapper but ``block_pack`` returns the
+very ``buffers`` tensor it was given.
 """
 
 from __future__ import annotations
@@ -24,10 +26,19 @@ from __future__ import annotations
 import torch
 
 from . import ref
+from .reduce_ops import _validate
 
 #: Kernel launches since the last :func:`reset_launches`.  A wrapper adds
 #: one where it launches its kernel, and nowhere else.
-LAUNCHES = {"block_pack": 0, "block_unpack": 0, "block_shuffle": 0}
+LAUNCHES = {"block_pack": 0, "block_unpack": 0, "block_shuffle": 0,
+            "block_shuffle_staged": 0, "block_acc_shuffle": 0,
+            "block_acc_shuffle_staged": 0}
+
+#: Element types of the accumulating kernels, by the code
+#: ``csrc/block_pack.cu`` switches on.
+ACC_DTYPES = {torch.float32: 0, torch.float64: 1, torch.float16: 2,
+              torch.bfloat16: 3, torch.int8: 4, torch.int16: 5,
+              torch.int32: 6, torch.int64: 7}
 
 
 def reset_launches() -> None:
@@ -35,14 +46,16 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _check(buffers: torch.Tensor, msg=None, *idx: torch.Tensor) -> bool:
-    """Validate the operands; True when they lie on a CUDA device, False
-    on the CPU.  Raises on anything the kernels do not take."""
+def _check(buffers: torch.Tensor, msgs=(), idx=()) -> bool:
+    """Validate the operands: ``msgs`` are [R, bs] rows of the buffer's
+    dtype, ``idx`` are [R] int32 slot vectors.  True when they lie on a
+    CUDA device, False on the CPU.  Raises on anything the kernels do
+    not take."""
     if buffers.dim() != 3:
         raise ValueError(f"buffers must be [R, nslots, bs], got {tuple(buffers.shape)}")
     R, _, bs = buffers.shape
     tensors = [buffers]
-    if msg is not None:
+    for msg in msgs:
         if tuple(msg.shape) != (R, bs):
             raise ValueError(f"msg must be [{R}, {bs}], got {tuple(msg.shape)}")
         if msg.dtype != buffers.dtype:
@@ -83,7 +96,7 @@ def _launch(name: str, buffers: torch.Tensor, *args) -> None:
 def block_pack(buffers: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """buffers: [R, nslots, bs]; idx: [R] int32 slot per row -> [R, bs]
     with ``out[r] = buffers[r, idx[r]]`` (the round's send blocks)."""
-    if not _check(buffers, None, idx):
+    if not _check(buffers, (), (idx,)):
         return ref.block_pack_ref(buffers, idx)
     out = torch.empty((buffers.shape[0], buffers.shape[2]),
                       dtype=buffers.dtype, device=buffers.device)
@@ -97,7 +110,7 @@ def block_unpack(buffers: torch.Tensor, msg: torch.Tensor,
                  idx: torch.Tensor) -> torch.Tensor:
     """``buffers[r, idx[r]] = msg[r]`` in place; returns ``buffers``
     (untouched slots keep their contents)."""
-    if not _check(buffers, msg, idx):
+    if not _check(buffers, (msg,), (idx,)):
         return ref.block_unpack_ref(buffers, msg, idx)
     if msg.numel():
         _launch("block_unpack", buffers, buffers.data_ptr(),
@@ -111,11 +124,77 @@ def block_shuffle(buffers: torch.Tensor, msg: torch.Tensor,
     ``buffers[r, recv_idx[r]] = msg[r]``, then ``out_msg[r] =
     buffers[r, send_idx[r]]`` read from the updated buffer (the round-t+1
     send of a round-t delivery).  ``msg`` must not overlap ``buffers``."""
-    if not _check(buffers, msg, recv_idx, send_idx):
+    if not _check(buffers, (msg,), (recv_idx, send_idx)):
         return ref.block_shuffle_ref(buffers, msg, recv_idx, send_idx)
     out = torch.empty_like(msg)
     if msg.numel():
         _launch("block_shuffle", buffers, buffers.data_ptr(),
                 msg.data_ptr(), recv_idx.data_ptr(), send_idx.data_ptr(),
                 out.data_ptr())
+    return buffers, out
+
+
+def block_shuffle_staged(buffers: torch.Tensor, msg: torch.Tensor,
+                         pre: torch.Tensor, recv_idx: torch.Tensor,
+                         send_idx: torch.Tensor):
+    """Overlap-staged shuffle, in place -> ``(buffers, out_msg)``:
+    ``buffers[r, recv_idx[r]] = msg[r]``; ``out_msg[r] = msg[r]`` where
+    ``recv_idx[r] == send_idx[r]``, else ``pre[r]`` (the next send block,
+    packed before the update).  Reads nothing of ``buffers``.  ``msg``
+    and ``pre`` must not overlap ``buffers``."""
+    if not _check(buffers, (msg, pre), (recv_idx, send_idx)):
+        return ref.block_shuffle_staged_ref(buffers, msg, pre, recv_idx,
+                                            send_idx)
+    out = torch.empty_like(msg)
+    if msg.numel():
+        _launch("block_shuffle_staged", buffers, buffers.data_ptr(),
+                msg.data_ptr(), pre.data_ptr(), recv_idx.data_ptr(),
+                send_idx.data_ptr(), out.data_ptr())
+    return buffers, out
+
+
+def _op_code(buffers: torch.Tensor, op: str) -> int:
+    _validate(op)
+    if buffers.dtype not in ACC_DTYPES:
+        raise TypeError(f"accumulating kernels take {sorted(map(str, ACC_DTYPES))}, "
+                        f"got {buffers.dtype}")
+    return int(op == "max")
+
+
+def block_acc_shuffle(buffers: torch.Tensor, msg: torch.Tensor,
+                      acc_idx: torch.Tensor, fwd_idx: torch.Tensor,
+                      *, op: str = "sum"):
+    """Fused accumulate(t) + capture/drain(t+1), in place ->
+    ``(buffers, out_msg)``.  Per row r: ``c = buffers[r, acc] op msg[r]``
+    and ``buffers[r, acc] = c``; ``out_msg[r]`` is ``c`` where
+    ``acc == fwd``, else the pre-update ``buffers[r, fwd]``; then
+    ``buffers[r, fwd] = identity(op, dtype)``.  ``op`` is ``"sum"``/``"+"``
+    or ``"max"``; the dtype is kept (no widening)."""
+    code = _op_code(buffers, op)
+    if not _check(buffers, (msg,), (acc_idx, fwd_idx)):
+        return ref.block_acc_shuffle_ref(buffers, msg, acc_idx, fwd_idx, op)
+    out = torch.empty_like(msg)
+    if msg.numel():
+        _launch("block_acc_shuffle", buffers, buffers.data_ptr(),
+                msg.data_ptr(), acc_idx.data_ptr(), fwd_idx.data_ptr(),
+                out.data_ptr(), ACC_DTYPES[buffers.dtype], code)
+    return buffers, out
+
+
+def block_acc_shuffle_staged(buffers: torch.Tensor, msg: torch.Tensor,
+                             pre: torch.Tensor, acc_idx: torch.Tensor,
+                             fwd_idx: torch.Tensor, *, op: str = "sum"):
+    """Overlap-staged :func:`block_acc_shuffle`: the output where
+    ``acc != fwd`` is ``pre[r]`` (the fwd block packed before the
+    update), so ``buffers[r, fwd]`` is written, never read."""
+    code = _op_code(buffers, op)
+    if not _check(buffers, (msg, pre), (acc_idx, fwd_idx)):
+        return ref.block_acc_shuffle_staged_ref(buffers, msg, pre, acc_idx,
+                                                fwd_idx, op)
+    out = torch.empty_like(msg)
+    if msg.numel():
+        _launch("block_acc_shuffle_staged", buffers, buffers.data_ptr(),
+                msg.data_ptr(), pre.data_ptr(), acc_idx.data_ptr(),
+                fwd_idx.data_ptr(), out.data_ptr(),
+                ACC_DTYPES[buffers.dtype], code)
     return buffers, out

@@ -1,7 +1,8 @@
-// Round-step kernels of the n-block circulant broadcast, for Hopper (sm_90a).
+// Round-step kernels of the n-block circulant collectives, for Hopper (sm_90a).
 //
 // Buffers are [R, nslots, bs] row-major tensors (one row per rank), messages
-// [R, bs], slot vectors [R] int32.  The kernels only move data, so they are
+// [R, bs], slot vectors [R] int32.  The broadcast-family kernels (pack,
+// unpack, shuffle, shuffle_staged) only move data, so they are
 // dtype-agnostic: a block of bs elements is a run of row_bytes = bs * itemsize
 // bytes, copied in units of U bytes.  U is the widest of 16, 8, 4, 2, 1 that
 // divides row_bytes and every base pointer; since every block starts at a
@@ -18,7 +19,8 @@
 // What bounds them on an H100: bytes.  They do no arithmetic, so the least
 // time is the bytes they must move over the 3.35 TB/s of device memory:
 // pack and unpack read one block and write one block per row
-// (2 * R * row_bytes), shuffle reads two and writes two (4 * R * row_bytes).
+// (2 * R * row_bytes), shuffle reads two and writes two (4 * R * row_bytes,
+// less one row transfer for each row whose two slots coincide).
 // The simple design answers that with wide, coalesced, aligned accesses and
 // enough thread blocks (R x chunks) to keep every SM's loads in flight; it
 // does not stage through shared memory, since each byte is touched once.
@@ -29,6 +31,8 @@
 // not synchronise, and returns cudaGetLastError() (0 = success).
 
 #include <cstdint>
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -110,6 +114,231 @@ shuffle_kernel(V* buf, const V* __restrict__ msg,
   }
 }
 
+// Replaces the TPU kernel repro/kernels/block_pack.py:block_shuffle_staged
+// (the overlapped round loop's shuffle, in place):
+//   buf[r, recv[r]] = msg[r];  out[r] = recv[r] == send[r] ? msg[r] : pre[r],
+// where pre is round t+1's send block, packed from the buffer before round
+// t's delivery landed.  The update changes only the recv block, so pre is
+// stale exactly when send == recv, and then the message is the answer.  The
+// kernel never reads buf, so no element is read after another thread's write.
+// Bytes: per row it reads msg and (unless the slots coincide) pre, and writes
+// buf[recv] and out: (4 * R - #{recv == send}) * row_bytes.  The simple
+// design is the shuffle's: one thread per unit, wide aligned unit copies.
+// msg, pre and out must not overlap buf or each other.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
+                      const V* __restrict__ pre,
+                      const int32_t* __restrict__ recv,
+                      const int32_t* __restrict__ send, V* __restrict__ out,
+                      int64_t nslots, int64_t units) {
+  const int64_t r = blockIdx.x;
+  const int64_t rs = load_slot(recv, r, nslots);
+  const bool same = rs == load_slot(send, r, nslots);
+  V* rdst = buf + (r * nslots + rs) * units;
+  const V* m = msg + r * units;
+  const V* pr = pre + r * units;
+  V* o = out + r * units;
+  const int64_t stride = (int64_t)gridDim.y * blockDim.x;
+  for (int64_t j = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; j < units;
+       j += stride) {
+    const V v = m[j];
+    rdst[j] = v;
+    o[j] = same ? v : pr[j];
+  }
+}
+
+// ------------------------------------------------- the reduce family's ops
+//
+// The accumulating kernels do arithmetic, so they are typed: one
+// instantiation per element type T and op (0 = sum, 1 = max).  What each
+// computes must equal the plain PyTorch version (kernels/reduce_ops.py) bit
+// for bit, and through it the JAX package's combine:
+//  * sum: one correctly rounded add in T.  float and double add natively;
+//    __half and __nv_bfloat16 add in float and round once (float's 24 bits
+//    hold twice their precision plus two, so this is the correctly rounded
+//    sum, as torch computes it).  Integers add in the unsigned type and
+//    convert back: two's-complement wrap, where signed overflow would be
+//    undefined.  The library is built without -ftz and --use_fast_math, so
+//    denormals are kept, as torch's CUDA ops keep them.
+//  * max: written out, never fmaxf/fmax/__hmax, whose NaN and signed-zero
+//    choices are not XLA's: a NaN operand is returned itself (b's first, as
+//    XLA on the CPU returns it);
+//    equal operands give a unless a carries the sign bit (then b), so
+//    max(-0, +0) = max(+0, -0) = +0; otherwise the larger.  Half types
+//    compare in float and return an operand's own bits.
+//  * identity: 0 for sum; -inf for floating max, the type's minimum for
+//    integer max.  The drained slot is written with it by the kernel.
+
+template <typename T> struct Num;  // integer types: wrap-around arithmetic
+
+#define INT_NUM(T, U, MIN)                                                   \
+  template <> struct Num<T> {                                                \
+    static __device__ __forceinline__ T add(T a, T b) {                      \
+      return (T)(U)((U)a + (U)b);                                            \
+    }                                                                        \
+    static __device__ __forceinline__ T max(T a, T b) { return a < b ? b : a; } \
+    static __device__ __forceinline__ T lowest() { return MIN; }             \
+    static __device__ __forceinline__ T zero() { return 0; }                 \
+  };
+INT_NUM(int8_t, uint8_t, INT8_MIN)
+INT_NUM(int16_t, uint16_t, INT16_MIN)
+INT_NUM(int32_t, uint32_t, INT32_MIN)
+INT_NUM(int64_t, uint64_t, INT64_MIN)
+#undef INT_NUM
+
+__device__ __forceinline__ bool negative(float x) {
+  return (__float_as_uint(x) >> 31) != 0;
+}
+__device__ __forceinline__ bool negative(double x) {
+  return __double_as_longlong(x) < 0;
+}
+
+template <typename T, typename F>
+__device__ __forceinline__ T float_max(T a, T b, F fa, F fb) {
+  if (fb != fb) return b;
+  if (fa != fa) return a;
+  if (fa == fb) return negative(fa) ? b : a;
+  return fa < fb ? b : a;
+}
+
+template <> struct Num<float> {
+  static __device__ __forceinline__ float add(float a, float b) {
+    return __fadd_rn(a, b);
+  }
+  static __device__ __forceinline__ float max(float a, float b) {
+    return float_max(a, b, a, b);
+  }
+  static __device__ __forceinline__ float lowest() {
+    return __uint_as_float(0xFF800000u);
+  }
+  static __device__ __forceinline__ float zero() { return 0.0f; }
+};
+
+template <> struct Num<double> {
+  static __device__ __forceinline__ double add(double a, double b) {
+    return __dadd_rn(a, b);
+  }
+  static __device__ __forceinline__ double max(double a, double b) {
+    return float_max(a, b, a, b);
+  }
+  static __device__ __forceinline__ double lowest() {
+    return __longlong_as_double((long long)0xFFF0000000000000ULL);
+  }
+  static __device__ __forceinline__ double zero() { return 0.0; }
+};
+
+template <> struct Num<__half> {
+  static __device__ __forceinline__ __half add(__half a, __half b) {
+    return __float2half_rn(__fadd_rn(__half2float(a), __half2float(b)));
+  }
+  static __device__ __forceinline__ __half max(__half a, __half b) {
+    return float_max(a, b, __half2float(a), __half2float(b));
+  }
+  static __device__ __forceinline__ __half lowest() {
+    return __ushort_as_half((unsigned short)0xFC00);
+  }
+  static __device__ __forceinline__ __half zero() {
+    return __ushort_as_half((unsigned short)0);
+  }
+};
+
+template <> struct Num<__nv_bfloat16> {
+  static __device__ __forceinline__ __nv_bfloat16 add(__nv_bfloat16 a,
+                                                      __nv_bfloat16 b) {
+    return __float2bfloat16_rn(
+        __fadd_rn(__bfloat162float(a), __bfloat162float(b)));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 max(__nv_bfloat16 a,
+                                                      __nv_bfloat16 b) {
+    return float_max(a, b, __bfloat162float(a), __bfloat162float(b));
+  }
+  static __device__ __forceinline__ __nv_bfloat16 lowest() {
+    return __ushort_as_bfloat16((unsigned short)0xFF80);
+  }
+  static __device__ __forceinline__ __nv_bfloat16 zero() {
+    return __ushort_as_bfloat16((unsigned short)0);
+  }
+};
+
+template <typename T, int OP>
+__device__ __forceinline__ T combine(T a, T b) {
+  return OP == 0 ? Num<T>::add(a, b) : Num<T>::max(a, b);
+}
+
+template <typename T, int OP>
+__device__ __forceinline__ T identity() {
+  return OP == 0 ? Num<T>::zero() : Num<T>::lowest();
+}
+
+// Replaces the TPU kernels repro/kernels/block_pack.py:block_acc_shuffle
+// (STAGED = false) and block_acc_shuffle_staged (STAGED = true): the reduce
+// family's round step, accumulate(t) fused with capture/drain(t+1), in place.
+// Per row r, with a = acc[r], f = fwd[r]:
+//   c = buf[r, a] op msg[r];  buf[r, a] = c;
+//   out[r] = a == f ? c : (STAGED ? pre[r] : the pre-update buf[r, f]);
+//   buf[r, f] = identity.
+// When a == f the slot ends as the identity and the output is c.
+// Ownership: one thread owns element j of row r.  It reads buf[r, a, j],
+// msg[r, j] and (when a != f) buf[r, f, j] or pre[r, j] before it writes
+// anything, then writes buf[r, a, j] (only when a != f: the drain would
+// overwrite it) and buf[r, f, j].  No other thread reads or writes those
+// addresses, so no value depends on another thread's write and there is no
+// barrier.  msg, pre and out must not overlap buf or each other.
+// Bytes per row: read acc, msg and fwd (or pre), write acc, out and fwd;
+// a coincident row reads acc and msg and writes out and fwd:
+// (6 * R - 2 * #{a == f}) * row_bytes over 3.35 TB/s.  Two adds or compares
+// per element are far below any arithmetic bound, so bytes bound it.  The
+// simple design: coalesced typed loads on the same row x chunk grid as the
+// copies.  Each thread owns kUnitsPerThread elements of its row (a stride
+// apart) and loads all of them before it stores any: the stores of one
+// element may alias the loads of the next as far as the compiler knows, so
+// one element per step would leave a single 4-byte load per operand in
+// flight and the kernel latency-bound.  Wider (128-bit) typed loads and
+// TMA are later work.
+template <typename T, int OP, bool STAGED>
+__global__ void __launch_bounds__(kThreads)
+acc_shuffle_kernel(T* buf, const T* __restrict__ msg,
+                   const T* __restrict__ pre, const int32_t* __restrict__ acc,
+                   const int32_t* __restrict__ fwd, T* __restrict__ out,
+                   int64_t nslots, int64_t bs) {
+  const int64_t r = blockIdx.x;
+  const int64_t as = load_slot(acc, r, nslots);
+  const int64_t fs = load_slot(fwd, r, nslots);
+  const bool same = as == fs;
+  T* row = buf + r * nslots * bs;
+  T* adst = row + as * bs;
+  T* fdst = row + fs * bs;
+  const T* m = msg + r * bs;
+  const T* pr = STAGED ? pre + r * bs : nullptr;
+  T* o = out + r * bs;
+  const T ident = identity<T, OP>();
+  const int64_t stride = (int64_t)gridDim.y * blockDim.x;
+  for (int64_t j0 = (int64_t)blockIdx.y * blockDim.x + threadIdx.x; j0 < bs;
+       j0 += stride * kUnitsPerThread) {
+    T a[kUnitsPerThread], v[kUnitsPerThread], f[kUnitsPerThread];
+#pragma unroll
+    for (int u = 0; u < kUnitsPerThread; ++u) {
+      const int64_t j = j0 + u * stride;
+      if (j < bs) {
+        a[u] = adst[j];
+        v[u] = m[j];
+        f[u] = same ? a[u] : (STAGED ? pr[j] : fdst[j]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kUnitsPerThread; ++u) {
+      const int64_t j = j0 + u * stride;
+      if (j < bs) {
+        const T c = combine<T, OP>(a[u], v[u]);
+        if (!same) adst[j] = c;
+        fdst[j] = ident;
+        o[j] = same ? c : f[u];
+      }
+    }
+  }
+}
+
 int unit_bytes(int64_t row_bytes, uintptr_t pointers_or) {
   for (int w = 16; w > 1; w /= 2)
     if (row_bytes % w == 0 && pointers_or % w == 0) return w;
@@ -153,6 +382,62 @@ int shuffle_typed(void* buf, const void* msg, const void* recv,
       static_cast<const int32_t*>(recv), static_cast<const int32_t*>(send),
       static_cast<V*>(out), nslots, units);
   return (int)cudaGetLastError();
+}
+
+template <typename V>
+int shuffle_staged_typed(void* buf, const void* msg, const void* pre,
+                         const void* recv, const void* send, void* out,
+                         int64_t R, int64_t nslots, int64_t row_bytes,
+                         cudaStream_t stream) {
+  const int64_t units = row_bytes / (int64_t)sizeof(V);
+  shuffle_staged_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
+      static_cast<V*>(buf), static_cast<const V*>(msg),
+      static_cast<const V*>(pre), static_cast<const int32_t*>(recv),
+      static_cast<const int32_t*>(send), static_cast<V*>(out), nslots, units);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, bool STAGED>
+int acc_typed(void* buf, const void* msg, const void* pre, const void* acc,
+              const void* fwd, void* out, int op, int64_t R, int64_t nslots,
+              int64_t row_bytes, cudaStream_t stream) {
+  const int64_t bs = row_bytes / (int64_t)sizeof(T);
+  const dim3 grid = grid_for(R, bs);
+  T* b = static_cast<T*>(buf);
+  const T* m = static_cast<const T*>(msg);
+  const T* p = static_cast<const T*>(pre);
+  const int32_t* a = static_cast<const int32_t*>(acc);
+  const int32_t* f = static_cast<const int32_t*>(fwd);
+  T* o = static_cast<T*>(out);
+  if (op == 0)
+    acc_shuffle_kernel<T, 0, STAGED><<<grid, kThreads, 0, stream>>>(
+        b, m, p, a, f, o, nslots, bs);
+  else
+    acc_shuffle_kernel<T, 1, STAGED><<<grid, kThreads, 0, stream>>>(
+        b, m, p, a, f, o, nslots, bs);
+  return (int)cudaGetLastError();
+}
+
+// dtype codes as in kernels/block_pack.py ACC_DTYPES.
+template <bool STAGED>
+int acc_launch(void* buf, const void* msg, const void* pre, const void* acc,
+               const void* fwd, void* out, int dtype, int op, int64_t R,
+               int64_t nslots, int64_t row_bytes, int device, void* stream) {
+  if (R <= 0 || row_bytes <= 0) return 0;
+  if (op != 0 && op != 1) return (int)cudaErrorInvalidValue;
+  if (cudaError_t e = cudaSetDevice(device)) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return acc_typed<float, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 1: return acc_typed<double, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 2: return acc_typed<__half, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 3: return acc_typed<__nv_bfloat16, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 4: return acc_typed<int8_t, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 5: return acc_typed<int16_t, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 6: return acc_typed<int32_t, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    case 7: return acc_typed<int64_t, STAGED>(buf, msg, pre, acc, fwd, out, op, R, nslots, row_bytes, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -209,6 +494,47 @@ int block_shuffle_launch(void* buf, const void* msg, const void* recv,
     default:
       return shuffle_typed<uint8_t>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
   }
+}
+
+int block_shuffle_staged_launch(void* buf, const void* msg, const void* pre,
+                                const void* recv, const void* send, void* out,
+                                int64_t R, int64_t nslots, int64_t row_bytes,
+                                int device, void* stream) {
+  if (R <= 0 || row_bytes <= 0) return 0;
+  if (cudaError_t e = cudaSetDevice(device)) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t ptrs =
+      (uintptr_t)buf | (uintptr_t)msg | (uintptr_t)pre | (uintptr_t)out;
+  switch (unit_bytes(row_bytes, ptrs)) {
+    case 16:
+      return shuffle_staged_typed<uint4>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+    case 8:
+      return shuffle_staged_typed<uint2>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+    case 4:
+      return shuffle_staged_typed<uint32_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+    case 2:
+      return shuffle_staged_typed<uint16_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+    default:
+      return shuffle_staged_typed<uint8_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+  }
+}
+
+int block_acc_shuffle_launch(void* buf, const void* msg, const void* acc,
+                             const void* fwd, void* out, int dtype, int op,
+                             int64_t R, int64_t nslots, int64_t row_bytes,
+                             int device, void* stream) {
+  return acc_launch<false>(buf, msg, nullptr, acc, fwd, out, dtype, op, R,
+                           nslots, row_bytes, device, stream);
+}
+
+int block_acc_shuffle_staged_launch(void* buf, const void* msg,
+                                    const void* pre, const void* acc,
+                                    const void* fwd, void* out, int dtype,
+                                    int op, int64_t R, int64_t nslots,
+                                    int64_t row_bytes, int device,
+                                    void* stream) {
+  return acc_launch<true>(buf, msg, pre, acc, fwd, out, dtype, op, R, nslots,
+                          row_bytes, device, stream);
 }
 
 const char* block_pack_error_string(int code) {

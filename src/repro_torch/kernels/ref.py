@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the round-step kernels.
 
 Port of ``repro.kernels.ref`` (``block_pack_ref``, ``block_unpack_ref``,
-``block_shuffle_ref``).  They are the ``"torch"`` backend, what each
+``block_shuffle_ref``, ``block_shuffle_staged_ref``,
+``block_acc_shuffle_ref``, ``block_acc_shuffle_staged_ref``).  They are the ``"torch"`` backend, what each
 kernel wrapper runs on a CPU tensor, and what the tests and
 ``chip_smoke.py`` hold the CUDA kernels against.  Where the JAX oracles
 return a new buffer, these update ``buffers`` in place and return it,
@@ -11,6 +12,8 @@ as the kernels do.
 from __future__ import annotations
 
 import torch
+
+from .reduce_ops import op_combine, op_identity
 
 
 def _rows(buffers: torch.Tensor) -> torch.Tensor:
@@ -39,3 +42,46 @@ def block_shuffle_ref(buffers: torch.Tensor, msg: torch.Tensor,
     rows = _rows(buffers)
     buffers[rows, recv_idx.long()] = msg
     return buffers, buffers[rows, send_idx.long()]
+
+
+def block_shuffle_staged_ref(buffers: torch.Tensor, msg: torch.Tensor,
+                             pre: torch.Tensor, recv_idx: torch.Tensor,
+                             send_idx: torch.Tensor):
+    """Overlap-staged shuffle: ``pre`` is the round-t+1 block packed from
+    the PRE-update buffer.  Write msg at the recv slots (in place); the
+    outgoing message is msg where ``send == recv`` (the only slot the
+    update changed) and ``pre`` everywhere else -- equal to
+    :func:`block_shuffle_ref`.  Returns (buffers, out_msg)."""
+    buffers[_rows(buffers), recv_idx.long()] = msg
+    return buffers, torch.where((recv_idx == send_idx)[:, None], msg, pre)
+
+
+def block_acc_shuffle_ref(buffers: torch.Tensor, msg: torch.Tensor,
+                          acc_idx: torch.Tensor, fwd_idx: torch.Tensor,
+                          op: str = "sum"):
+    """Fused accumulate+capture/drain, in place: accumulate msg into the
+    acc slots, capture the fwd slots from the UPDATED buffer, then drain
+    the fwd slots to the op identity.  Where ``acc == fwd`` the slot ends
+    as the identity and the output is the combined value.  Returns
+    (buffers, out_msg)."""
+    rows, acc, fwd = _rows(buffers), acc_idx.long(), fwd_idx.long()
+    buffers[rows, acc] = op_combine(op)(buffers[rows, acc], msg)
+    out = buffers[rows, fwd]
+    buffers[rows, fwd] = op_identity(op, buffers.dtype)
+    return buffers, out
+
+
+def block_acc_shuffle_staged_ref(buffers: torch.Tensor, msg: torch.Tensor,
+                                 pre: torch.Tensor, acc_idx: torch.Tensor,
+                                 fwd_idx: torch.Tensor, op: str = "sum"):
+    """Overlap-staged accumulate+capture/drain: ``pre`` is the round-t+1
+    fwd block packed from the PRE-update buffer.  Accumulate msg into the
+    acc slots; the output is the combined value where ``fwd == acc`` and
+    ``pre`` everywhere else; then the fwd slots drain to the identity --
+    equal to :func:`block_acc_shuffle_ref`.  Returns (buffers, out_msg)."""
+    rows, acc, fwd = _rows(buffers), acc_idx.long(), fwd_idx.long()
+    combined = op_combine(op)(buffers[rows, acc], msg)
+    buffers[rows, acc] = combined
+    out = torch.where((acc_idx == fwd_idx)[:, None], combined, pre)
+    buffers[rows, fwd] = op_identity(op, buffers.dtype)
+    return buffers, out

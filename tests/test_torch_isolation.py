@@ -14,7 +14,13 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.core import host_plan, simulate_broadcast
+from repro_torch.core import (
+    host_plan,
+    simulate_allgather,
+    simulate_allreduce,
+    simulate_broadcast,
+    simulate_reduce,
+)
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -60,20 +66,36 @@ def test_no_jax_or_repro_import_in_source(path):
 
 
 def test_cuda_path_holds_no_library_indexing():
-    # What the kernels compute must not be done by library gathers or
-    # scatters on the "cuda" path; only ref.py (the plain versions) may.
-    pattern = re.compile(r"\b(gather|index_select|take_along_dim|index_put_?)\b")
-    for name in ("kernels/block_pack.py", "core/comm.py", "core/roundstep.py"):
+    # What the kernels compute must not be done by library gathers,
+    # scatters, combines or selects on the "cuda" path; only ref.py (the
+    # plain versions) and reduce_ops.py (their combine) may.
+    # (NumPy's np.where/np.maximum build host tables and the simulator's
+    # reference; they never touch a tensor.)
+    pattern = re.compile(
+        r"\b(gather|index_select|take_along_dim|index_put_?|index_add_?|"
+        r"scatter_reduce_?|scatter_add_?)\b|\btorch\.(add|maximum|where)\b|"
+        r"(?<!\bnp)\.(add_?|maximum|where)\s*\(")
+    for name in ("kernels/block_pack.py", "core/comm.py", "core/roundstep.py",
+                 "core/simulator.py"):
         src = (PKG / name).read_text()
-        assert not pattern.search(src), name
+        assert not pattern.search(src), (name, pattern.search(src))
 
 
-def test_entry_points_raise_without_a_card(monkeypatch):
+@pytest.mark.parametrize("kind", ["broadcast", "allgather", "reduce"])
+def test_entry_points_raise_without_a_card(monkeypatch, kind):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        host_plan("broadcast", 5, 3)
+        host_plan(kind, 5, 3)
     with pytest.raises(RuntimeError, match="device='cpu'"):
-        simulate_broadcast(5, 3, backend="cuda")
+        host_plan(kind, 5, 3, overlap=True)
+    simulate = {"broadcast": simulate_broadcast,
+                "allgather": simulate_allgather,
+                "reduce": simulate_reduce}[kind]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        simulate(5, 3, backend="cuda")
+    if kind == "reduce":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            simulate_allreduce(5, 3, backend="cuda")
 
 
 def _run_smoke(cwd):

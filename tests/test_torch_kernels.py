@@ -3,7 +3,12 @@ CPU tensors, which take them) against the JAX package's oracles
 (``repro.kernels.ref``) and its Pallas kernels in interpret mode
 (``repro.kernels.block_pack``), on the same numpy inputs from a seed.
 
-Tolerance: exact, compared bit for bit -- the kernels only move data.
+Tolerance: exact, compared bit for bit -- the copy kernels only move
+data, and the accumulating ones make one correctly rounded add (or XLA's
+max) in the buffer's dtype, as the reference does.  Float inputs are
+standard normal, so no sum is a denormal: XLA on the CPU flushes
+denormals to zero where the port keeps IEEE denormals, the one
+deliberate difference, pinned by its own test below.
 64-bit dtypes run on the JAX side inside a scoped
 ``jax.enable_x64(True)``, never the global flag.  bfloat16 goes to JAX
 as ``ml_dtypes.bfloat16`` and to the port as a ``uint16`` view turned
@@ -111,12 +116,132 @@ def test_shuffle_matches_jax(dtype, shape):
             assert _same_bits(got_buf, wb) and _same_bits(got_msg, wm)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_shuffle_staged_matches_jax(dtype, shape):
+    buf, msg, recv, send = _inputs(dtype, shape, 6)
+    pre = np.take_along_axis(buf, send[:, None, None], axis=1)[:, 0]
+    with _x64(dtype):
+        args = (jnp.asarray(buf), jnp.asarray(msg), jnp.asarray(pre),
+                jnp.asarray(recv), jnp.asarray(send))
+        want = [tuple(map(_torch, jref.block_shuffle_staged_ref(*args)))]
+        if shape == SHAPES[1]:
+            want.append(tuple(map(_torch, jbp.block_shuffle_staged(
+                *args, interpret=True))))
+    for fn in (ref.block_shuffle_staged_ref, bp.block_shuffle_staged):
+        tbuf = _torch(buf)
+        got_buf, got_msg = fn(tbuf, _torch(msg), _torch(pre), _torch(recv),
+                              _torch(send))
+        assert got_buf is tbuf
+        for wb, wm in want:
+            assert _same_bits(got_buf, wb) and _same_bits(got_msg, wm)
+
+
+def _acc_cases(op, dtype, shape, seed):
+    buf, msg, acc, fwd = _inputs(dtype, shape, seed)
+    pre = np.take_along_axis(buf, fwd[:, None, None], axis=1)[:, 0]
+    return buf, msg, pre, acc, fwd
+
+
+def _check_acc_shuffles(op, dtype, buf, msg, pre, acc, fwd, pallas):
+    with _x64(dtype):
+        seq = (jnp.asarray(buf), jnp.asarray(msg), jnp.asarray(acc),
+               jnp.asarray(fwd))
+        stg = (jnp.asarray(buf), jnp.asarray(msg), jnp.asarray(pre),
+               jnp.asarray(acc), jnp.asarray(fwd))
+        want = [tuple(map(_torch, jref.block_acc_shuffle_ref(*seq, op=op))),
+                tuple(map(_torch, jref.block_acc_shuffle_staged_ref(*stg, op=op)))]
+        if pallas:
+            want.append(tuple(map(_torch, jbp.block_acc_shuffle(
+                *seq, op=op, interpret=True))))
+            want.append(tuple(map(_torch, jbp.block_acc_shuffle_staged(
+                *stg, op=op, interpret=True))))
+    a, m, p_, ai, fi = map(_torch, (buf, msg, pre, acc, fwd))
+    got = []
+    for fn, args in ((ref.block_acc_shuffle_ref, (m, ai, fi)),
+                     (bp.block_acc_shuffle, (m, ai, fi)),
+                     (ref.block_acc_shuffle_staged_ref, (m, p_, ai, fi)),
+                     (bp.block_acc_shuffle_staged, (m, p_, ai, fi))):
+        tbuf = a.clone()
+        res = fn(tbuf, *args, op=op)
+        assert res[0] is tbuf
+        got.append(res)
+    for gb, gm in got:
+        for wb, wm in want:
+            assert _same_bits(gb, wb) and _same_bits(gm, wm)
+
+
+@pytest.mark.parametrize("op", ["sum", "max"])
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_acc_shuffles_match_jax(dtype, shape, op):
+    case = _acc_cases(op, dtype, shape, 7)
+    _check_acc_shuffles(op, dtype, *case, pallas=shape == SHAPES[1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_acc_shuffles_pin_max_signed_zero_and_nan(dtype):
+    # acc slot a, message m: every (a, m) pair of NaN, +-0 and numbers;
+    # XLA's max gives +0 for (-0, +0) in either order and keeps NaN.
+    pairs = [(np.nan, 1.0), (1.0, np.nan), (-0.0, 0.0), (0.0, -0.0),
+             (-0.0, -0.0), (np.nan, -np.nan), (-np.inf, -0.0), (2.0, 3.0)]
+    R, ns = len(pairs), 3
+    buf = np.random.default_rng(8).standard_normal((R, ns, 4)).astype(dtype)
+    msg = np.zeros((R, 4), dtype)
+    acc = np.zeros(R, np.int32)
+    fwd = np.array([0, 1, 2, 0, 1, 2, 0, 1], np.int32)     # some coincide
+    for r, (x, y) in enumerate(pairs):
+        buf[r, 0], msg[r] = x, y
+    pre = np.take_along_axis(buf, fwd[:, None, None], axis=1)[:, 0]
+    _check_acc_shuffles("max", dtype, buf, msg, pre, acc, fwd, pallas=True)
+    # A sum of two NaNs keeps one of them, which one is the hardware's
+    # choice and no part of the contract: the sum case keeps one NaN.
+    msg[5] = 1.0
+    _check_acc_shuffles("sum", dtype, buf, msg, pre, acc, fwd, pallas=True)
+
+
+def test_denormal_sum_keeps_ieee_where_xla_flushes():
+    # The one deliberate difference from the reference: XLA on the CPU
+    # flushes f32 denormals to zero; the port (like torch's CUDA ops, and
+    # the CUDA kernel, built without -ftz) keeps them.
+    tiny = np.float32(1e-45)                    # the least f32 denormal
+    buf = np.full((1, 2, 1), tiny, np.float32)
+    msg = np.full((1, 1), tiny, np.float32)
+    acc, fwd = np.zeros(1, np.int32), np.ones(1, np.int32)
+    jb, _ = jref.block_acc_shuffle_ref(jnp.asarray(buf), jnp.asarray(msg),
+                                       jnp.asarray(acc), jnp.asarray(fwd))
+    assert np.asarray(jb)[0, 0, 0] == 0.0
+    for fn in (ref.block_acc_shuffle_ref, bp.block_acc_shuffle):
+        tb, _ = fn(_torch(buf), _torch(msg), _torch(acc), _torch(fwd))
+        assert tb[0, 0, 0].view(torch.int32) == 2     # 2 * 2^-149, exact
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bool, torch.complex64])
+def test_acc_wrappers_reject_dtypes_without_a_kernel(dtype):
+    buf = torch.zeros((4, 3, 5), dtype=dtype)
+    msg = torch.zeros((4, 5), dtype=dtype)
+    idx = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(TypeError):
+        bp.block_acc_shuffle(buf, msg, idx, idx)
+    with pytest.raises(TypeError):
+        bp.block_acc_shuffle_staged(buf, msg, msg, idx, idx)
+
+
+def test_acc_wrappers_reject_unknown_ops():
+    buf, msg, recv, send = map(_torch, _inputs("float32", (8, 6, 16), 9))
+    with pytest.raises(ValueError):
+        bp.block_acc_shuffle(buf, msg, recv, send, op="min")
+
+
 def test_cpu_wrappers_launch_nothing():
     before = dict(bp.LAUNCHES)
     buf, msg, recv, send = map(_torch, _inputs("float32", (8, 6, 16), 4))
     bp.block_pack(buf, send)
     bp.block_unpack(buf, msg, recv)
     bp.block_shuffle(buf, msg, recv, send)
+    bp.block_shuffle_staged(buf, msg, msg.clone(), recv, send)
+    bp.block_acc_shuffle(buf, msg, recv, send, op="max")
+    bp.block_acc_shuffle_staged(buf, msg, msg.clone(), recv, send)
     assert bp.LAUNCHES == before
 
 
