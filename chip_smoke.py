@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each of the six kernels against
-its plain PyTorch version on the card (at the main path's shapes, and at
-a small odd shape in several dtypes and in both ops), then drives the
+``src/repro_torch/kernels/csrc``, holds each of the seven kernels
+against its plain PyTorch version on the card (at the main path's
+shapes, and at a small odd shape in several dtypes and in both ops, or
+at qblock 8 for the quantized step), then drives the
 port's paths through their entry points at p = 1152 ranks (the paper's
 36 x 32 cluster):
 
@@ -24,7 +25,16 @@ port's paths through their entry points at p = 1152 ranks (the paper's
   * allgather: 8 KiB float32 per rank, n = 43, 53 rounds, on
     [1152 * 1152, 44, 48] rank-major rows; every rank must hold every
     rank's blocks, "cuda" must equal "torch", overlapped must equal
-    sequential.
+    sequential;
+  * quantized_allreduce: the trainer's 4 MiB gradient bucket per rank
+    (the q/k/v projection weights and biases of one Qwen2-0.5B layer,
+    1,033,344 float32, bucketed by ``make_bucket_spec``/``bucketize``),
+    int8 blocks and float32 scales on the wire, n = 14 blocks of 73,984
+    (289 quantization blocks of 256), 24 reduce and 24 broadcast rounds,
+    root 100, two steps with error feedback (the second step's input is
+    its gradients plus the first step's error); every rank's row must be
+    identical, "cuda" must equal "torch" bit for bit, and sums plus
+    errors must give back the exact sum.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after, and must have gone through its kernels.  Every phase prints
@@ -61,12 +71,25 @@ REPLACES = {
     "block_shuffle_staged": "src/repro/kernels/block_pack.py:273",
     "block_acc_shuffle": "src/repro/kernels/block_pack.py:342",
     "block_acc_shuffle_staged": "src/repro/kernels/block_pack.py:417",
+    "block_qacc_shuffle": "src/repro/kernels/block_pack.py:507",
 }
 #: The path whose run gives each kernel's launch count in the kernels line.
 PATH_OF = {
     "block_pack": "broadcast", "block_unpack": "broadcast",
     "block_shuffle": "broadcast", "block_shuffle_staged": "broadcast_overlap",
     "block_acc_shuffle": "reduce", "block_acc_shuffle_staged": "reduce_overlap",
+    "block_qacc_shuffle": "quantized_allreduce",
+}
+QBLOCK = 256                  # elements per quantization block (the default)
+BUCKET_BYTES = 4 << 20        # the trainer's gradient bucket (TrainConfig)
+ODD_Q = (37, 6, 8, 5)         # R, nslots, qb, blocks a row: a short odd shape
+#: The q/k/v projections of one Qwen2-0.5B layer (d_model 896, 14 query
+#: heads and 2 kv heads of 64; src/repro/configs/qwen2_0p5b.py), as
+#: [out, in] weights with biases: 1,033,344 float32, one 4 MiB bucket.
+QKV_SHAPES = {
+    "q_proj": {"weight": (896, 896), "bias": (896,)},
+    "k_proj": {"weight": (128, 896), "bias": (128,)},
+    "v_proj": {"weight": (128, 896), "bias": (128,)},
 }
 
 
@@ -122,12 +145,15 @@ def same_bits(torch, a, b, rows: int = 64) -> bool:
 
 def max_abs_err(torch, a, b, rows: int = 64) -> float:
     """max |a - b| over the leading dimension in chunks; elements equal
-    bit for bit count 0 (so matching infinities and NaNs do too)."""
+    bit for bit count 0 (so matching infinities and NaNs do too), and so
+    does a NaN against a NaN."""
     worst = 0.0
     for i in range(0, a.shape[0], rows):
         x, y = a[i:i + rows], b[i:i + rows]
         d = (x.double() - y.double()).abs()
         d[bits(torch, x) == bits(torch, y)] = 0
+        if x.is_floating_point():
+            d[torch.isnan(x) & torch.isnan(y)] = 0
         worst = max(worst, float(d.max()))
     return worst
 
@@ -302,6 +328,84 @@ def counted_run(torch, bp, fn):
     return res, {k: v for k, v in bp.LAUNCHES.items() if v}
 
 
+def same_or_nan(torch, a, b, rows: int = 64) -> bool:
+    """Bitwise equality with NaN lanes compared by position (a NaN made by
+    the card's arithmetic carries its own payload)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    for i in range(0, a.shape[0], rows):
+        x, y = a[i:i + rows], b[i:i + rows]
+        if x.dtype.is_floating_point:
+            nan = torch.isnan(x)
+            if not torch.equal(nan, torch.isnan(y)):
+                return False
+            x, y = torch.where(nan, 0, x), torch.where(nan, 0, y)
+        if not torch.equal(bits(torch, x), bits(torch, y)):
+            return False
+    return True
+
+
+def qacc_operands(torch, qops, g, R, nslots, qb, nbk):
+    """Random operands of the quantized step: a float32 buffer whose
+    quantization blocks span 10^-4..10^4, a small error state, an int8
+    message with its scales, slot vectors with about a quarter of the
+    rows coincident, and NaN, inf, zero and tiny (scale-floor) blocks."""
+    dev, bs = "cuda", qb * nbk
+    mag = 10.0 ** torch.randint(-4, 5, (R, nslots, nbk, 1), generator=g,
+                                device=dev).float()
+    buf = (torch.randn((R, nslots, nbk, qb), generator=g, device=dev)
+           * mag).view(R, nslots, bs)
+    err = torch.randn((R, nslots, bs), generator=g, device=dev) * 1e-3
+    q, s = qops.quant_blocks(torch.randn((R * nbk, qb), generator=g, device=dev))
+    q, s = q.view(R, bs), s.view(R, nbk)
+    acc = torch.randint(0, nslots, (R,), generator=g, device=dev, dtype=torch.int32)
+    fwd = torch.randint(0, nslots, (R,), generator=g, device=dev, dtype=torch.int32)
+    same = torch.rand((R,), generator=g, device=dev) < 0.25
+    fwd = torch.where(same, acc, fwd).contiguous()
+    buf[0, :, :qb] = 0.0
+    buf[1, :, qb:qb + 1] = 1e-13
+    buf[R // 2, :, bs - 1] = float("nan")
+    buf[R - 1, :, 0] = float("inf")
+    s[R // 3, nbk - 1] = float("nan")
+    return buf, err, q.contiguous(), s.contiguous(), acc, fwd
+
+
+def qacc_row_bytes(bs, nb, coincide, rows):
+    """Bytes of one quantized step: a row whose slots differ moves six
+    float32 rows (buf[acc], buf[fwd], err[fwd], each read and written),
+    two int8 rows and two scale rows; a coincident row four float32 rows."""
+    row, wire = bs * 4, 2 * (bs + nb * 4)
+    return (6 * rows - 2 * coincide) * row + rows * wire
+
+
+def compare_qacc(torch, bp, ref, qops, g, R, nslots, qb, nbk, timed: bool):
+    """block_qacc_shuffle vs its plain version on the same inputs (bits,
+    NaN by position; the scales bit for bit, NaN included); at the path's
+    shape also the times.  Returns the kernel's record."""
+    buf, err, q, s, acc, fwd = qacc_operands(torch, qops, g, R, nslots, qb, nbk)
+    got = bp.block_qacc_shuffle(buf.clone(), err.clone(), q, s, acc, fwd)
+    want = ref.block_qacc_shuffle_ref(buf, err, q, s, acc, fwd)
+    where = f"at {R, nslots, qb * nbk} qb={qb}"
+    check(all(same_or_nan(torch, k, w) for k, w in zip(got, want)),
+          f"block_qacc_shuffle != plain {where}")
+    check(torch.equal(bits(torch, got[3]), bits(torch, want[3])),
+          f"block_qacc_shuffle scales differ in their bits {where}")
+    rec = {"max_abs_err": max(max_abs_err(torch, k, w)
+                              for k, w in zip(got, want) if k.is_floating_point())}
+    del got, want
+    torch.cuda.synchronize()
+    if not timed:
+        return rec
+    coincide = int((acc == fwd).sum())
+    rec.update(
+        ms=cuda_ms(torch, lambda: bp.block_qacc_shuffle(buf, err, q, s, acc, fwd), 10),
+        plain_ms=cuda_ms(torch, lambda: ref.block_qacc_shuffle_ref(
+            buf, err, q, s, acc, fwd), 3),
+        library_ms=None,
+        bound_ms=ms_of_bytes(qacc_row_bytes(qb * nbk, nbk, coincide, R)))
+    return rec
+
+
 def bcast_bytes(P_, n, rows, row, recv_h, send_h, upload_rows) -> dict:
     """Bytes the broadcast must move, from the plan's own tables."""
     coincide = sum(int((recv_h[t] == send_h[t + 1]).sum())
@@ -353,6 +457,14 @@ def main() -> None:
     )
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_pack as bp
+    from repro_torch.kernels import quant_ops as qops
+    from repro_torch.optim.compression import (
+        bucketize,
+        make_bucket_spec,
+        tree_flatten,
+        tree_unflatten,
+        unbucketize,
+    )
 
     # 1. the card
     smi = subprocess.run(
@@ -745,7 +857,193 @@ def main() -> None:
     del vals_ag
     torch.cuda.empty_cache()
 
-    # 7. the kernels line, each kernel with the launch count of its path
+    # 7. the quantized allreduce of one 4 MiB gradient bucket, two steps
+    #    with error feedback
+    spec = make_bucket_spec({k: {n_: torch.empty(sh, device="meta")
+                                 for n_, sh in d.items()}
+                             for k, d in QKV_SHAPES.items()}, BUCKET_BYTES)
+    check(spec.num_buckets == 1, f"{spec.num_buckets} buckets, expected 1")
+    (q_elems,) = spec.bucket_sizes
+    n_q = min(optimal_num_blocks_reduce(P, q_elems, DEFAULT_MODEL),
+              -(-q_elems // QBLOCK))
+    bs_q = -(-(-(-q_elems // n_q)) // QBLOCK) * QBLOCK
+    nb_q = bs_q // QBLOCK
+    R_q = num_rounds(P, n_q)
+
+    kern["block_qacc_shuffle"] = compare_qacc(
+        torch, bp, ref, qops, g, P, n_q + 2, QBLOCK, nb_q, timed=True)
+    emit({"phase": "kernels_vs_plain", "shape": [P, n_q + 2, bs_q],
+          "qblock": QBLOCK, "equal": True, "nan_by_position": True,
+          "max_abs_diff": {"block_qacc_shuffle":
+                           kern["block_qacc_shuffle"]["max_abs_err"]}})
+    odd = compare_qacc(torch, bp, ref, qops, g, *ODD_Q, timed=False)
+    emit({"phase": "kernels_vs_plain", "shape": [ODD_Q[0], ODD_Q[1],
+                                                 ODD_Q[2] * ODD_Q[3]],
+          "qblock": ODD_Q[2], "equal": True, "nan_by_position": True,
+          "max_abs_diff": {"block_qacc_shuffle": odd["max_abs_err"]}})
+    torch.cuda.empty_cache()
+
+    def grads_as_bucket():
+        """Each rank's q/k/v gradients (a tree per rank), bucketed as
+        the trainer buckets them and zero-padded to n blocks."""
+        leaves, treedef = tree_flatten(
+            {k: {n_: torch.empty(sh, device="meta") for n_, sh in d.items()}
+             for k, d in QKV_SHAPES.items()})
+        per_leaf = [torch.randn((P, *x.shape), generator=g, device="cuda")
+                    * 1e-3 for x in leaves]
+        vals = torch.zeros((P, n_q * bs_q), device="cuda")
+        for r in range(P):
+            vals[r, :q_elems] = bucketize(
+                tree_unflatten(treedef, [x[r] for x in per_leaf]), spec)[0]
+        return vals.view(P, n_q, bs_q), tree_unflatten(
+            treedef, [x[0].clone() for x in per_leaf])
+
+    def completeness(vals, out, err):
+        """max |sum(values) - (out + sum(err))| and whether it is within
+        the reference test's tolerance (f64 sums)."""
+        exact = torch.zeros(vals.shape[1:], dtype=torch.float64, device="cuda")
+        esum, vmax = torch.zeros_like(exact), torch.zeros_like(exact)
+        for i in range(0, P, 64):
+            exact += vals[i:i + 64].double().sum(0)
+            esum += err[i:i + 64].double().sum(0)
+            vmax = torch.maximum(vmax, vals[i:i + 64].double().abs().amax(0))
+        resid = (out[0].double() + esum - exact).abs()
+        tol = 1e-4 * torch.maximum(exact.abs(), vmax * P) + 1e-7
+        return float(resid.max()), bool((resid <= tol).all())
+
+    expect_q = {"block_qacc_shuffle": R_q + 1, "block_pack": 2,
+                "block_shuffle": 2 * (R_q - 1), "block_unpack": 2}
+    plan_q = host_plan("quantized_allreduce", P, n_q, root=BCAST_ROOT,
+                       qblock=QBLOCK)
+    plain_q = host_plan("quantized_allreduce", P, n_q, root=BCAST_ROOT,
+                        qblock=QBLOCK, backend="torch")
+    check(len(plan_q.ks) == R_q, f"quantized rounds {len(plan_q.ks)} != {R_q}")
+    torch.cuda.reset_peak_memory_stats()
+    vals, tree0 = grads_as_bucket()
+    steps = []
+    for step_no in (1, 2):
+        (out, err), got = counted_run(torch, bp, lambda: plan_q.run(vals))
+        check(got == expect_q,
+              f"quantized allreduce step {step_no} launches {got} != {expect_q}")
+        launches["block_qacc_shuffle"] = got["block_qacc_shuffle"]
+        check(tuple(out.shape) == (P, n_q, bs_q) and tuple(err.shape) == (P, n_q, bs_q),
+              f"quantized result shapes {tuple(out.shape)}, {tuple(err.shape)}")
+        check(bool(torch.isfinite(out).all()) and bool(torch.isfinite(err).all()),
+              f"quantized step {step_no}: non-finite sums or errors")
+        for i in range(0, P, 64):
+            j = min(i + 64, P)
+            check(same_bits(torch, out[i:j], out[0].expand(j - i, n_q, bs_q)),
+                  f"quantized step {step_no}: ranks {i}..{j - 1} differ from rank 0")
+        resid, within = completeness(vals, out, err)
+        check(within, f"quantized step {step_no}: sums + errors miss the exact "
+                      f"sum by {resid}")
+        torch.cuda.empty_cache()
+        pout, perr = plain_q.run(vals)
+        check(same_or_nan(torch, out, pout) and same_or_nan(torch, err, perr),
+              f"quantized step {step_no}: cuda backend != torch backend")
+        del pout, perr
+        steps.append({"step": step_no, "launches": got,
+                      "completeness_max_abs": resid})
+        if step_no == 1:
+            g2, _ = grads_as_bucket()
+            vals = g2 + err                 # error feedback: g2 + err1
+            del g2, out, err
+            torch.cuda.empty_cache()
+    mean, deltas = unbucketize([out[0].reshape(-1)[:q_elems] / P], spec, tree0)
+    check([tuple(x.shape) for x in tree_flatten(mean)[0]]
+          == [tuple(x.shape) for x in tree_flatten(tree0)[0]]
+          and bool((deltas[0] == 0).all()), "unbucketize of the mean")
+    q_peak = torch.cuda.max_memory_allocated()
+    del out, err, mean, deltas, tree0
+    torch.cuda.empty_cache()
+    q_ms, q_times = median_ms(torch, lambda: plan_q.run(vals), 5)
+    q_plain_ms, q_plain_times = median_ms(torch, lambda: plain_q.run(vals), 3)
+
+    # breakdown: each step of one call timed alone, over the plan's own
+    # skips and slot rows on buffers of the path's shapes
+    fwd_q, acc_q, recv_q, send_q = plan_q.device_slots
+    red_skips, bc_skips = plan_q.skips
+    work = torch.zeros((P, n_q + 2, bs_q), device="cuda")
+    werr = torch.zeros_like(work)
+    qmsg = torch.zeros((P, bs_q), dtype=torch.int8, device="cuda")
+    smsg = torch.zeros((P, nb_q), device="cuda")
+    qbuf = torch.zeros((P, n_q + 1, bs_q), dtype=torch.int8, device="cuda")
+    sbuf = torch.zeros((P, n_q + 1, nb_q), device="cuda")
+
+    def q_setup():
+        b = torch.empty((P, n_q + 2, bs_q), device="cuda")
+        b[:, :n_q] = vals
+        b[:, n_q:].zero_()
+        torch.zeros_like(b)
+
+    def q_qaccs():
+        bp.block_qacc_shuffle(work, werr, qmsg, smsg, fwd_q[R_q], fwd_q[0])
+        for t in range(R_q):
+            bp.block_qacc_shuffle(work, werr, qmsg, smsg, acc_q[t], fwd_q[t + 1])
+
+    def q_rolls():
+        for s_ in red_skips:
+            torch.roll(qmsg, -s_, dims=0)
+            torch.roll(smsg, -s_, dims=0)
+
+    def q_root():
+        d = work[BCAST_ROOT, :n_q].reshape(n_q * nb_q, QBLOCK)
+        q_, s_ = qops.quant_blocks(d)
+        werr[BCAST_ROOT, :n_q] += qops.quant_error(d, q_, s_).view(n_q, bs_q)
+
+    def q_bcast():
+        roll = lambda m, t: torch.roll(m, bc_skips[t], dims=0)  # noqa: E731
+        qb_ = torch.zeros((P, n_q + 1, bs_q), dtype=torch.int8, device="cuda")
+        sb_ = torch.zeros((P, n_q + 1, nb_q), device="cuda")
+        plan_q._forward_rounds(qb_, recv_q, send_q, roll)
+        plan_q._forward_rounds(sb_, recv_q, send_q, roll)
+
+    def q_dequant():
+        o = qbuf[:, :n_q].float().view(P, n_q, nb_q, QBLOCK)
+        o.mul_(sbuf[:, :n_q, :, None])
+
+    q_steps = {"setup": cuda_ms(torch, q_setup, 3),
+               "qacc_shuffle": cuda_ms(torch, q_qaccs, 1),
+               "reduce_rolls": cuda_ms(torch, q_rolls, 1),
+               "root_requantize": cuda_ms(torch, q_root, 3),
+               "broadcast_rounds": cuda_ms(torch, q_bcast, 1),
+               "dequantize": cuda_ms(torch, q_dequant, 3)}
+    del work, werr, qbuf, sbuf, vals
+    torch.cuda.empty_cache()
+
+    row_q, qrow, srow = bs_q * 4, bs_q, nb_q * 4
+    _, q_coincide = reduce_bytes(P, n_q, R_q, row_q, *plan_q.slots[:2])
+    q_rows = (R_q + 1) * P
+    bq, _ = bcast_bytes(P, n_q, R_q, qrow, *plan_q.slots[2:], upload_rows=2)
+    bsc, _ = bcast_bytes(P, n_q, R_q, srow, *plan_q.slots[2:], upload_rows=2)
+    q_bytes = {
+        "setup": 2 * P * n_q * row_q + 2 * P * row_q + P * (n_q + 2) * row_q,
+        "zero_messages": P * (qrow + srow),
+        "qacc_shuffle": qacc_row_bytes(bs_q, nb_q, q_coincide, q_rows),
+        "reduce_rolls": R_q * 2 * P * (qrow + srow),
+        "root_requantize": 3 * n_q * row_q + n_q * (qrow + srow),
+        "broadcast_rounds": sum(bq.values()) + sum(bsc.values()),
+        "dequantize": P * n_q * (qrow + srow + row_q),
+    }
+    q_bound = sum(q_bytes.values())
+    emit({"phase": "quantized_allreduce", "p": P, "n": n_q, "bs": bs_q,
+          "qblock": QBLOCK, "rounds": 2 * R_q, "root": BCAST_ROOT,
+          "bucket_elems": q_elems, "bucket_bytes": BUCKET_BYTES,
+          "leaves": {k: {n_: list(sh) for n_, sh in d.items()}
+                     for k, d in QKV_SHAPES.items()},
+          "buffer_bytes": P * (n_q + 2) * row_q,
+          "launches": expect_q, "steps": steps,
+          "every_rank_identical": True, "equal_to_torch_backend": True,
+          "sums_plus_errors_complete": True,
+          "ms": q_ms, "ms_runs": q_times,
+          "plain_ms": q_plain_ms, "plain_ms_runs": q_plain_times,
+          "bytes_moved": q_bound, "bytes_by_step": q_bytes,
+          "bytes_bound_ms": ms_of_bytes(q_bound),
+          "qacc_rows_acc_eq_fwd": q_coincide,
+          "breakdown_ms": q_steps,
+          "max_memory_allocated": q_peak, "card": card})
+
+    # 8. the kernels line, each kernel with the launch count of its path
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": REPLACES[name], "path": PATH_OF[name],

@@ -5,9 +5,11 @@ against; ``repro_torch`` imports nothing of it and nothing of JAX.
 It ports the paper's own path: the O(log p) schedules, the cached
 schedule engine, the correctness conditions, the cost model and the
 single-device data planes of the broadcast, its time-reversed dual (the
-reduction, and allreduce as reduce then broadcast) and the allgather,
-sequential and overlapped, whose round steps run in hand-written CUDA
-kernels on an H100 (:mod:`repro_torch.kernels`).
+reduction, and allreduce as reduce then broadcast), the allgather and
+the int8 quantized allreduce of gradient compression, whose round steps
+run in hand-written CUDA kernels on an H100 (:mod:`repro_torch.kernels`),
+and the collective-free half of gradient compression with error
+feedback (:mod:`repro_torch.optim.compression`).
 Importing the package builds no kernel.
 """
 
@@ -33,8 +35,17 @@ from .core import (
     simulate_reduce,
     verify_bundle,
 )
+from .optim.compression import (
+    BucketSpec,
+    bucketize,
+    init_error_state,
+    init_grad_sync_state,
+    make_bucket_spec,
+    unbucketize,
+)
 
 __all__ = [
+    "BucketSpec",
     "DEFAULT_MODEL",
     "CommModel",
     "HostDataPlan",
@@ -42,9 +53,13 @@ __all__ = [
     "RoundStep",
     "ScheduleBundle",
     "SimResult",
+    "bucketize",
     "get_bundle",
     "get_round_step",
     "host_plan",
+    "init_error_state",
+    "init_grad_sync_state",
+    "make_bucket_spec",
     "optimal_num_blocks_allgather",
     "optimal_num_blocks_allreduce",
     "optimal_num_blocks_bcast",
@@ -54,5 +69,6 @@ __all__ = [
     "simulate_allreduce",
     "simulate_broadcast",
     "simulate_reduce",
+    "unbucketize",
     "verify_bundle",
 ]

@@ -1,9 +1,10 @@
 """Core of the port: schedules (Träff 2023) in O(log p), the cached
 schedule engine, verification, the cost model, the round-step data
 plane and the single-device host plans of the exact collectives
-(broadcast, allgather, reduce; sequential and overlapped)."""
+(broadcast, allgather, reduce; sequential and overlapped) and of the
+int8 quantized allreduce."""
 
-from .comm import HostDataPlan, host_plan
+from .comm import HostDataPlan, host_plan, resolve_device
 from .costmodel import (
     DEFAULT_MODEL,
     CommModel,
@@ -49,6 +50,7 @@ from .verify import verify_bundle, verify_reversed_schedules, verify_schedules
 __all__ = [
     "HostDataPlan",
     "host_plan",
+    "resolve_device",
     "DEFAULT_MODEL",
     "CommModel",
     "optimal_num_blocks_allgather",

@@ -1,12 +1,14 @@
 """Host data plans: whole collectives on one device.
 
 Port of the host data plans of ``repro.core.comm`` (``_as_blocks``,
-``HostDataPlan``, ``host_plan``) for the exact kinds: ``"broadcast"``,
+``HostDataPlan``, ``host_plan``): the exact kinds ``"broadcast"``,
 ``"allgather"`` and ``"reduce"`` (allreduce is a reduce followed by a
-broadcast of the root's blocks).  The p ranks are the rows of one
-device buffer and the network exchange is a row rotation (the circulant
-round's r -> (r + skip) mod p is exactly ``torch.roll`` along the rank
-axis; the reduction's partials travel the other way, by ``-skip``).
+broadcast of the root's blocks), and the lossy
+``"quantized_allreduce"`` (int8 blocks and f32 scales on the wire).
+The p ranks are the rows of one device buffer and the network exchange
+is a row rotation (the circulant round's r -> (r + skip) mod p is
+exactly ``torch.roll`` along the rank axis; the reduction's partials
+travel the other way, by ``-skip``).
 The round steps are the backend's (:mod:`repro_torch.core.roundstep`):
 
   * broadcast: pack -> exchange -> shuffle, and the last round unpack,
@@ -15,7 +17,12 @@ The round steps are the backend's (:mod:`repro_torch.core.roundstep`):
     ``r*p + j`` is rank r's copy of root j's blocks), send slots from
     Condition 2's base rotation of the one receive table;
   * reduce: exchange -> acc_shuffle on a ``[p, n+2, bs]`` buffer (slot n
-    garbage, slot n+1 the op identity).
+    garbage, slot n+1 the op identity);
+  * quantized_allreduce: the reduce's rounds with qacc_shuffle on f32
+    ``[p, n+2, bs]`` buffer and error state (the exchange rolls the int8
+    payload and its scales), the root's requantization, then the
+    broadcast's rounds over an int8 ``[p, n+1, bs]`` and an f32 scale
+    ``[p, n+1, bs/qblock]`` buffer, and a dequantize.
 
 ``overlap=True`` runs the reference's overlapped round loop: each round
 packs the next send block from the pre-update buffer, then calls the
@@ -36,6 +43,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels.quant_ops import QBLOCK, quant_blocks, quant_error
 from ..kernels.reduce_ops import _validate, op_identity
 from .engine import cached_plan, get_bundle
 from .roundstep import (
@@ -52,16 +60,12 @@ from .roundstep import (
 
 __all__ = ["HostDataPlan", "host_plan", "resolve_device"]
 
-#: Kinds of the JAX package's host plans, with the ROADMAP item that
-#: ports each one this slice does not.
-_LATER_KINDS = {
-    "quantized_allreduce": "Queue 1 item 6 (quantized allreduce)",
-}
-
-#: The ported kinds, with the audit record of each one's phase.
-_STATICS = {"broadcast": broadcast_phase_static,
-            "allgather": allgather_phase_static,
-            "reduce": reduce_phase_static}
+#: The kinds, with the audit records of their phases in execution order.
+_STATICS = {"broadcast": (broadcast_phase_static,),
+            "allgather": (allgather_phase_static,),
+            "reduce": (reduce_phase_static,),
+            "quantized_allreduce": (reduce_phase_static,
+                                    broadcast_phase_static)}
 
 
 def resolve_device(device: Union[str, torch.device, None]) -> torch.device:
@@ -124,29 +128,38 @@ class HostDataPlan:
     device: torch.device
     slots: Tuple[np.ndarray, ...] = field(repr=False)
     ks: np.ndarray = field(repr=False)
-    skips: Tuple[int, ...] = field(repr=False)
+    #: The skip of each round; quantized_allreduce: one tuple per phase
+    #: (reduce rounds, broadcast rounds).
+    skips: Tuple = field(repr=False)
     step: RoundStep = field(repr=False)
     #: The slot tables the rounds index, as int32 tensors on ``device``,
     #: built once: broadcast ``(recv, send)`` [R, p]; allgather
     #: ``(recv_rows, send_rows)`` [R, p*p]; reduce ``(fwd, acc)`` with
     #: ``fwd`` [R+1, p], its last row the garbage slot n (the capture
-    #: slot after the last round).
+    #: slot after the last round); quantized_allreduce the reduce's two
+    #: and then the broadcast's two.
     device_slots: Tuple[torch.Tensor, ...] = field(repr=False)
     overlap: bool = False
+    #: Elements per quantization block (quantized_allreduce only).
+    qblock: Optional[int] = None
 
     @property
     def statics(self) -> Tuple[PhaseStatic, ...]:
-        """Auditable per-phase schedule statics.  Built from the same
-        process-cached slot plans ``run`` executes, so the audited arrays
-        ARE the executed ones by identity."""
-        return (_STATICS[self.kind](get_bundle(self.p, self.root), self.n,
-                                    overlap=self.overlap),)
+        """Auditable per-phase schedule statics, in execution order (the
+        quantized allreduce's reduce phase, then its broadcast phase).
+        Built from the same process-cached slot plans ``run`` executes,
+        so the audited arrays ARE the executed ones by identity."""
+        bundle = get_bundle(self.p, self.root)
+        return tuple(static(bundle, self.n, overlap=self.overlap)
+                     for static in _STATICS[self.kind])
 
-    def run(self, values) -> torch.Tensor:
+    def run(self, values):
         if self.kind == "broadcast":
             return self._run_broadcast(values)
         if self.kind == "allgather":
             return self._run_allgather(values)
+        if self.kind == "quantized_allreduce":
+            return self._run_quantized(values)
         return self._run_reduce(values)
 
     def _forward_rounds(self, buf, recv_rows, send_rows, roll):
@@ -155,7 +168,7 @@ class HostDataPlan:
         last round unpack.  Overlapped: each round first packs the next
         send block from the pre-update buffer, then takes the staged
         shuffle."""
-        step, R = self.step, len(self.ks)
+        step, R = self.step, len(recv_rows)
         msg = step.pack(buf, send_rows[0])
         for t in range(R):
             got = roll(msg, t)
@@ -250,44 +263,123 @@ class HostDataPlan:
                                             op=op)
         return buf[:, :n]
 
+    def _run_quantized(self, values) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``values``: [p, n(, bs)] per-rank contributions (bs a multiple
+        of ``qblock``), a numpy array or a tensor, taken as f32 ->
+        ``(out, err)``, device tensors: ``out`` [p, n, bs] the lossy sums
+        (every row identical) and ``err`` [p, n, bs] (a view of the error
+        state) each rank's own quantization error, so that
+        ``values.sum(0) == out[r] + err.sum(0)`` up to f32 rounding.
+        For p = 1 nothing moves: ``(values, zeros)``.
+
+        Reduce phase: the reduce's rounds with the int8 wire, each round
+        two rolls (payload and scales, by -skip) and one qacc_shuffle on
+        the f32 ``[p, n+2, bs]`` buffer and error state.  The root then
+        requantizes its sums (its error is the root's) with the plain
+        :mod:`repro_torch.kernels.quant_ops`, as the reference computes it
+        outside any kernel.  Broadcast phase: the broadcast's rounds over
+        the int8 ``[p, n+1, bs]`` and the f32 ``[p, n+1, nb]`` scale
+        buffers, then a dequantize ``q * scale``.
+        """
+        p, n, qb = self.p, self.n, self.qblock
+        vals = _as_blocks(_as_tensor(values), 1)     # [p, n, bs]
+        if tuple(vals.shape[:2]) != (p, n):
+            raise ValueError(f"expected [{p}, {n}, ...] values, got "
+                             f"{tuple(vals.shape)}")
+        bs = vals.shape[-1]
+        if bs % qb:
+            raise ValueError(f"block size {bs} not a multiple of qblock {qb}")
+        nb, dev, root = bs // qb, self.device, self.root
+        red_skips, bc_skips = self.skips
+        R = len(red_skips)
+        if R == 0:                                   # p == 1
+            out = vals.to(device=dev, dtype=torch.float32, copy=True)
+            return out, torch.zeros_like(out)
+        buf = torch.empty((p, n + 2, bs), dtype=torch.float32, device=dev)
+        buf[:, :n] = vals
+        buf[:, n:].zero_()                           # n: garbage, n+1: zero
+        err = torch.zeros_like(buf)
+        step = self.step
+        fwd, acc, recv, send = self.device_slots     # fwd[R]: the garbage slot
+        # Initial capture+drain of round 0's forwarded partials (the acc
+        # part folds a zero message into the garbage slot).
+        buf, err, qm, sm = step.qacc_shuffle(
+            buf, err, torch.zeros((p, bs), dtype=torch.int8, device=dev),
+            torch.zeros((p, nb), dtype=torch.float32, device=dev),
+            fwd[R], fwd[0])
+        for t in range(R):
+            gq = torch.roll(qm, -red_skips[t], dims=0)
+            gs = torch.roll(sm, -red_skips[t], dims=0)
+            buf, err, qm, sm = step.qacc_shuffle(buf, err, gq, gs, acc[t],
+                                                 fwd[t + 1])
+        droot = buf[root, :n].reshape(n * nb, qb)
+        q, sc = quant_blocks(droot)
+        err[root, :n] += quant_error(droot, q, sc).view(n, bs)
+        qbuf = torch.zeros((p, n + 1, bs), dtype=torch.int8, device=dev)
+        qbuf[root, :n] = q.view(n, bs)
+        sbuf = torch.zeros((p, n + 1, nb), dtype=torch.float32, device=dev)
+        sbuf[root, :n] = sc.view(n, nb)
+
+        def roll(msg, t):
+            return torch.roll(msg, bc_skips[t], dims=0)
+
+        qbuf = self._forward_rounds(qbuf, recv, send, roll)
+        sbuf = self._forward_rounds(sbuf, recv, send, roll)
+        out = qbuf[:, :n].float().view(p, n, nb, qb)
+        out.mul_(sbuf[:, :n, :, None])
+        return out.view(p, n, bs), err[:, :n]
+
 
 def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
               backend: str = "cuda", overlap: bool = False,
+              qblock: Optional[int] = None,
               device: Union[str, torch.device, None] = None) -> HostDataPlan:
     """The cached :class:`HostDataPlan` of a collective over p ranks on
     one device.
 
     ``kind``: ``"broadcast"``, ``"allgather"`` (every rank a root; ``root``
-    is ignored) or ``"reduce"`` (``op``: ``"sum"``/``"+"`` or ``"max"``;
-    ignored by the other kinds).  ``overlap=True`` runs the overlapped
-    round loop.  ``backend``: ``"cuda"`` (the kernels) or ``"torch"``
-    (the plain versions).  ``device=None`` means ``"cuda"`` and raises
-    with no card.  ``"quantized_allreduce"`` is not ported yet and raises
-    ``NotImplementedError``.  Equal arguments return the identical plan
+    is ignored), ``"reduce"`` (``op``: ``"sum"``/``"+"`` or ``"max"``;
+    ignored by the other kinds) or ``"quantized_allreduce"`` (``op`` must
+    be ``"sum"``; ``qblock`` elements share one scale, default
+    ``QBLOCK`` = 256; no ``overlap``).  ``overlap=True`` runs the
+    overlapped round loop.  ``backend``: ``"cuda"`` (the kernels) or
+    ``"torch"`` (the plain versions).  ``device=None`` means ``"cuda"``
+    and raises with no card.  Equal arguments return the identical plan
     object.
     """
-    if kind in _LATER_KINDS:
-        raise NotImplementedError(
-            f"host_plan kind {kind!r} is not ported yet: ROADMAP "
-            f"{_LATER_KINDS[kind]}")
     if kind not in _STATICS:
         raise ValueError(f"unknown host data-plane kind {kind!r}")
     if backend not in BACKENDS:
         raise ValueError(
             f"unknown round-step backend {backend!r} (use one of {BACKENDS})")
+    quantized = kind == "quantized_allreduce"
+    if qblock is not None and not quantized:
+        raise ValueError(f"qblock= does not apply to kind {kind!r}")
+    if quantized:
+        if overlap:
+            raise ValueError("overlap= is not supported for kind "
+                             "'quantized_allreduce'")
+        if op != "sum":
+            raise ValueError("quantized_allreduce always sums")
+        qblock = QBLOCK if qblock is None else int(qblock)
+        if qblock < 1:
+            raise ValueError(f"qblock must be positive, got {qblock}")
     if kind == "reduce":
         _validate(op)
     dev = resolve_device(device)
     root_key = int(root) if kind != "allgather" else 0
-    op_key = op if kind == "reduce" else None
+    op_key = op if kind in ("reduce", "quantized_allreduce") else None
     key = ("hostplan", kind, int(p), int(n), root_key, op_key, backend,
-           bool(overlap), str(dev))
+           bool(overlap), qblock, str(dev))
 
     def build():
         bundle = get_bundle(p, root_key)
-        if kind == "reduce":
+        if kind in ("reduce", "quantized_allreduce"):
             fwd, acc, ks = reduce_slot_plan(bundle, n)
             slots = (fwd, acc)
+            garbage = np.full((1, int(p)), n, np.int32)
+            device_slots = (_upload(np.concatenate([fwd, garbage]), dev),
+                            _upload(acc, dev))
         else:
             recv, send, ks = broadcast_slot_plan(bundle, n)
             slots = (recv, send) if kind == "broadcast" else (recv,)
@@ -296,14 +388,16 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
             device_slots = (_upload(recv, dev), _upload(send, dev))
         elif kind == "allgather":
             device_slots = _allgather_rows(recv, skips, int(p), dev)
-        else:
-            garbage = np.full((1, int(p)), n, np.int32)
-            device_slots = (_upload(np.concatenate([fwd, garbage]), dev),
-                            _upload(acc, dev))
+        elif quantized:
+            # one skip tuple per phase (reduce rounds, broadcast rounds)
+            recv, send, ks_b = broadcast_slot_plan(bundle, n)
+            slots += (recv, send)
+            skips = (skips, tuple(int(bundle.skip[int(k)]) for k in ks_b))
+            device_slots += (_upload(recv, dev), _upload(send, dev))
         return HostDataPlan(
             kind=kind, p=int(p), n=int(n), root=root_key, op=op_key,
             backend=backend, device=dev, slots=slots, ks=ks, skips=skips,
             step=get_round_step(backend), device_slots=device_slots,
-            overlap=bool(overlap))
+            overlap=bool(overlap), qblock=qblock)
 
     return cached_plan(key, build)

@@ -9,7 +9,8 @@ per-round *data movement*; the broadcast's per-round step is
 
 with ``shuffle`` fusing round t's unpack and round t+1's pack, and the
 reduction's (the time-reversed broadcast) is ``acc_shuffle``: round t's
-accumulate fused with round t+1's capture and drain.  The ``*_staged``
+accumulate fused with round t+1's capture and drain (``qacc_shuffle``
+for the int8 wire of the quantized allreduce).  The ``*_staged``
 forms serve the overlapped round loop, where the next send block is
 packed from the buffer before the exchange lands.  Buffers are
 ``[R, nslots, bs]`` tensors (R rows: one per rank in the host data
@@ -261,6 +262,13 @@ class RoundStep:
         the combined value, and drains.  Equal to :meth:`acc_shuffle`."""
         raise NotImplementedError
 
+    def qacc_shuffle(self, buf, err, qmsg, smsg, acc_idx, fwd_idx):
+        """Quantized-wire acc_shuffle (sum only) in place -> (buf, err,
+        out_q, out_s): accumulate fma(qmsg, smsg) into buf[acc],
+        requantize the captured buf[fwd] for the wire, add its
+        requantization error to err[fwd], drain buf[fwd] to zero."""
+        raise NotImplementedError
+
 
 class TorchRoundStep(RoundStep):
     """The plain PyTorch versions (advanced-indexing gathers and
@@ -299,6 +307,12 @@ class TorchRoundStep(RoundStep):
 
         return ref.block_acc_shuffle_staged_ref(buf, msg, pre, acc_idx,
                                                 fwd_idx, op)
+
+    def qacc_shuffle(self, buf, err, qmsg, smsg, acc_idx, fwd_idx):
+        from ..kernels import ref
+
+        return ref.block_qacc_shuffle_ref(buf, err, qmsg, smsg, acc_idx,
+                                          fwd_idx)
 
 
 class CudaRoundStep(RoundStep):
@@ -339,6 +353,11 @@ class CudaRoundStep(RoundStep):
 
         return block_acc_shuffle_staged(buf, msg, pre, acc_idx, fwd_idx,
                                         op=op)
+
+    def qacc_shuffle(self, buf, err, qmsg, smsg, acc_idx, fwd_idx):
+        from ..kernels.block_pack import block_qacc_shuffle
+
+        return block_qacc_shuffle(buf, err, qmsg, smsg, acc_idx, fwd_idx)
 
 
 _STEPS = {"torch": TorchRoundStep(), "cuda": CudaRoundStep()}

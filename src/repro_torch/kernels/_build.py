@@ -39,6 +39,8 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
             (_P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _E, _P), _E),
         "block_acc_shuffle_staged_launch": (
             (_P, _P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _E, _P), _E),
+        "block_qacc_shuffle_launch": (
+            (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _E, _P), _E),
         "block_pack_error_string": ((_E,), ctypes.c_char_p),
     },
 }

@@ -2,7 +2,8 @@
 
 Port of the TPU kernels ``repro.kernels.block_pack.block_pack``,
 ``block_unpack``, ``block_shuffle``, ``block_shuffle_staged``,
-``block_acc_shuffle`` and ``block_acc_shuffle_staged``; the kernels
+``block_acc_shuffle``, ``block_acc_shuffle_staged`` and
+``block_qacc_shuffle``; the kernels
 themselves are in ``csrc/block_pack.cu`` (CUDA C++ for sm_90a, built by
 :mod:`repro_torch.kernels._build` at the first launch).
 
@@ -32,7 +33,7 @@ from .reduce_ops import _validate
 #: one where it launches its kernel, and nowhere else.
 LAUNCHES = {"block_pack": 0, "block_unpack": 0, "block_shuffle": 0,
             "block_shuffle_staged": 0, "block_acc_shuffle": 0,
-            "block_acc_shuffle_staged": 0}
+            "block_acc_shuffle_staged": 0, "block_qacc_shuffle": 0}
 
 #: Element types of the accumulating kernels, by the code
 #: ``csrc/block_pack.cu`` switches on.
@@ -78,19 +79,23 @@ def _check(buffers: torch.Tensor, msgs=(), idx=()) -> bool:
     return device.type == "cuda"
 
 
-def _launch(name: str, buffers: torch.Tensor, *args) -> None:
+def _call(name: str, device: torch.device, *args) -> None:
+    """Launch ``<name>_launch(*args, device, stream)`` on the current
+    stream, raise if it failed, and count it."""
     from . import _build
 
     lib = _build.load("block_pack")
-    R, nslots, bs = buffers.shape
-    device = buffers.device
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name + "_launch")(
-        *args, R, nslots, bs * buffers.element_size(), device.index, stream)
+    err = getattr(lib, name + "_launch")(*args, device.index, stream)
     if err != 0:
         raise RuntimeError(f"{name} failed: CUDA error {err} "
                            f"({lib.block_pack_error_string(err).decode()})")
     LAUNCHES[name] += 1
+
+
+def _launch(name: str, buffers: torch.Tensor, *args) -> None:
+    R, nslots, bs = buffers.shape
+    _call(name, buffers.device, *args, R, nslots, bs * buffers.element_size())
 
 
 def block_pack(buffers: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -198,3 +203,53 @@ def block_acc_shuffle_staged(buffers: torch.Tensor, msg: torch.Tensor,
                 fwd_idx.data_ptr(), out.data_ptr(),
                 ACC_DTYPES[buffers.dtype], code)
     return buffers, out
+
+
+def block_qacc_shuffle(buffers: torch.Tensor, err: torch.Tensor,
+                       qmsg: torch.Tensor, smsg: torch.Tensor,
+                       acc_idx: torch.Tensor, fwd_idx: torch.Tensor):
+    """Quantized accumulate(t) + requantize/capture/drain(t+1), sum only,
+    in place -> ``(buffers, err, out_q, out_s)``.
+
+    ``buffers``/``err``: [R, nslots, bs] float32 partial sums and their
+    accumulated requantization errors (two distinct tensors); ``qmsg``
+    [R, bs] int8 and ``smsg`` [R, nb] float32 the incoming blocks and
+    their per-block scales, qb = bs / nb elements a block.  Per row:
+    ``buffers[acc] = fma(q, s, buffers[acc])``; capture ``buffers[fwd]``
+    (post-accumulate when the slots coincide) and requantize it to
+    ``out_q`` [R, bs] int8, ``out_s`` [R, nb] float32 (NaN for a block
+    with a non-finite value); ``err[fwd] += captured - out_q*out_s``
+    (fused; 0 where not finite); ``buffers[fwd] = 0``.  The arithmetic
+    is :mod:`repro_torch.kernels.quant_ops`'s, bit for bit."""
+    is_cuda = _check(buffers, (), (acc_idx, fwd_idx))
+    R, _, bs = buffers.shape
+    if buffers.dtype != torch.float32 or err.dtype != torch.float32:
+        raise TypeError("buffers and err must be float32")
+    if err.shape != buffers.shape:
+        raise ValueError(f"err must be {tuple(buffers.shape)}, got {tuple(err.shape)}")
+    if qmsg.dtype != torch.int8 or tuple(qmsg.shape) != (R, bs):
+        raise ValueError(f"qmsg must be int8 [{R}, {bs}], got "
+                         f"{qmsg.dtype} {tuple(qmsg.shape)}")
+    if (smsg.dtype != torch.float32 or smsg.dim() != 2 or smsg.shape[0] != R
+            or smsg.shape[1] < 1 or bs % smsg.shape[1]):
+        raise ValueError(f"smsg must be float32 [{R}, nb] with nb dividing "
+                         f"{bs}, got {smsg.dtype} {tuple(smsg.shape)}")
+    for t in (err, qmsg, smsg):
+        if t.device != buffers.device:
+            raise ValueError(f"operands on {t.device} and {buffers.device}")
+        if not t.is_contiguous():
+            raise ValueError("operands must be contiguous")
+    if err.numel() and err.data_ptr() == buffers.data_ptr():
+        raise ValueError("err and buffers must be distinct tensors")
+    if not is_cuda:
+        return ref.block_qacc_shuffle_ref(buffers, err, qmsg, smsg, acc_idx,
+                                          fwd_idx)
+    nb = smsg.shape[1]
+    out_q = torch.empty_like(qmsg)
+    out_s = torch.empty_like(smsg)
+    if qmsg.numel():
+        _call("block_qacc_shuffle", buffers.device, buffers.data_ptr(),
+              err.data_ptr(), qmsg.data_ptr(), smsg.data_ptr(),
+              acc_idx.data_ptr(), fwd_idx.data_ptr(), out_q.data_ptr(),
+              out_s.data_ptr(), R, buffers.shape[1], bs, bs // nb)
+    return buffers, err, out_q, out_s

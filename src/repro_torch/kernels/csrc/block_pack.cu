@@ -339,6 +339,224 @@ acc_shuffle_kernel(T* buf, const T* __restrict__ msg,
   }
 }
 
+// ------------------------------------------- the quantized reduce's step
+//
+// Replaces the TPU kernel repro/kernels/block_pack.py:block_qacc_shuffle
+// (body _qacc_shuffle_kernel): the int8-wire reduce round step, sum only,
+// in place.  buf and err are [R, nslots, bs] float, qmsg [R, bs] int8,
+// smsg [R, nb] float (bs = nb * qb), outq [R, bs] int8, outs [R, nb]
+// float.  Per row r, with a = acc[r], f = fwd[r], and per quantization
+// block of qb elements:
+//   c = fma(q, s, buf[r, a]);  buf[r, a] = c;
+//   x = a == f ? c : the pre-update buf[r, f]      (the capture);
+//   scale = max(amax_finite(x) * INV127, 1e-12);
+//   outq = clip(rint(x_finite / scale), +-127);   outs = scale, or NaN
+//   when the block holds a non-finite x;
+//   err[r, f] += fma(-outq, scale, x), 0 where that is not finite
+//   (and everywhere in a NaN-scale block);
+//   buf[r, f] = 0.
+// The arithmetic is the jitted reference's, which XLA contracts into
+// fused multiply-adds (the accumulate and the error capture, one rounding
+// each), so it is written with intrinsics and no contraction choice of
+// nvcc can change it: __fmaf_rn, __fmul_rn, __fdiv_rn (a true division),
+// rintf (round half to even), __fadd_rn.  The library is built without
+// --use_fast_math and -ftz.
+// Layout: one warp owns one (row, quantization block).  The TPU kernel's
+// two-step grid (accumulate at step 0, drain at step 1, the block staged
+// in VMEM) becomes: each lane loads its elements of buf[a], buf[f],
+// err[f] and qmsg before any store, the warp reduces amax with
+// __shfl_xor_sync (max is exact, so order does not matter) and the
+// non-finite flag with __any_sync, then each lane stores.  No element is
+// read after another lane's write, so there is no barrier.  A lane holds
+// up to K units of V floats in registers; a block longer than 32 * K
+// units is read twice (amax pass, then store pass), and each element is
+// read and written by the same lane in both.  V = 4 (16-byte loads of
+// buf/err, 4-byte loads of int8) where qb and the pointers allow, else 1.
+// What bounds it: bytes.  A row whose slots differ reads buf[a], buf[f],
+// err[f], qmsg, smsg and writes buf[a], buf[f], err[f], outq, outs:
+// 6 float rows, 2 int8 rows and 2 scale rows; a coincident row moves
+// 4 float rows and the same int8 and scale rows.  A few flops per
+// element are far below the arithmetic bound.
+constexpr float kInv127 = 0x1.020408p-7f;   // float(1) / float(127)
+constexpr float kScaleFloor = 0x1.197998p-40f;   // float(1e-12)
+constexpr int kWarpsPerBlock = kThreads / 32;
+
+template <int V>
+__device__ __forceinline__ void load_f(const float* p, float (&d)[V]) {
+  if constexpr (V == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f(float* p, const float (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(d[0], d[1], d[2], d[3]);
+  } else {
+    *p = d[0];
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void load_q(const int8_t* p, int8_t (&d)[V]) {
+  if constexpr (V == 4) {
+    const char4 t = *reinterpret_cast<const char4*>(p);
+    d[0] = t.x; d[1] = t.y; d[2] = t.z; d[3] = t.w;
+  } else {
+    d[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_q(int8_t* p, const int8_t (&d)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<char4*>(p) = make_char4(d[0], d[1], d[2], d[3]);
+  } else {
+    *p = d[0];
+  }
+}
+
+// One chunk of a lane's elements (units c0 + k*32 + lane), all loaded
+// before any store of that chunk: c = the accumulated value fma(q, s, a),
+// x = the capture, e = the old error.
+template <int V, int K>
+__device__ __forceinline__ void qacc_load(
+    int64_t c0, int lane, int64_t units, bool same, float s_in,
+    const float* ap, const float* fp, const float* ep, const int8_t* qp,
+    float (&c)[K][V], float (&x)[K][V], float (&e)[K][V]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int64_t u = c0 + k * 32 + lane;
+    if (u < units) {
+      float a[V], f[V];
+      int8_t q[V];
+      load_f<V>(ap + u * V, a);
+      load_q<V>(qp + u * V, q);
+      if (!same) load_f<V>(fp + u * V, f);
+      load_f<V>(ep + u * V, e[k]);
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        c[k][v] = __fmaf_rn((float)q[v], s_in, a[v]);
+        x[k][v] = same ? c[k][v] : f[v];
+      }
+    }
+  }
+}
+
+template <int V, int K>
+__global__ void __launch_bounds__(kThreads)
+qacc_shuffle_kernel(float* buf, float* err, const int8_t* __restrict__ qmsg,
+                    const float* __restrict__ smsg,
+                    const int32_t* __restrict__ acc,
+                    const int32_t* __restrict__ fwd,
+                    int8_t* __restrict__ outq, float* __restrict__ outs,
+                    int64_t R, int64_t nslots, int64_t bs, int64_t qb) {
+  const int64_t nb = bs / qb;
+  const int64_t w = (int64_t)blockIdx.x * kWarpsPerBlock + threadIdx.x / 32;
+  if (w >= R * nb) return;  // the whole warp leaves together
+  const int lane = threadIdx.x & 31;
+  const int64_t r = w / nb;
+  const int64_t off = (w - r * nb) * qb;
+  const int64_t as = load_slot(acc, r, nslots);
+  const int64_t fs = load_slot(fwd, r, nslots);
+  const bool same = as == fs;
+  float* ap = buf + (r * nslots + as) * bs + off;
+  float* fp = buf + (r * nslots + fs) * bs + off;
+  float* ep = err + (r * nslots + fs) * bs + off;
+  const int8_t* qp = qmsg + r * bs + off;
+  int8_t* op = outq + r * bs + off;
+  const float s_in = smsg[w];
+  const int64_t units = qb / V;
+  const bool held = units <= 32 * K;  // one chunk holds the whole block
+
+  float c[K][V], x[K][V], e[K][V];
+  float amax = 0.0f;
+  bool bad = false;
+  for (int64_t c0 = 0; c0 < units; c0 += 32 * K) {
+    qacc_load<V, K>(c0, lane, units, same, s_in, ap, fp, ep, qp, c, x, e);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (c0 + k * 32 + lane < units) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          if (isfinite(x[k][v])) amax = fmaxf(amax, fabsf(x[k][v]));
+          else bad = true;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, m));
+  bad = __any_sync(0xffffffffu, bad);
+  const float scale = fmaxf(__fmul_rn(amax, kInv127), kScaleFloor);
+  if (lane == 0) outs[w] = bad ? __uint_as_float(0x7fc00000u) : scale;
+
+  for (int64_t c0 = 0; c0 < units; c0 += 32 * K) {
+    if (!held)
+      qacc_load<V, K>(c0, lane, units, same, s_in, ap, fp, ep, qp, c, x, e);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int64_t u = c0 + k * 32 + lane;
+      if (u < units) {
+        int8_t q[V];
+        float ne[V], zero[V];
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          const float xv = x[k][v];
+          const float xf = isfinite(xv) ? xv : 0.0f;
+          q[v] = (int8_t)fminf(fmaxf(rintf(__fdiv_rn(xf, scale)), -127.0f),
+                               127.0f);
+          // -(float)q, not -rint(...): a rint of -0 must still subtract +0.
+          const float eps = bad ? 0.0f : __fmaf_rn(-(float)q[v], scale, xv);
+          ne[v] = __fadd_rn(e[k][v], isfinite(eps) ? eps : 0.0f);
+          zero[v] = 0.0f;
+        }
+        if (!same) store_f<V>(ap + u * V, c[k]);
+        store_f<V>(fp + u * V, zero);
+        store_f<V>(ep + u * V, ne);
+        store_q<V>(op + u * V, q);
+      }
+    }
+  }
+}
+
+template <int V, int K>
+int qacc_typed(void* buf, void* err, const void* qmsg, const void* smsg,
+               const void* acc, const void* fwd, void* outq, void* outs,
+               int64_t R, int64_t nslots, int64_t bs, int64_t qb,
+               cudaStream_t stream) {
+  const int64_t warps = R * (bs / qb);
+  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  qacc_shuffle_kernel<V, K><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      static_cast<float*>(buf), static_cast<float*>(err),
+      static_cast<const int8_t*>(qmsg), static_cast<const float*>(smsg),
+      static_cast<const int32_t*>(acc), static_cast<const int32_t*>(fwd),
+      static_cast<int8_t*>(outq), static_cast<float*>(outs), R, nslots, bs,
+      qb);
+  return (int)cudaGetLastError();
+}
+
+// The least K of 1, 2, 4, 8 whose 32 * K units hold a block (8 beyond).
+template <int V>
+int qacc_dispatch(void* buf, void* err, const void* qmsg, const void* smsg,
+                  const void* acc, const void* fwd, void* outq, void* outs,
+                  int64_t R, int64_t nslots, int64_t bs, int64_t qb,
+                  cudaStream_t s) {
+  const int64_t units = qb / V;
+  if (units <= 32)
+    return qacc_typed<V, 1>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  if (units <= 64)
+    return qacc_typed<V, 2>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  if (units <= 128)
+    return qacc_typed<V, 4>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  return qacc_typed<V, 8>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+}
+
 int unit_bytes(int64_t row_bytes, uintptr_t pointers_or) {
   for (int w = 16; w > 1; w /= 2)
     if (row_bytes % w == 0 && pointers_or % w == 0) return w;
@@ -535,6 +753,22 @@ int block_acc_shuffle_staged_launch(void* buf, const void* msg,
                                     void* stream) {
   return acc_launch<true>(buf, msg, pre, acc, fwd, out, dtype, op, R, nslots,
                           row_bytes, device, stream);
+}
+
+int block_qacc_shuffle_launch(void* buf, void* err, const void* qmsg,
+                              const void* smsg, const void* acc,
+                              const void* fwd, void* outq, void* outs,
+                              int64_t R, int64_t nslots, int64_t bs,
+                              int64_t qb, int device, void* stream) {
+  if (R <= 0 || bs <= 0) return 0;
+  if (qb <= 0 || bs % qb != 0) return (int)cudaErrorInvalidValue;
+  if (cudaError_t e = cudaSetDevice(device)) return (int)e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const uintptr_t f16 = (uintptr_t)buf | (uintptr_t)err;
+  const uintptr_t q4 = (uintptr_t)qmsg | (uintptr_t)outq;
+  if (qb % 4 == 0 && f16 % 16 == 0 && q4 % 4 == 0)
+    return qacc_dispatch<4>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  return qacc_dispatch<1>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
 }
 
 const char* block_pack_error_string(int code) {

@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ref`` (``block_pack_ref``, ``block_unpack_ref``,
 ``block_shuffle_ref``, ``block_shuffle_staged_ref``,
-``block_acc_shuffle_ref``, ``block_acc_shuffle_staged_ref``).  They are the ``"torch"`` backend, what each
+``block_acc_shuffle_ref``, ``block_acc_shuffle_staged_ref``,
+``block_qacc_shuffle_ref``).  They are the ``"torch"`` backend, what each
 kernel wrapper runs on a CPU tensor, and what the tests and
 ``chip_smoke.py`` hold the CUDA kernels against.  Where the JAX oracles
 return a new buffer, these update ``buffers`` in place and return it,
@@ -13,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from .quant_ops import fma_f32, quant_blocks, quant_error
 from .reduce_ops import op_combine, op_identity
 
 
@@ -85,3 +87,33 @@ def block_acc_shuffle_staged_ref(buffers: torch.Tensor, msg: torch.Tensor,
     out = torch.where((acc_idx == fwd_idx)[:, None], combined, pre)
     buffers[rows, fwd] = op_identity(op, buffers.dtype)
     return buffers, out
+
+
+def block_qacc_shuffle_ref(buffers: torch.Tensor, err: torch.Tensor,
+                           qmsg: torch.Tensor, smsg: torch.Tensor,
+                           acc_idx: torch.Tensor, fwd_idx: torch.Tensor):
+    """Quantized accumulate+capture/drain (sum only), in place.
+
+    ``buffers``/``err``: [R, nslots, bs] f32 partial sums and their
+    accumulated requantization errors; ``qmsg`` [R, bs] int8 and
+    ``smsg`` [R, nb] f32 the incoming blocks and their per-qb scales
+    (bs == nb * qb).  Per row, in order: ``buffers[acc] = fma(q, s,
+    buffers[acc])`` (one rounding, as the jitted reference); capture
+    ``buffers[fwd]`` from the updated buffer and requantize it to
+    ``(out_q, out_s)``; ``err[fwd] += captured - out_q*out_s`` (the
+    error fused, the add a plain f32 add); drain ``buffers[fwd]`` to 0.
+    Returns ``(buffers, err, out_q [R, bs] int8, out_s [R, nb] f32)``.
+    """
+    R, _, bs = buffers.shape
+    nb = smsg.shape[1]
+    qb = bs // nb
+    rows, acc, fwd = _rows(buffers), acc_idx.long(), fwd_idx.long()
+    cur = buffers[rows, acc].view(R, nb, qb)
+    buffers[rows, acc] = fma_f32(cur, qmsg.view(R, nb, qb),
+                                 smsg.view(R, nb, 1)).view(R, bs)
+    captured = buffers[rows, fwd].view(R * nb, qb)
+    q, s = quant_blocks(captured)
+    eps = quant_error(captured, q, s).view(R, bs)
+    err[rows, fwd] = err[rows, fwd] + eps
+    buffers[rows, fwd] = 0
+    return buffers, err, q.view(R, bs), s.view(R, nb)

@@ -167,10 +167,30 @@ def test_plans_are_cached_with_tables_uploaded_once():
     assert b is not a and b.statics[0].overlap
 
 
-@pytest.mark.parametrize("kind", ["quantized_allreduce"])
-def test_later_kinds_raise_not_implemented(kind):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        host_plan(kind, 5, 3, device="cpu")
+@pytest.mark.parametrize("bad, match", [
+    (dict(overlap=True), "overlap"),
+    (dict(op="max"), "sums"),
+    (dict(op="+"), "sums"),
+    (dict(qblock=0), "qblock"),
+])
+def test_quantized_allreduce_rejects_bad_arguments(bad, match):
+    with pytest.raises(ValueError, match=match):
+        host_plan("quantized_allreduce", 5, 3, device="cpu", **bad)
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "allgather", "reduce"])
+def test_qblock_applies_to_the_quantized_kind_only(kind):
+    with pytest.raises(ValueError, match="qblock"):
+        host_plan(kind, 5, 3, qblock=8, device="cpu")
+
+
+def test_quantized_allreduce_rejects_a_block_not_a_multiple_of_qblock():
+    plan = host_plan("quantized_allreduce", 5, 3, qblock=8, device="cpu")
+    assert plan.statics[0].kind == "reduce" and plan.statics[1].kind == "broadcast"
+    with pytest.raises(ValueError, match="multiple of qblock"):
+        plan.run(np.zeros((5, 3, 12), np.float32))
+    with pytest.raises(ValueError):
+        plan.run(np.zeros((4, 3, 16), np.float32))
 
 
 def test_bad_arguments_raise():

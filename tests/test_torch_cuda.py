@@ -9,7 +9,9 @@ and need no ``conftest.py``, so they run on a machine with only PyTorch:
 Tolerance: exact, bit for bit (``torch.equal`` on the bits): the copy
 kernels only move data, and the accumulating kernels make the same
 single rounding and the same NaN and signed-zero choices as their plain
-versions.
+versions.  The quantized step's float outputs compare NaN lanes by
+position (a NaN made by the card's arithmetic carries the card's
+payload), every other lane by its bits.
 """
 
 import numpy as np
@@ -24,7 +26,7 @@ from repro_torch.core import (
     simulate_reduce,
 )
 from repro_torch.kernels import block_pack as bp
-from repro_torch.kernels import ref
+from repro_torch.kernels import quant_ops, ref
 
 pytestmark = pytest.mark.cuda
 
@@ -228,3 +230,102 @@ def test_simulators_certify_cuda(gen, p):
     assert simulate_reduce(p, 7, p - 1, op="max", backend="cuda").backend == "cuda"
     assert simulate_allreduce(p, 4, p // 2, backend="cuda").backend == "cuda"
     assert simulate_allgather(p, 4, backend="cuda").backend == "cuda"
+
+
+def _same_or_nan(a, b):
+    """Equal bits, NaN lanes by position (the card's NaN payload is its
+    own choice)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and torch.equal(
+        torch.where(nan, 0, a).view(_BITS[a.element_size()]),
+        torch.where(nan, 0, b).view(_BITS[a.element_size()]))
+
+
+def _qacc_operands(gen, R, S, qb, nbk):
+    """High-dynamic-range f32 buffer and error, an int8 message quantized
+    from it, about a third of the rows coincident, and NaN, inf, zero
+    and tiny (scale-floor) blocks."""
+    bs = qb * nbk
+    scale = 10.0 ** torch.randint(-4, 5, (R, S, nbk, 1), generator=gen,
+                                  device="cuda").float()
+    buf = (torch.randn((R, S, nbk, qb), generator=gen, device="cuda")
+           * scale).view(R, S, bs)
+    err = torch.randn((R, S, bs), generator=gen, device="cuda") * 1e-3
+    src = torch.randn((R * nbk, qb), generator=gen, device="cuda")
+    q, s = quant_ops.quant_blocks(src * 10.0)
+    q, s = q.view(R, bs).contiguous(), s.view(R, nbk).contiguous()
+    acc = torch.randint(0, S, (R,), generator=gen, device="cuda", dtype=torch.int32)
+    fwd = torch.randint(0, S, (R,), generator=gen, device="cuda", dtype=torch.int32)
+    fwd[::3] = acc[::3]
+    buf[0, :, :qb] = 0.0                          # scale floor
+    buf[min(1, R - 1), :, qb - 1] = 1e-13         # tiny: floored scale too
+    buf[R // 2, fwd[R // 2], bs - 1] = float("nan")
+    buf[R - 1, fwd[R - 1], 0] = float("inf")
+    s[R // 2, nbk - 1] = float("nan")             # an incoming flagged block
+    return buf, err, q, s, acc, fwd
+
+
+@pytest.mark.parametrize("R,S,qb,nbk", [(1, 3, 8, 1), (37, 6, 8, 5),
+                                        (37, 4, 256, 3), (9, 5, 3, 7),
+                                        (16, 4, 1024, 2), (5, 3, 2048, 2)])
+def test_qacc_shuffle_matches_plain(gen, R, S, qb, nbk):
+    buf, err, q, s, acc, fwd = _qacc_operands(gen, R, S, qb, nbk)
+    a, ea = buf.clone(), err.clone()
+    b, eb = buf.clone(), err.clone()
+    before = bp.LAUNCHES["block_qacc_shuffle"]
+    got = bp.block_qacc_shuffle(a, ea, q, s, acc, fwd)
+    want = ref.block_qacc_shuffle_ref(b, eb, q, s, acc, fwd)
+    torch.cuda.synchronize()
+    assert bp.LAUNCHES["block_qacc_shuffle"] - before == 1
+    assert got[0] is a and got[1] is ea
+    for k, r in zip(got, want):
+        assert _same_or_nan(k, r)
+    assert torch.isfinite(ea).all()
+    # NaN scales are the canonical quiet NaN, as the plain version's
+    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+
+
+def test_qacc_shuffle_unaligned_operands_take_the_scalar_path(gen):
+    R, S, qb, nbk = 7, 3, 8, 2
+    buf, err, q, s, acc, fwd = _qacc_operands(gen, R + 1, S, qb, nbk)
+    qbig = torch.zeros(R * qb * nbk + 1, dtype=torch.int8, device="cuda")
+    qv = qbig[1:].view(R, qb * nbk)               # 1-byte aligned message
+    qv.copy_(q[:R])
+    a, ea = buf[:R].clone(), err[:R].clone()
+    b, eb = buf[:R].clone(), err[:R].clone()
+    got = bp.block_qacc_shuffle(a, ea, qv, s[:R].contiguous(), acc[:R].contiguous(),
+                                fwd[:R].contiguous())
+    want = ref.block_qacc_shuffle_ref(b, eb, qv, s[:R].contiguous(),
+                                      acc[:R].contiguous(), fwd[:R].contiguous())
+    for k, r in zip(got, want):
+        assert _same_or_nan(k, r)
+
+
+@pytest.mark.parametrize("p,n,root", [(2, 1, 0), (37, 7, 5), (36, 4, 35)])
+def test_quantized_allreduce_cuda_matches_torch(gen, p, n, root):
+    qb = 8
+    vals = (torch.randn((p, n, 5 * qb), generator=gen, device="cuda")
+            * 10.0 ** torch.randint(-4, 5, (p, n, 1), generator=gen,
+                                    device="cuda").float())
+    vals[1, 0, qb] = float("nan")
+    plan = host_plan("quantized_allreduce", p, n, root=root, qblock=qb)
+    R = len(plan.ks)
+    before = dict(bp.LAUNCHES)
+    out, err = plan.run(vals)
+    want = {"block_qacc_shuffle": R + 1, "block_pack": 2,
+            "block_shuffle": 2 * (R - 1), "block_unpack": 2}
+    assert _launched(before) == {k: v for k, v in want.items() if v}
+    plain = host_plan("quantized_allreduce", p, n, root=root, qblock=qb,
+                      backend="torch")
+    pout, perr = plain.run(vals)
+    assert out.is_cuda and _same_or_nan(out, pout) and _same_or_nan(err, perr)
+    assert all(_same_or_nan(out[r], out[0]) for r in range(p))
+    # second step with error feedback
+    vals2 = torch.randn((p, n, 5 * qb), generator=gen, device="cuda") + err
+    o2, e2 = plan.run(vals2)
+    po2, pe2 = plain.run(vals2)
+    assert _same_or_nan(o2, po2) and _same_or_nan(e2, pe2)

@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch import init_grad_sync_state, make_bucket_spec
 from repro_torch.core import (
     host_plan,
     simulate_allgather,
@@ -81,11 +82,30 @@ def test_cuda_path_holds_no_library_indexing():
         assert not pattern.search(src), (name, pattern.search(src))
 
 
-@pytest.mark.parametrize("kind", ["broadcast", "allgather", "reduce"])
+def test_quantized_cuda_path_keeps_the_plain_step_off_the_card():
+    # The host plans reach a round step only through the backend's
+    # RoundStep; the plain quantized step (and its f64 emulation of the
+    # fused multiply-add) is the "torch" backend's, never the "cuda" one's.
+    src = (PKG / "core" / "comm.py").read_text()
+    assert not re.search(r"\bref\b|_ref\b|fma_f32|dequant_blocks", src)
+    assert "step.qacc_shuffle(" in src
+    cuda_step = (PKG / "core" / "roundstep.py").read_text().split(
+        "class CudaRoundStep")[1].split("_STEPS")[0]
+    assert "block_qacc_shuffle(" in cuda_step and "ref" not in cuda_step
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "allgather", "reduce",
+                                  "quantized_allreduce"])
 def test_entry_points_raise_without_a_card(monkeypatch, kind):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         host_plan(kind, 5, 3)
+    if kind == "quantized_allreduce":
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            host_plan(kind, 5, 3, qblock=8)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            init_grad_sync_state(make_bucket_spec({"w": torch.zeros(3)}))
+        return
     with pytest.raises(RuntimeError, match="device='cpu'"):
         host_plan(kind, 5, 3, overlap=True)
     simulate = {"broadcast": simulate_broadcast,
