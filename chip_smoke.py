@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each of the seven kernels
-against its plain PyTorch version on the card (at the main path's
+``src/repro_torch/kernels/csrc``, holds each of the seven round-step
+kernels against its plain PyTorch version on the card (at the main path's
 shapes, and at a small odd shape in several dtypes and in both ops, or
 at qblock 8 for the quantized step), then drives the
 port's paths through their entry points at p = 1152 ranks (the paper's
@@ -36,6 +36,30 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     identical, "cuda" must equal "torch" bit for bit, and sums plus
     errors must give back the exact sum.
 
+Then the serving path of zamba2-2.7b at its full published configuration
+(54 Mamba2 layers and one shared attention block applied after every 6,
+d_model 2560, 2.42 B parameters in bf16, random weights from a seeded
+``torch.Generator``):
+
+  * model_kernels: flash attention held against its plain version at
+    zamba2's prefill (B 2, S 4096, 32 heads of 80, causal),
+    qwen2-0.5b's GQA (14 / 2 heads of 64) and h2o-danube-1.8b's sliding
+    window (32 / 8 heads of 80, window 4096, S 8192), each in bf16 (timed)
+    and in f32, and a small odd shape in f32 and bf16, causal and not,
+    each case with its tolerance and max |plain|; the SSD scan at zamba2's shape
+    (80 heads of 64, N 64, chunk 256), mamba2-780m's (48 heads, N 128)
+    and a small odd shape with two groups and a ragged last chunk;
+  * prefill: ``make_prefill_step`` on 2 prompts of 4096 tokens must launch
+    exactly 9 flash attentions and 54 SSD scans, and its last-position
+    logits must equal the "torch" backend's within the stated tolerance;
+  * serve: ``ServeLoop`` (4 slots, max_seq 128) must answer 8 requests of
+    16-64 prompt tokens with 16 greedy tokens each;
+  * prefill_f32: the same prefill with the model in f32, where "cuda"
+    must equal "torch" within 1e-3 of the logits' scale.
+
+Matrix products run with TF32 off (``allow_tf32 = False`` for matmul and
+cuDNN), so the plain versions' products are full f32.
+
 Each path is run with the launch counts set to 0 just before it and read
 just after, and must have gone through its kernels.  Every phase prints
 one JSON line.  The last line is ``{"ok": true, "device": {...}}``; any
@@ -51,6 +75,7 @@ import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -64,6 +89,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 ODD = (37, 6, 131)            # R, nslots, bs: a row with no 16-byte multiple
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_pack.cu"
+SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 REPLACES = {
     "block_pack": "src/repro/kernels/block_pack.py:140",
     "block_unpack": "src/repro/kernels/block_pack.py:172",
@@ -72,6 +99,8 @@ REPLACES = {
     "block_acc_shuffle": "src/repro/kernels/block_pack.py:342",
     "block_acc_shuffle_staged": "src/repro/kernels/block_pack.py:417",
     "block_qacc_shuffle": "src/repro/kernels/block_pack.py:507",
+    "flash_attention": "src/repro/kernels/flash_attention.py:91",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
 }
 #: The path whose run gives each kernel's launch count in the kernels line.
 PATH_OF = {
@@ -79,6 +108,7 @@ PATH_OF = {
     "block_shuffle": "broadcast", "block_shuffle_staged": "broadcast_overlap",
     "block_acc_shuffle": "reduce", "block_acc_shuffle_staged": "reduce_overlap",
     "block_qacc_shuffle": "quantized_allreduce",
+    "flash_attention": "prefill", "ssd_scan": "prefill",
 }
 QBLOCK = 256                  # elements per quantization block (the default)
 BUCKET_BYTES = 4 << 20        # the trainer's gradient bucket (TrainConfig)
@@ -91,6 +121,33 @@ QKV_SHAPES = {
     "k_proj": {"weight": (128, 896), "bias": (128,)},
     "v_proj": {"weight": (128, 896), "bias": (128,)},
 }
+#: Dense peaks of an H100 SXM (NVIDIA data sheet): bf16 tensor cores, and
+#: f32 outside the tensor cores (what a kernel computing in f32 can use).
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+ARCH = "zamba2-2.7b"          # the hybrid config: both model kernels on its path
+PREFILL_B, PREFILL_S = 2, 4096
+#: Kernel vs plain version, elementwise |got - want| <= atol + rtol |want|,
+#: as (atol, rtol).  Attention in f32 at 2e-5 (tests/test_kernels.py's);
+#: in bf16 both compute in f32 and round the output once, so they differ
+#: by at most one bf16 step (2^-7 of |want|): the limit is two steps, plus
+#: 1e-5 for f32 summation-order differences near zero.  At a causal row of
+#: ~2000 random keys |want| is ~0.03, so a relative limit, not 2e-2
+#: absolute, is what catches a dropped key block.  The scan: 1e-4 (f32
+#: sums in another order).
+ATTN_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (1e-5, 2.0 ** -6)}
+SCAN_TOL = 1e-4
+#: "cuda" vs "torch" prefill of the bf16 model: the two backends differ in
+#: f32 summation order inside attention and the scan, each output then
+#: rounded to bf16, and such differences grow over 63 residual blocks.
+#: tools/prefill_spread.py measured max |logits - plain| / max |plain| at
+#: 0.039-0.049 over seeds 0-7 (0.042 at seed 0, this run's) on an NVIDIA
+#: H100 80GB HBM3 at 700 W; the limit is twice the largest.  The f32
+#: prefill below is the tight check of the same path.
+PREFILL_RTOL = 0.1
+#: The same model in f32 (full-width products with TF32 off): only the
+#: order of f32 sums differs, so max |logits - plain| <= 1e-3 * max |plain|.
+PREFILL_RTOL_F32 = 1e-3
+SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 128, 8, 16
 
 
 def emit(obj) -> None:
@@ -319,13 +376,15 @@ def compare_reduce_kernels(torch, bp, ref, g, R, nslots, bs, dtype, op,
     return out
 
 
-def counted_run(torch, bp, fn):
+def counted_run(torch, kernels, fn):
     """``fn()`` with every launch count set to 0 just before it and read
-    just after -> (result, {kernel: launches > 0})."""
-    bp.reset_launches()
+    just after -> (result, {kernel: launches > 0}).  ``kernels``: the
+    wrapper modules, each with ``LAUNCHES`` and ``reset_launches``."""
+    for mod in kernels:
+        mod.reset_launches()
     res = fn()
     torch.cuda.synchronize()
-    return res, {k: v for k, v in bp.LAUNCHES.items() if v}
+    return res, {k: v for mod in kernels for k, v in mod.LAUNCHES.items() if v}
 
 
 def same_or_nan(torch, a, b, rows: int = 64) -> bool:
@@ -436,6 +495,293 @@ def reduce_bytes(P_, n, R, row, fwd_h, acc_h) -> dict:
     }, coincide
 
 
+def bound_ms(flops: float, nbytes: float, peak: float):
+    """The least time for the work: the larger of operations over the
+    peak rate and bytes over the memory rate -> (ms, what bounds it)."""
+    t_ops, t_bytes = flops / peak * 1e3, ms_of_bytes(nbytes)
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attn_work(B, S, H, Hkv, hd, causal, window, itemsize):
+    """FLOPs of attention over the (query, key) pairs it must see (the
+    causal triangle, cut by the window) -- q.k and p.v, 2 * hd each a pair
+    -- and the bytes of q, k, v read once and out written once."""
+    if not causal:
+        pairs = S * S
+    else:
+        w = min(window or S, S)
+        pairs = w * (w + 1) // 2 + (S - w) * w
+    return 4 * B * H * hd * pairs, itemsize * B * S * hd * (2 * H + 2 * Hkv)
+
+
+def scan_work(B, S, H, P, G, N, chunk):
+    """FLOPs of the chunked SSD scan per (batch row, head) and chunk of
+    L positions: the lower triangles of C B^T (N) and W x (P), the
+    inter-chunk C S and the state update (2 L N P each); and the bytes of
+    x, B, C, dt, A_log, D read once and y written once (f32)."""
+    Q = min(chunk, S)
+    per_head = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        per_head += L * (L + 1) * (N + P) + 4 * L * N * P
+    return B * H * per_head, 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H)
+
+
+def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
+                      timed: bool):
+    """flash_attention vs its plain version on the same random q, k, v;
+    timed: also kernel, plain and library (scaled_dot_product_attention,
+    no window only) times and the bound.  Returns the record."""
+    import torch.nn.functional as F
+
+    q, k, v = (torch.randn((B, S, h, hd), generator=g, device="cuda").to(dtype)
+               for h in (H, Hkv, Hkv))
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
+    want = fa.blocked_attention(q, k, v, causal, window)
+    name = str(dtype).removeprefix("torch.")
+    atol, rtol = ATTN_TOL[name]
+    err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
+          f"flash_attention != plain at {B, S, H, Hkv, hd} {name} causal={causal} "
+          f"window={window}: max abs {err}")
+    rec = {"shape": [B, S, H, Hkv, hd], "dtype": name, "causal": causal,
+           "window": window, "max_abs_err": err,
+           "max_abs_plain": float(want.float().abs().max()),
+           "atol": atol, "rtol": rtol}
+    del got, want
+    if not timed:
+        return rec
+    flops, nbytes = attn_work(B, S, H, Hkv, hd, causal, window, q.element_size())
+    rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_FLOPS[name])
+    rec.update(flops=flops, bytes=nbytes,
+               ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal,
+                                                            window=window), 10),
+               plain_ms=cuda_ms(torch, lambda: fa.blocked_attention(q, k, v, causal,
+                                                                    window), 3))
+    rec["library_ms"] = None
+    if window is None:
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 10)
+    return rec
+
+
+def compare_scan(torch, ss, g, B, S, H, P, G, N, chunk, timed: bool):
+    """ssd_scan vs its plain version on the same random inputs (dt in
+    [0.01, 0.2], A in -[0.5, 2]); timed: also kernel and plain times and
+    the bound.  Returns the record."""
+    x = torch.randn((B, S, H, P), generator=g, device="cuda")
+    Bm, Cm = (torch.randn((B, S, G, N), generator=g, device="cuda") for _ in range(2))
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device="cuda")
+    A_log = torch.log(0.5 + 1.5 * torch.rand((H,), generator=g, device="cuda"))
+    D = torch.randn((H,), generator=g, device="cuda")
+    ops = (x, Bm, Cm, dt, A_log, D)
+    got = ss.ssd_scan(*ops, chunk=chunk)
+    want = ss.ssd_chunked(*ops, chunk)
+    err = float((got - want).abs().max())
+    check(torch.allclose(got, want, atol=SCAN_TOL, rtol=SCAN_TOL),
+          f"ssd_scan != plain at {B, S, H, P, G, N} chunk {chunk}: max abs {err}")
+    rec = {"shape": [B, S, H, P, G, N], "chunk": chunk, "dtype": "float32",
+           "max_abs_err": err, "max_abs_plain": float(want.abs().max()),
+           "tolerance": SCAN_TOL}
+    del got, want
+    if not timed:
+        return rec
+    flops, nbytes = scan_work(B, S, H, P, G, N, chunk)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_FLOPS["float32"])
+    rec.update(flops=flops, bytes=nbytes, library_ms=None,
+               ms=cuda_ms(torch, lambda: ss.ssd_scan(*ops, chunk=chunk), 10),
+               plain_ms=cuda_ms(torch, lambda: ss.ssd_chunked(*ops, chunk), 3))
+    return rec
+
+
+def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
+    """The model kernels against their plain versions, then zamba2-2.7b's
+    prefill and a continuous-batching serve loop at full width, and the
+    prefill again in f32.  Fills ``launches`` and ``kern`` for the two
+    kernels."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+    from repro_torch.models import decode_step, init_cache, init_params, layer_pattern
+    from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
+
+    cfg = get_config(ARCH)
+    s = cfg.ssm
+    H_ssm = s.expand * cfg.d_model // s.head_dim
+
+    # 9. each model kernel against its plain version
+    t0 = time.perf_counter()
+    bf16, f32 = torch.bfloat16, torch.float32
+    attn = compare_attention(torch, fa, g, PREFILL_B, PREFILL_S, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.hd, True, None, bf16, timed=True)
+    attn_cases = [dict(attn, case="zamba2-2.7b prefill")]
+    for case, args in (
+            ("qwen2-0.5b gqa", (2, 4096, 14, 2, 64, True, None)),
+            ("h2o-danube-1.8b window", (1, 8192, 32, 8, 80, True, 4096))):
+        attn_cases.append(dict(compare_attention(torch, fa, g, *args, bf16,
+                                                 timed=True), case=case))
+        torch.cuda.empty_cache()
+    # the main shapes again in f32, where the limit is 2e-5
+    for case, args in (
+            ("zamba2-2.7b prefill", (PREFILL_B, PREFILL_S, cfg.n_heads,
+                                     cfg.n_kv_heads, cfg.hd, True, None)),
+            ("qwen2-0.5b gqa", (2, 4096, 14, 2, 64, True, None)),
+            ("h2o-danube-1.8b window", (1, 8192, 32, 8, 80, True, 4096))):
+        attn_cases.append(dict(compare_attention(torch, fa, g, *args, f32,
+                                                 timed=False), case=case))
+        torch.cuda.empty_cache()
+    for dtype in (f32, bf16):
+        for causal, window in ((True, None), (False, None), (True, 100)):
+            attn_cases.append(dict(compare_attention(
+                torch, fa, g, 2, 333, 6, 2, 40, causal, window, dtype, timed=False),
+                case="odd"))
+    scan = compare_scan(torch, ss, g, PREFILL_B, PREFILL_S, H_ssm, s.head_dim,
+                        s.n_groups, s.d_state, s.chunk, timed=True)
+    scan_cases = [dict(scan, case="zamba2-2.7b prefill"),
+                  dict(compare_scan(torch, ss, g, 2, 4096, 48, 64, 1, 128, 256,
+                                    timed=True), case="mamba2-780m"),
+                  dict(compare_scan(torch, ss, g, 1, 333, 6, 24, 2, 20, 64,
+                                    timed=False), case="odd, 2 groups, ragged")]
+    torch.cuda.empty_cache()
+    emit({"phase": "model_kernels", "flash_attention": attn_cases,
+          "ssd_scan": scan_cases, "peak_flops": PEAK_FLOPS,
+          "hbm_bytes_per_s": HBM_BYTES_PER_S,
+          "seconds": time.perf_counter() - t0, "card": card})
+
+    # 10. prefill: zamba2-2.7b FULL, 2 x 4096 tokens
+    pattern, R, shared = layer_pattern(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    rng = np.random.default_rng(SEED)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).cuda()
+    step = make_prefill_step(cfg)
+    plain_step = make_prefill_step(cfg, backend="torch")
+    logits, got = counted_run(torch, kmods, lambda: step(params, tok))
+    expect = {"flash_attention": R * shared, "ssd_scan": R * len(pattern)}
+    check(got == expect, f"prefill launches {got} != {expect}")
+    launches.update(got)
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+    plain_logits, got = counted_run(torch, kmods, lambda: plain_step(params, tok))
+    check(got == {}, f"the torch backend launched {got}")
+    diff = float((logits.float() - plain_logits.float()).abs().max())
+    scale = float(plain_logits.float().abs().max())
+    check(diff <= PREFILL_RTOL * scale,
+          f"prefill: cuda backend differs from torch by {diff} (scale {scale})")
+    same_top = (logits.argmax(-1) == plain_logits.argmax(-1)).tolist()
+    del plain_logits
+    torch.cuda.empty_cache()
+    pre_ms, pre_runs = median_ms(torch, lambda: step(params, tok), 3)
+    pre_peak = torch.cuda.max_memory_allocated()
+    plain_pre_ms, plain_pre_runs = median_ms(torch, lambda: plain_step(params, tok), 3)
+    torch.cuda.empty_cache()
+    attn_share = attn["ms"] * expect["flash_attention"] / pre_ms
+    scan_share = scan["ms"] * expect["ssd_scan"] / pre_ms
+    emit({"phase": "prefill", "arch": ARCH, "batch": PREFILL_B, "seq": PREFILL_S,
+          "params": n_params, "param_count": cfg.param_count(),
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "launches": expect, "finite": True,
+          "cuda_vs_torch_max_abs": diff, "torch_logits_max_abs": scale,
+          "tolerance_rel": PREFILL_RTOL, "same_greedy_token": same_top,
+          "ms": pre_ms, "ms_runs": pre_runs,
+          "tokens_per_s": PREFILL_B * PREFILL_S / pre_ms * 1e3,
+          "plain_ms": plain_pre_ms, "plain_ms_runs": plain_pre_runs,
+          "flash_attention_share": attn_share, "ssd_scan_share": scan_share,
+          "rest_share": 1 - attn_share - scan_share,
+          "max_memory_allocated": pre_peak, "card": card})
+
+    # 11. serve: ServeLoop answers 8 requests, 16 greedy tokens each
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, 65, SERVE_REQUESTS)]
+    reqs = [Request(i, p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+    torch.cuda.reset_peak_memory_stats()
+    loop = ServeLoop(cfg, params, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+    for r in reqs:
+        loop.submit(r)
+
+    def serve():
+        n = 0
+        while loop.step() or loop.queue:
+            n += 1
+        return n
+
+    t0 = time.perf_counter()
+    steps, got = counted_run(torch, kmods, serve)
+    serve_s = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
+          "serve: a request did not finish with its tokens")
+    check(got == {}, f"serve (decode only) launched {got}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    # the greedy first token of two prompts: prefill step vs the loop, and
+    # prefill logits vs token-by-token decode logits (a finding, no gate)
+    agree = []
+    for r in reqs[:2]:
+        t = torch.tensor([r.prompt], device="cuda")
+        pl = step(params, t)[0, 0].float()
+        cache = init_cache(cfg, 1, len(r.prompt))
+        for i in range(len(r.prompt)):
+            dl, cache = decode_step(params, cfg, cache, t[:, i:i + 1])
+        agree.append({"rid": r.rid, "prompt_len": len(r.prompt),
+                      "prefill_first_token": int(pl.argmax()),
+                      "serve_first_token": r.out[0],
+                      "prefill_vs_decode_logits_max_abs": float(
+                          (pl - dl[0, 0].float()).abs().max()),
+                      "logits_max_abs": float(pl.abs().max())})
+    # torch calls in one decode step over the slots (what sets the host's pace)
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountOps.n += 1
+            return func(*args, **(kwargs or {}))
+
+    cache = init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ)
+    with CountOps():
+        decode_step(params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
+                                                   device="cuda"))
+    del cache
+    emit({"phase": "serve", "arch": ARCH, "batch_slots": SERVE_SLOTS,
+          "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS,
+          "prompt_lens": [len(p) for p in prompts], "max_new": SERVE_NEW,
+          "all_done": True, "engine_steps": steps, "seconds": serve_s,
+          "ms_per_decode_step": serve_s / steps * 1e3,
+          "generated_tok_per_s": SERVE_REQUESTS * SERVE_NEW / serve_s,
+          "kernel_launches": got, "first_tokens": agree,
+          "torch_ops_per_decode_step": CountOps.n,
+          "max_memory_allocated": serve_peak, "card": card})
+    kern["flash_attention"], kern["ssd_scan"] = attn, scan
+    del params, loop
+    torch.cuda.empty_cache()
+
+    # 12. the same prefill in f32: "cuda" against "torch" at a tight tolerance
+    cfg32 = replace(cfg, dtype="float32")
+    params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    step32 = make_prefill_step(cfg32)
+    logits, got = counted_run(torch, kmods, lambda: step32(params, tok))
+    check(got == expect, f"f32 prefill launches {got} != {expect}")
+    plain_logits = make_prefill_step(cfg32, backend="torch")(params, tok)
+    diff = float((logits - plain_logits).abs().max())
+    scale = float(plain_logits.abs().max())
+    check(bool(torch.isfinite(logits).all()) and diff <= PREFILL_RTOL_F32 * scale,
+          f"f32 prefill: cuda backend differs from torch by {diff} (scale {scale})")
+    emit({"phase": "prefill_f32", "arch": ARCH, "batch": PREFILL_B, "seq": PREFILL_S,
+          "launches": got, "cuda_vs_torch_max_abs": diff,
+          "torch_logits_max_abs": scale, "tolerance_rel": PREFILL_RTOL_F32,
+          "same_greedy_token": (logits.argmax(-1) == plain_logits.argmax(-1)).tolist(),
+          "card": card})
+    del params, logits, plain_logits
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -457,7 +803,9 @@ def main() -> None:
     )
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_pack as bp
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_ops as qops
+    from repro_torch.kernels import ssd_scan as ss
     from repro_torch.optim.compression import (
         bucketize,
         make_bucket_spec,
@@ -465,6 +813,10 @@ def main() -> None:
         tree_unflatten,
         unbucketize,
     )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kmods = (bp, fa, ss)
 
     # 1. the card
     smi = subprocess.run(
@@ -548,7 +900,7 @@ def main() -> None:
     values = flat.reshape(n, bs)
 
     plan = host_plan("broadcast", P, n, root=BCAST_ROOT, backend="cuda")
-    out, got = counted_run(torch, bp, lambda: plan.run(values))
+    out, got = counted_run(torch, kmods, lambda: plan.run(values))
     expect = {"block_pack": 1, "block_shuffle": rounds - 1, "block_unpack": 1}
     check(got == expect, f"broadcast launches {got} != {expect}")
     launches.update(got)
@@ -563,7 +915,7 @@ def main() -> None:
     check(same_bits(torch, out, out_plain), "broadcast: cuda backend != torch backend")
     del out_plain
     plan_ov = host_plan("broadcast", P, n, root=BCAST_ROOT, overlap=True)
-    out_ov, got = counted_run(torch, bp, lambda: plan_ov.run(values))
+    out_ov, got = counted_run(torch, kmods, lambda: plan_ov.run(values))
     expect = {"block_pack": rounds, "block_shuffle_staged": rounds - 1,
               "block_unpack": 1}
     check(got == expect, f"overlapped broadcast launches {got} != {expect}")
@@ -640,7 +992,7 @@ def main() -> None:
                             device="cuda", dtype=torch.float32)
     contrib.view(P, -1)[:, elems:] = 0           # the last block's padding
     plan_r = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum")
-    out, got = counted_run(torch, bp, lambda: plan_r.run(contrib))
+    out, got = counted_run(torch, kmods, lambda: plan_r.run(contrib))
     check(got == {"block_acc_shuffle": R + 1},
           f"reduce launches {got} != {{'block_acc_shuffle': {R + 1}}}")
     launches["block_acc_shuffle"] = got["block_acc_shuffle"]
@@ -653,7 +1005,7 @@ def main() -> None:
     del out
     plan_rov = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum",
                          overlap=True)
-    out, got = counted_run(torch, bp, lambda: plan_rov.run(contrib))
+    out, got = counted_run(torch, kmods, lambda: plan_rov.run(contrib))
     expect = {"block_acc_shuffle": 1, "block_pack": R,
               "block_acc_shuffle_staged": R}
     check(got == expect, f"overlapped reduce launches {got} != {expect}")
@@ -680,7 +1032,7 @@ def main() -> None:
         return plan_b.run(plan_r.run(contrib)[BCAST_ROOT].clone())
 
     torch.cuda.empty_cache()
-    out, got = counted_run(torch, bp, allreduce)
+    out, got = counted_run(torch, kmods, allreduce)
     expect = {"block_acc_shuffle": R + 1, "block_pack": 1,
               "block_shuffle": R - 1, "block_unpack": 1}
     check(got == expect, f"allreduce launches {got} != {expect}")
@@ -705,7 +1057,7 @@ def main() -> None:
     del root_rows, plain_root
     torch.cuda.empty_cache()
     plan_max = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="max")
-    out, got = counted_run(torch, bp, lambda: plan_max.run(contrib))
+    out, got = counted_run(torch, kmods, lambda: plan_max.run(contrib))
     check(got == {"block_acc_shuffle": R + 1}, f"max launches {got}")
     check(torch.equal(out[BCAST_ROOT], contrib.amax(0)),
           "reduce max: root != values.amax(0)")
@@ -795,7 +1147,7 @@ def main() -> None:
     vals_ag.view(P, -1)[:, :ag_elems] = torch.randn(
         (P, ag_elems), generator=g, device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    out, got = counted_run(torch, bp, lambda: plan_ag.run(vals_ag))
+    out, got = counted_run(torch, kmods, lambda: plan_ag.run(vals_ag))
     expect = {"block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1}
     check(got == expect, f"allgather launches {got} != {expect}")
     for i in range(0, P, 64):
@@ -808,7 +1160,7 @@ def main() -> None:
     del out_plain
     torch.cuda.empty_cache()
     plan_agov = host_plan("allgather", P, n_ag, overlap=True)
-    out_ov, got = counted_run(torch, bp, lambda: plan_agov.run(vals_ag))
+    out_ov, got = counted_run(torch, kmods, lambda: plan_agov.run(vals_ag))
     expect = {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
               "block_unpack": 1}
     check(got == expect, f"overlapped allgather launches {got} != {expect}")
@@ -922,7 +1274,7 @@ def main() -> None:
     vals, tree0 = grads_as_bucket()
     steps = []
     for step_no in (1, 2):
-        (out, err), got = counted_run(torch, bp, lambda: plan_q.run(vals))
+        (out, err), got = counted_run(torch, kmods, lambda: plan_q.run(vals))
         check(got == expect_q,
               f"quantized allreduce step {step_no} launches {got} != {expect_q}")
         launches["block_qacc_shuffle"] = got["block_qacc_shuffle"]
@@ -1043,14 +1395,19 @@ def main() -> None:
           "breakdown_ms": q_steps,
           "max_memory_allocated": q_peak, "card": card})
 
-    # 8. the kernels line, each kernel with the launch count of its path
+    # 9-12. the model kernels, zamba2-2.7b's prefill and the serve loop
+    del qmsg, smsg, plan_q, plain_q
+    torch.cuda.empty_cache()
+    model_phases(torch, np, card, kmods, g, launches, kern)
+
+    # 13. the kernels line, each kernel with the launch count of its path
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": KERNEL_SOURCE,
+        {"name": name, "route": "cuda", "source": SOURCES.get(name, KERNEL_SOURCE),
          "replaces": REPLACES[name], "path": PATH_OF[name],
          "launches": launches[name],
          "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-         "bound_ms": rec["bound_ms"], "bound_by": "bytes",
+         "bound_ms": rec["bound_ms"], "bound_by": rec.get("bound_by", "bytes"),
          "library_ms": rec["library_ms"]}
         for name, rec in kern.items()]})
     emit({"ok": True, "device": {"platform": "gpu",

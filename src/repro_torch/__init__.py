@@ -9,7 +9,10 @@ reduction, and allreduce as reduce then broadcast), the allgather and
 the int8 quantized allreduce of gradient compression, whose round steps
 run in hand-written CUDA kernels on an H100 (:mod:`repro_torch.kernels`),
 and the collective-free half of gradient compression with error
-feedback (:mod:`repro_torch.optim.compression`).
+feedback (:mod:`repro_torch.optim.compression`).  It also serves the
+dense, ssm and hybrid model families (:mod:`repro_torch.models`,
+:mod:`repro_torch.serve`, configs in :mod:`repro_torch.configs`), whose
+prefill runs attention and the Mamba2 SSD scan in hand-written CUDA.
 Importing the package builds no kernel.
 """
 

@@ -7,8 +7,7 @@ library is rebuilt when its source is newer than it.  The sources have
 a plain C interface and include no PyTorch header, so a build takes
 seconds.  Pointers and the stream are passed as ``c_void_p``, sizes as
 ``c_int64`` and the device index as ``c_int``; every entry point returns a ``cudaError_t`` (0 =
-success), which the wrappers in :mod:`repro_torch.kernels.block_pack`
-turn into an exception.
+success), which :func:`launch` turns into an exception.
 """
 
 from __future__ import annotations
@@ -19,6 +18,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -42,6 +43,19 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "block_qacc_shuffle_launch": (
             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _E, _P), _E),
         "block_pack_error_string": ((_E,), ctypes.c_char_p),
+    },
+    "flash_attention": {
+        # q, k, v, out, B, Sq, Skv, H, Hkv, hd, hd_v, seq_kv, causal, window,
+        # dtype, device, stream
+        "flash_attention_launch": (
+            (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _E, _I, _E, _E, _P), _E),
+        "flash_attention_error_string": ((_E,), ctypes.c_char_p),
+    },
+    "ssd_scan": {
+        # x, B, C, dt, A_log, D, y, Bsz, S, H, P, G, N, chunk, device, stream
+        "ssd_scan_launch": (
+            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _E, _P), _E),
+        "ssd_scan_error_string": ((_E,), ctypes.c_char_p),
     },
 }
 
@@ -108,3 +122,16 @@ def load(name: str) -> ctypes.CDLL:
             getattr(lib, fn).restype = restype
         _loaded[name] = lib
     return lib
+
+
+def launch(name: str, entry: str, device, *args) -> None:
+    """Call ``<entry>_launch(*args, device index, stream)`` of
+    ``lib<name>.so`` on the current stream of ``device``; raise
+    ``RuntimeError`` if it returned an error (a refused launch never runs,
+    so nothing else would report it)."""
+    lib = load(name)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = getattr(lib, entry + "_launch")(*args, device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} failed: CUDA error {err} "
+                           f"({getattr(lib, name + '_error_string')(err).decode()})")

@@ -84,12 +84,7 @@ def _call(name: str, device: torch.device, *args) -> None:
     stream, raise if it failed, and count it."""
     from . import _build
 
-    lib = _build.load("block_pack")
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = getattr(lib, name + "_launch")(*args, device.index, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} failed: CUDA error {err} "
-                           f"({lib.block_pack_error_string(err).decode()})")
+    _build.launch("block_pack", name, device, *args)
     LAUNCHES[name] += 1
 
 

@@ -1,21 +1,58 @@
-"""Plain PyTorch versions of the round-step kernels.
+"""Plain PyTorch versions of the round-step kernels, and the naive
+oracles of attention and the SSD scan.
 
 Port of ``repro.kernels.ref`` (``block_pack_ref``, ``block_unpack_ref``,
 ``block_shuffle_ref``, ``block_shuffle_staged_ref``,
 ``block_acc_shuffle_ref``, ``block_acc_shuffle_staged_ref``,
-``block_qacc_shuffle_ref``).  They are the ``"torch"`` backend, what each
+``block_qacc_shuffle_ref``, ``attention_ref``, ``ssd_ref``).  The
+round-step versions are the ``"torch"`` backend, what each
 kernel wrapper runs on a CPU tensor, and what the tests and
 ``chip_smoke.py`` hold the CUDA kernels against.  Where the JAX oracles
 return a new buffer, these update ``buffers`` in place and return it,
-as the kernels do.
+as the kernels do.  ``attention_ref`` (the whole S x S softmax) and
+``ssd_ref`` (the sequential recurrence) are independent oracles of the
+chunked plain versions beside the two model kernels
+(:mod:`.flash_attention`, :mod:`.ssd_scan`).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
 from .quant_ops import fma_f32, quant_blocks, quant_error
 from .reduce_ops import op_combine, op_identity
+
+
+def attention_ref(q, k, v, *, causal=True, window=None):
+    """Naive attention in f32.  q: [BH, Sq, hd]; k/v: [BH, Skv, hd(_v)]
+    -> [BH, Sq, hd_v] in q's dtype."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(q.shape[-1])
+    qi = torch.arange(q.shape[1], device=q.device)[:, None]
+    kj = torch.arange(k.shape[1], device=q.device)[None, :]
+    mask = torch.ones((q.shape[1], k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kj <= qi)
+        if window is not None:
+            mask = mask & (qi - kj < window)
+    w = torch.softmax(torch.where(mask[None], s, -1e30), dim=-1)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def ssd_ref(x, B_, C_, dt, A_log, D):
+    """Sequential SSD recurrence in f32.  x: [BH, S, P]; B_/C_: [BH, S, N];
+    dt: [BH, S]; A_log/D: one per row [BH] -> [BH, S, P]."""
+    x, B_, C_, dt = x.float(), B_.float(), C_.float(), dt.float()
+    A = -torch.exp(A_log)                                      # [BH]
+    s = torch.zeros((x.shape[0], B_.shape[-1], x.shape[-1]), device=x.device)
+    ys = []
+    for t in range(x.shape[1]):
+        a = torch.exp(dt[:, t] * A)
+        s = s * a[:, None, None] + dt[:, t, None, None] * (
+            B_[:, t, :, None] * x[:, t, None, :])
+        ys.append(torch.einsum("bn,bnp->bp", C_[:, t], s))
+    return torch.stack(ys, dim=1) + x * D[:, None, None]
 
 
 def _rows(buffers: torch.Tensor) -> torch.Tensor:

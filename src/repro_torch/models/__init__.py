@@ -1,0 +1,22 @@
+"""Models of the port: the dense, ssm and hybrid families' serving path
+(:mod:`.transformer`), built from :mod:`.layers`, GQA attention
+(:mod:`.attention`) and the Mamba2 block (:mod:`.ssm`), with the
+configuration dataclasses (:mod:`.common`) and the bridge that carries
+the JAX reference's weights across (:mod:`.convert`)."""
+
+from .common import SHAPES, MLAConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig
+from .transformer import (
+    Model,
+    decode_step,
+    forward,
+    forward_hidden,
+    init_cache,
+    init_params,
+    layer_pattern,
+    prefill,
+)
+
+__all__ = ["MLAConfig", "Model", "ModelConfig", "MoEConfig", "SHAPES",
+           "SSMConfig", "ShapeConfig", "decode_step", "forward",
+           "forward_hidden", "init_cache", "init_params", "layer_pattern",
+           "prefill"]

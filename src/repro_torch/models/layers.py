@@ -1,0 +1,93 @@
+"""Primitive layers: norms, MLPs, embeddings, RoPE.
+
+Port of ``repro.models.layers`` for the serving path: the initializers
+draw from an explicit ``torch.Generator`` on the target device, the apply
+functions take the owning module (or tensor) and the input.  Weights are
+``[d_in, d_out]`` as in the reference (``x @ w``).  ``gelu_mlp``,
+``cross_entropy`` and ``chunked_softmax_xent`` (encoder-decoder and
+training) wait for a later slice (``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def param(t: torch.Tensor) -> nn.Parameter:
+    """A parameter of the serving path (no gradient: training is a later
+    slice)."""
+    return nn.Parameter(t, requires_grad=False)
+
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: Optional[float] = None) -> nn.Parameter:
+    s = scale if scale is not None else 1.0 / np.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, device=gen.device) * s
+    return param(w.to(dtype))
+
+
+def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """RMS norm in f32, returned in x's dtype."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    return (xf * w.float()).to(x.dtype)
+
+
+def init_rms_norm(d: int, device, dtype=torch.float32) -> nn.Parameter:
+    return param(torch.ones((d,), dtype=dtype, device=device))
+
+
+class SwiGLU(nn.Module):
+    """``w_gate``, ``w_up`` [d, f] and ``w_down`` [f, d]."""
+
+    def __init__(self, gen: torch.Generator, d: int, f: int, dtype):
+        super().__init__()
+        self.w_gate = dense_init(gen, d, f, dtype)
+        self.w_up = dense_init(gen, d, f, dtype)
+        self.w_down = dense_init(gen, f, d, dtype)
+
+
+def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
+    return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float32) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, hd]; positions: [..., S] integers.  Rotates the two
+    halves of each head (not interleaved pairs), in f32."""
+    hd = x.shape[-1]
+    freqs = torch.from_numpy(rope_freqs(hd, theta)).to(x.device)   # [hd/2]
+    ang = positions[..., :, None].float() * freqs                   # [..., S, hd/2]
+    cos = torch.cos(ang)[..., :, None, :]
+    sin = torch.sin(ang)[..., :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------- embeddings
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> nn.Parameter:
+    t = torch.randn((vocab, d), generator=gen, device=gen.device) * 0.02
+    return param(t.to(dtype))
+
+
+def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """x: [..., d] -> logits [..., vocab]; table: [vocab, d]."""
+    return x @ table.T

@@ -1,0 +1,232 @@
+"""LM assembly for the dense, ssm and hybrid families.
+
+Port of the serving half of ``repro.models.transformer``.  A model is a
+repeated *super-block pattern* over R repeats:
+
+  dense        ['attn']            x n_layers
+  ssm          ['ssm']             x n_layers     (mamba2)
+  hybrid       ['ssm']*k + shared-attn call       (zamba2: one SHARED
+               weight set applied after every k mamba layers)
+
+The reference stacks each pattern position's parameters over R and scans
+them; here they are ``R * len(pattern)`` layer modules in execution order
+(:attr:`Model.layers`, layer ``r * len(pattern) + i`` is position i of
+repeat r), and the shared block is :attr:`Model.shared_attn`.  Decode
+caches stay stacked ``[R, B, ...]`` per pattern position, as in the
+reference, and :func:`decode_step` updates them in place.  The moe, vlm
+and encdec families, the training loss and remat wait for later slices
+(``ROADMAP.md``).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..core.comm import resolve_device
+from .attention import GQA, check_backend, gqa_decode, gqa_full
+from .common import ModelConfig
+from .layers import (
+    SwiGLU,
+    embed_apply,
+    embed_init,
+    init_rms_norm,
+    rms_norm,
+    swiglu_apply,
+    unembed_apply,
+)
+from .ssm import Mamba2, ssm_block
+
+# ------------------------------------------------------------- patterns
+
+
+def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, bool]:
+    """Returns (pattern, repeats, has_shared_block)."""
+    if cfg.family == "dense":
+        return ["attn"], cfg.n_layers, False
+    if cfg.family == "ssm":
+        return ["ssm"], cfg.n_layers, False
+    if cfg.family == "hybrid":
+        k = cfg.shared_attn_every or 6
+        if cfg.n_layers % k:
+            raise ValueError("hybrid layers must divide shared_attn_every")
+        return ["ssm"] * k, cfg.n_layers // k, True
+    if cfg.family in ("moe", "vlm", "encdec"):
+        raise NotImplementedError(
+            f"the {cfg.family} family is not ported yet (ROADMAP.md Queue 1 item 9)")
+    raise ValueError(cfg.family)
+
+
+# ---------------------------------------------------------------- init
+
+
+class Block(nn.Module):
+    """One layer: ``attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``) or ``ssm``
+    (``ln1``, ``ssm``), the reference's parameter names."""
+
+    def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype):
+        super().__init__()
+        self.typ = typ
+        d, dev = cfg.d_model, gen.device
+        self.ln1 = init_rms_norm(d, dev)
+        if typ == "attn":
+            self.attn = GQA(gen, cfg, dtype)
+            self.ln2 = init_rms_norm(d, dev)
+            self.mlp = SwiGLU(gen, d, cfg.d_ff, dtype)
+        elif typ == "ssm":
+            self.ssm = Mamba2(gen, cfg, dtype)
+        else:
+            raise ValueError(typ)
+
+
+class Model(nn.Module):
+    """``embed`` [V, d], ``ln_f``, ``unembed`` [V, d] (None when tied), the
+    layers in execution order and the hybrid family's ``shared_attn``."""
+
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+        super().__init__()
+        dtype = cfg.torch_dtype
+        pattern, R, shared = layer_pattern(cfg)
+        self.embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
+        self.ln_f = init_rms_norm(cfg.d_model, gen.device)
+        self.unembed = None if cfg.tie_embeddings else embed_init(
+            gen, cfg.vocab, cfg.d_model, dtype)
+        self.layers = nn.ModuleList(
+            Block(gen, typ, cfg, dtype) for _ in range(R) for typ in pattern)
+        self.shared_attn = Block(gen, "attn", cfg, dtype) if shared else None
+
+
+def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
+                device=None) -> Model:
+    """Random parameters on ``device`` (``None``: the card) from
+    ``generator`` (default: seed 0 on that device), as the reference's
+    ``init_params`` lays them out.  Same shapes and dtypes as the
+    reference's (norms and ``A_log``/``D``/``dt_bias`` in f32, the rest in
+    the config's dtype); the numbers differ (another generator)."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    elif generator.device.type != dev.type:
+        raise ValueError(f"generator on {generator.device}, parameters on {dev}")
+    return Model(cfg, generator)
+
+
+def _table(params: Model) -> torch.Tensor:
+    return params.embed if params.unembed is None else params.unembed
+
+
+# ------------------------------------------------------------- forward
+
+
+def _apply_layer(p: Block, x, cfg: ModelConfig, positions, backend: str):
+    if p.typ == "attn":
+        h, _ = gqa_full(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
+                        backend=backend)
+        x = x + h
+        return x + swiglu_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                         backend=backend)
+
+
+def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
+                   backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss 0).
+    ``backend="cuda"`` runs attention and the SSD scan in the CUDA kernels
+    on a CUDA tensor; ``"torch"`` runs their plain versions."""
+    check_backend(backend)
+    pattern, R, shared = layer_pattern(cfg)
+    B, S = tokens.shape
+    x = embed_apply(params.embed, tokens)
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    k = len(pattern)
+    for r in range(R):
+        for i in range(k):
+            x = _apply_layer(params.layers[r * k + i], x, cfg, positions, backend)
+        if shared:
+            x = _apply_layer(params.shared_attn, x, cfg, positions, backend)
+    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    return x, torch.zeros((), device=x.device)
+
+
+def forward(params: Model, cfg: ModelConfig, tokens, *,
+            backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full forward: tokens [B, S] -> (logits [B, S, V], aux_loss)."""
+    x, aux = forward_hidden(params, cfg, tokens, backend=backend)
+    return unembed_apply(_table(params), x), aux
+
+
+def prefill(params: Model, cfg: ModelConfig, tokens, *,
+            backend: str = "cuda") -> torch.Tensor:
+    """Prefill: full backbone forward, unembed ONLY the last position
+    (no [B, S, V] logits for long prompts) -> [B, 1, V]."""
+    hidden, _ = forward_hidden(params, cfg, tokens, backend=backend)
+    return unembed_apply(_table(params), hidden[:, -1:])
+
+
+# ---------------------------------------------------------------- cache
+
+
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
+               device=None) -> Dict[str, torch.Tensor]:
+    """Decode cache, stacked [R, ...] per pattern position: ``pos{i}_k`` /
+    ``pos{i}_v`` [R, B, seq, Hkv, hd] (attention), ``pos{i}_conv``
+    [R, B, d_conv-1, channels] and ``pos{i}_ssd`` [R, B, H, N, P] f32
+    (ssm), ``shared_k``/``shared_v`` (hybrid), and ``pos_idx`` [B] int32,
+    each slot's next position (continuous batching)."""
+    dev = resolve_device(device)
+    pattern, R, shared = layer_pattern(cfg)
+    dtype = cfg.torch_dtype
+    s = cfg.ssm
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=dev)
+
+    def kv():
+        return zeros((R, batch, seq, cfg.n_kv_heads, cfg.hd))
+
+    cache = {"pos_idx": zeros((batch,), torch.int32)}
+    for i, typ in enumerate(pattern):
+        if typ == "attn":
+            cache[f"pos{i}_k"], cache[f"pos{i}_v"] = kv(), kv()
+        else:
+            d_in = s.expand * cfg.d_model
+            cch = d_in + 2 * s.n_groups * s.d_state
+            cache[f"pos{i}_conv"] = zeros((R, batch, s.d_conv - 1, cch))
+            cache[f"pos{i}_ssd"] = zeros(
+                (R, batch, d_in // s.head_dim, s.d_state, s.head_dim), torch.float32)
+    if shared:
+        cache["shared_k"], cache["shared_v"] = kv(), kv()
+    return cache
+
+
+def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos):
+    """One-token decode through one layer, its cache rows updated in place."""
+    if p.typ == "attn":
+        h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                             cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
+        x = x + h
+        return x + swiglu_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
+    y, _, _ = ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                        conv_state=cache[f"{prefix}_conv"][r],
+                        ssd_state=cache[f"{prefix}_ssd"][r])
+    return x + y
+
+
+def decode_step(params: Model, cfg: ModelConfig, cache, tokens):
+    """One decoding step.  tokens: [B, 1] -> (logits [B, 1, V], cache):
+    the cache's tensors are updated in place (a key or value at
+    ``pos >= seq`` is dropped) and ``pos_idx`` advances by one."""
+    pattern, R, shared = layer_pattern(cfg)
+    pos = cache["pos_idx"]
+    x = embed_apply(params.embed, tokens)
+    k = len(pattern)
+    for r in range(R):
+        for i in range(k):
+            x = _decode_layer(params.layers[r * k + i], x, cfg, cache, f"pos{i}", r, pos)
+        if shared:
+            x = _decode_layer(params.shared_attn, x, cfg, cache, "shared", r, pos)
+    x = rms_norm(x, params.ln_f, cfg.norm_eps)
+    cache["pos_idx"] = pos + 1
+    return unembed_apply(_table(params), x), cache

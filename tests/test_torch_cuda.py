@@ -6,18 +6,34 @@ and need no ``conftest.py``, so they run on a machine with only PyTorch:
 
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerance: exact, bit for bit (``torch.equal`` on the bits): the copy
+Tolerance of the round-step kernels: exact, bit for bit (``torch.equal``
+on the bits): the copy
 kernels only move data, and the accumulating kernels make the same
 single rounding and the same NaN and signed-zero choices as their plain
 versions.  The quantized step's float outputs compare NaN lanes by
 position (a NaN made by the card's arithmetic carries the card's
 payload), every other lane by its bits.
+
+The model kernels (flash attention, the SSD scan) sum in another order
+than their plain versions, so they are held allclose: attention at
+2e-5 in f32 (as ``tests/test_kernels.py``) and in bf16/f16 at two steps
+of the output's precision relative to the plain value plus 1e-5 (both
+compute in f32 and round the output once), the scan at 1e-4 (f32, as
+``tests/test_kernels.py``); a small
+model's ``"cuda"`` prefill equals its ``"torch"`` prefill at 1e-4 in
+f32.  TF32 is off for these (``allow_tf32 = False`` for matmul and
+cuDNN), so the plain versions' products are full f32.
 """
+
+from dataclasses import replace
 
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
+from repro_torch.models import init_params, layer_pattern, prefill
+from repro_torch.serve.engine import Request, ServeLoop
 from repro_torch.core import (
     host_plan,
     simulate_allgather,
@@ -26,7 +42,9 @@ from repro_torch.core import (
     simulate_reduce,
 )
 from repro_torch.kernels import block_pack as bp
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_ops, ref
+from repro_torch.kernels import ssd_scan as ss
 
 pytestmark = pytest.mark.cuda
 
@@ -41,6 +59,8 @@ SHAPES = [(1, 4, 8), (37, 6, 131), (64, 9, 4096)]
 def gen():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
 
 
@@ -329,3 +349,130 @@ def test_quantized_allreduce_cuda_matches_torch(gen, p, n, root):
     o2, e2 = plan.run(vals2)
     po2, pe2 = plain.run(vals2)
     assert _same_or_nan(o2, po2) and _same_or_nan(e2, pe2)
+
+
+# ------------------------------------------------------------ model kernels
+
+#: (atol, rtol): f32 as tests/test_kernels.py; bf16/f16 two output steps
+#: (2^-7 and 2^-10 of |want| each) plus 1e-5 for f32 sums near zero.
+_ATTN_TOL = {torch.float32: (2e-5, 2e-5), torch.bfloat16: (1e-5, 2.0 ** -6),
+             torch.float16: (1e-5, 2.0 ** -9)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,causal,window", [
+    (1, 64, 4, 4, 32, True, None),       # one block
+    (2, 100, 4, 2, 32, True, None),      # GQA, ragged sequence
+    (2, 37, 2, 1, 64, False, None),      # odd sequence, non-causal
+    (1, 300, 8, 2, 80, True, None),      # zamba2's head width
+    (1, 333, 4, 2, 80, True, 70),        # sliding window, hd 80
+    (2, 130, 3, 3, 128, True, None),     # widest head
+    (1, 17, 2, 2, 5, False, None),       # tiny odd head
+])
+def test_flash_attention_matches_plain(gen, dtype, B, S, H, Hkv, hd, causal,
+                                       window):
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    want = fa.blocked_attention(q, k, v, causal, window, q_chunk=64, kv_chunk=32)
+    assert out.dtype == dtype and out.shape == (B, S, H, hd)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_attention_value_width_differs(gen):
+    q = torch.randn((2, 90, 4, 48), generator=gen, device="cuda")
+    k = torch.randn((2, 90, 2, 48), generator=gen, device="cuda")
+    v = torch.randn((2, 90, 2, 72), generator=gen, device="cuda")
+    torch.testing.assert_close(fa.flash_attention(q, k, v),
+                               fa.blocked_attention(q, k, v, True),
+                               atol=2e-5, rtol=2e-5)
+
+
+def _ssd_operands(gen, B, S, H, P, G, N):
+    x = torch.randn((B, S, H, P), generator=gen, device="cuda")
+    Bm = torch.randn((B, S, G, N), generator=gen, device="cuda")
+    Cm = torch.randn((B, S, G, N), generator=gen, device="cuda")
+    dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=gen, device="cuda")
+    A_log = torch.log(0.5 + 1.5 * torch.rand((H,), generator=gen, device="cuda"))
+    D = torch.randn((H,), generator=gen, device="cuda")
+    return x, Bm, Cm, dt, A_log, D
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 64, 2, 8, 1, 4, 16),
+    (1, 70, 4, 16, 2, 8, 32),            # G 2, ragged last chunk
+    (1, 17, 1, 4, 1, 2, 8),              # tiny, odd
+    (1, 600, 4, 64, 1, 64, 256),         # zamba2's widths, ragged
+    (1, 300, 2, 64, 1, 128, 256),        # mamba2-780m's N
+    (2, 200, 4, 80, 2, 24, 96),          # P not a power of two
+    (1, 50, 2, 128, 1, 16, 1000),        # widest head, chunk > S
+])
+def test_ssd_scan_matches_plain(gen, B, S, H, P, G, N, chunk):
+    ops = _ssd_operands(gen, B, S, H, P, G, N)
+    before = ss.LAUNCHES["ssd_scan"]
+    y = ss.ssd_scan(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] - before == 1
+    torch.testing.assert_close(y, ss.ssd_chunked(*ops, chunk), atol=1e-4, rtol=1e-4)
+
+
+def test_model_kernels_refuse_too_much_shared_memory(gen):
+    # A head of 1024 (attention) or a state of 1024 x 64 (scan) needs more
+    # shared memory than a block may have: the launch is refused and raises.
+    q = torch.randn((1, 8, 1, 1024), generator=gen, device="cuda")
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(RuntimeError, match="flash_attention failed"):
+        fa.flash_attention(q, q, q[..., :64].contiguous())
+    assert fa.LAUNCHES["flash_attention"] == before
+    ops = _ssd_operands(gen, 1, 8, 1, 64, 1, 1024)
+    before = ss.LAUNCHES["ssd_scan"]
+    with pytest.raises(RuntimeError, match="ssd_scan failed"):
+        ss.ssd_scan(*ops, chunk=8)
+    assert ss.LAUNCHES["ssd_scan"] == before
+
+
+def test_model_kernels_reject_mixed_devices_and_layouts(gen):
+    q = torch.randn((1, 8, 2, 16), generator=gen, device="cuda")
+    with pytest.raises(ValueError, match="operands on"):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(1, 2), q.transpose(1, 2), q.transpose(1, 2))
+    ops = list(_ssd_operands(gen, 1, 8, 2, 4, 1, 4))
+    ops[3] = ops[3].cpu()
+    with pytest.raises(ValueError, match="operands on"):
+        ss.ssd_scan(*ops)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m",
+                                  "zamba2-2.7b"])
+def test_model_prefill_cuda_matches_torch(gen, arch):
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (2, 70), generator=gen, device="cuda")
+    pattern, R, shared = layer_pattern(cfg)
+    before = fa.LAUNCHES["flash_attention"], ss.LAUNCHES["ssd_scan"]
+    got = prefill(params, cfg, tok)
+    torch.cuda.synchronize()
+    assert (fa.LAUNCHES["flash_attention"] - before[0],
+            ss.LAUNCHES["ssd_scan"] - before[1]) == (
+        R * (pattern.count("attn") + shared), R * pattern.count("ssm"))
+    want = prefill(params, cfg, tok, backend="torch")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_serve_loop_on_the_card(gen):
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    loop = ServeLoop(cfg, init_params(cfg), batch_slots=2, max_seq=32)
+    reqs = [Request(i, torch.randint(0, cfg.vocab, (n,), generator=gen,
+                                     device="cuda").tolist(), max_new=5)
+            for i, n in enumerate((4, 6, 3))]
+    for r in reqs:
+        loop.submit(r)
+    loop.run()
+    assert all(r.done and len(r.out) == 5 for r in reqs)

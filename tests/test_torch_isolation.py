@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, its entry points do not fall back to
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
+``tools/prefill_spread.py`` import neither JAX nor the JAX package, its entry points do not fall back to
 the CPU, and the ``"cuda"`` path leaves the kernels' work to the
 kernels."""
 
@@ -15,6 +15,11 @@ import pytest
 import torch
 
 from repro_torch import init_grad_sync_state, make_bucket_spec
+from repro_torch.configs import get_config
+from repro_torch.launch import serve as launch_serve
+from repro_torch.models import init_cache, init_params
+from repro_torch.models.convert import cache_from_jax
+from repro_torch.serve.engine import ServeLoop
 from repro_torch.core import (
     host_plan,
     simulate_allgather,
@@ -25,7 +30,8 @@ from repro_torch.core import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "tools" / "prefill_spread.py"]
 _FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
 
@@ -118,6 +124,42 @@ def test_entry_points_raise_without_a_card(monkeypatch, kind):
             simulate_allreduce(5, 3, backend="cuda")
 
 
+def test_model_serve_and_launch_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_config("zamba2-2.7b", smoke=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_params(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cache_from_jax({"pos_idx": torch.zeros(2, dtype=torch.int32).numpy()})
+    params = init_params(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeLoop(cfg, params)
+    assert ServeLoop(cfg, params, device="cpu").cache["pos_idx"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launch_serve.main(["--arch", "zamba2-2.7b", "--smoke", "--steps", "1"])
+
+
+def test_serve_launcher_runs_on_the_cpu_when_asked(capsys):
+    res = launch_serve.main(["--arch", "zamba2-2.7b", "--smoke", "--batch", "2",
+                             "--max-seq", "8", "--steps", "3", "--device", "cpu"])
+    out = capsys.readouterr().out
+    assert res["device"] == "cpu" and "ms/step" in out and out.rstrip().endswith("OK")
+
+
+def test_port_calls_no_library_attention():
+    # Attention and the scan are the port's own kernels; chip_smoke.py may
+    # time scaled_dot_product_attention as a yardstick, the package never.
+    pattern = re.compile(r"scaled_dot_product_attention|flash_attn_func|cudnn_attention"
+                         r"|torch\.compile")
+    for path in sorted(PKG.rglob("*.py")):
+        assert not pattern.search(path.read_text()), path
+    for name in ("models/attention.py", "models/ssm.py", "models/transformer.py"):
+        src = (PKG / name).read_text()
+        assert "import ref" not in src and "ref." not in src, name
+
+
 def _run_smoke(cwd):
     return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
                           capture_output=True, text=True, timeout=120,
@@ -135,3 +177,11 @@ def test_chip_smoke_fails_outside_a_checkout(tmp_path):
     res = _run_smoke(tmp_path)
     assert res.returncode != 0 and "checkout" in res.stderr
     assert '"ok"' not in res.stdout
+
+
+def test_prefill_spread_fails_without_a_card():
+    res = subprocess.run([sys.executable, "tools/prefill_spread.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr
+    assert '"seed"' not in res.stdout
