@@ -25,7 +25,7 @@ port's paths through their entry points at p = 1152 ranks (the paper's
   * allgather: 8 KiB float32 per rank, n = 43, 53 rounds, on
     [1152 * 1152, 44, 48] rank-major rows; every rank must hold every
     rank's blocks, "cuda" must equal "torch", overlapped must equal
-    sequential;
+    sequential; block_shuffle is also timed alone at these 192-byte rows;
   * quantized_allreduce: the trainer's 4 MiB gradient bucket per rank
     (the q/k/v projection weights and biases of one Qwen2-0.5B layer,
     1,033,344 float32, bucketed by ``make_bucket_spec``/``bucketize``),
@@ -48,7 +48,10 @@ d_model 2560, 2.42 B parameters in bf16, random weights from a seeded
     and in f32, and a small odd shape in f32 and bf16, causal and not,
     each case with its tolerance and max |plain|; the SSD scan at zamba2's shape
     (80 heads of 64, N 64, chunk 256), mamba2-780m's (48 heads, N 128)
-    and a small odd shape with two groups and a ragged last chunk;
+    and a small odd shape with two groups and a ragged last chunk, each
+    also phase by phase (chunk states, state pass, chunk outputs, each
+    CUDA phase fed the plain phases' inputs), the phases timed at the
+    two model shapes;
   * prefill: ``make_prefill_step`` on 2 prompts of 4096 tokens must launch
     exactly 9 flash attentions and 54 SSD scans, and its last-position
     logits must equal the "torch" backend's within the stated tolerance;
@@ -72,6 +75,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -124,6 +128,7 @@ QKV_SHAPES = {
 #: Dense peaks of an H100 SXM (NVIDIA data sheet): bf16 tensor cores, and
 #: f32 outside the tensor cores (what a kernel computing in f32 can use).
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+TF32_FLOPS = 495e12           # dense TF32 tensor cores (the scan's 3xTF32 products)
 ARCH = "zamba2-2.7b"          # the hybrid config: both model kernels on its path
 PREFILL_B, PREFILL_S = 2, 4096
 #: Kernel vs plain version, elementwise |got - want| <= atol + rtol |want|,
@@ -495,6 +500,23 @@ def reduce_bytes(P_, n, R, row, fwd_h, acc_h) -> dict:
     }, coincide
 
 
+def model_kernel_ptxas(ptxas) -> dict:
+    """Registers and spill bytes of each model kernel, from ptxas's lines
+    (an entry, then its stack and spill line, then its register line), by
+    kernel name and its mangled template arguments."""
+    out, name = {}, None
+    for ln in ptxas:
+        if "Compiling entry" in ln:
+            m = re.search(r"\d+((?:flash_fwd|ssd)_[a-z_]*kernel)(I\w*?EE)?", ln)
+            name = m.group(1) + (m.group(2) or "") if m else None
+        elif name and "spill" in ln:
+            nums = [int(w) for w in re.findall(r"(\d+) bytes spill", ln)]
+            out[name] = {"spill_stores": nums[0], "spill_loads": nums[1]}
+        elif name and "registers" in ln:
+            out[name]["registers"] = int(ln.split("Used ")[1].split()[0])
+    return out
+
+
 def bound_ms(flops: float, nbytes: float, peak: float):
     """The least time for the work: the larger of operations over the
     peak rate and bytes over the memory rate -> (ms, what bounds it)."""
@@ -515,16 +537,17 @@ def attn_work(B, S, H, Hkv, hd, causal, window, itemsize):
 
 
 def scan_work(B, S, H, P, G, N, chunk):
-    """FLOPs of the chunked SSD scan per (batch row, head) and chunk of
-    L positions: the lower triangles of C B^T (N) and W x (P), the
-    inter-chunk C S and the state update (2 L N P each); and the bytes of
-    x, B, C, dt, A_log, D read once and y written once (f32)."""
+    """FLOPs of the chunked SSD scan per batch row and chunk of L
+    positions: the lower triangle of C B^T (N) once per group, since it
+    depends on the group alone; per head the lower triangle of W x (P),
+    the inter-chunk C S and the state update (2 L N P each); and the
+    bytes of x, B, C, dt, A_log, D read once and y written once (f32)."""
     Q = min(chunk, S)
-    per_head = 0
+    per_row = 0
     for c0 in range(0, S, Q):
         L = min(Q, S - c0)
-        per_head += L * (L + 1) * (N + P) + 4 * L * N * P
-    return B * H * per_head, 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H)
+        per_row += H * (L * (L + 1) * P + 4 * L * N * P) + G * L * (L + 1) * N
+    return B * per_row, 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H)
 
 
 def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
@@ -558,6 +581,9 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
                                                             window=window), 10),
                plain_ms=cuda_ms(torch, lambda: fa.blocked_attention(q, k, v, causal,
                                                                     window), 3))
+    rec["tflops"] = flops / rec["ms"] * 1e-9
+    # the kernel's own tensor-core work: q.k once, p.v twice (P split hi + lo)
+    rec["bound_ms_split_p"] = 1.5 * flops / PEAK_FLOPS[name] * 1e3
     rec["library_ms"] = None
     if window is None:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -566,10 +592,49 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
     return rec
 
 
+def compare_scan_phases(torch, ss, ops, chunk, timed: bool):
+    """Each phase of the CUDA scan against its plain phase, the CUDA phase
+    fed the plain phases' inputs; timed: each phase's kernel and plain
+    times.  Returns {phase: record}."""
+    x, Bm, Cm, dt, A_log, D = ops
+    want_cum, want_sloc = ss.ssd_chunk_states(x, Bm, dt, A_log, chunk)
+    want_prev = ss.ssd_state_pass(want_cum, want_sloc)
+    want_y = ss.ssd_chunk_outputs(x, Bm, Cm, dt, D, want_cum, want_prev, chunk)
+    cum, sloc = ss.chunk_states(*ops, chunk=chunk)
+    prev = ss.state_pass(want_cum, want_sloc.clone())
+    y = ss.chunk_outputs(*ops, want_cum, want_prev, chunk=chunk)
+    recs = {}
+    for name, pairs in (("chunk_states", ((cum, want_cum), (sloc, want_sloc))),
+                        ("state_pass", ((prev, want_prev),)),
+                        ("chunk_outputs", ((y, want_y),))):
+        err = max(float((a - b).abs().max()) for a, b in pairs)
+        check(all(torch.allclose(a, b, atol=SCAN_TOL, rtol=SCAN_TOL) for a, b in pairs),
+              f"ssd_scan phase {name} != plain at {tuple(x.shape)}: max abs {err}")
+        recs[name] = {"max_abs_err": err, "tolerance": SCAN_TOL}
+    del cum, sloc, prev, y, want_y
+    if timed:
+        spare = want_sloc.clone()
+        runs = {
+            "chunk_states": (lambda: ss.chunk_states(*ops, chunk=chunk),
+                             lambda: ss.ssd_chunk_states(x, Bm, dt, A_log, chunk)),
+            "state_pass": (lambda: ss.state_pass(want_cum, spare),
+                           lambda: ss.ssd_state_pass(want_cum, want_sloc)),
+            "chunk_outputs": (
+                lambda: ss.chunk_outputs(*ops, want_cum, want_prev, chunk=chunk),
+                lambda: ss.ssd_chunk_outputs(x, Bm, Cm, dt, D, want_cum, want_prev,
+                                             chunk)),
+        }
+        for name, (kernel, plain) in runs.items():
+            recs[name].update(ms=cuda_ms(torch, kernel, 10),
+                              plain_ms=cuda_ms(torch, plain, 3))
+    return recs
+
+
 def compare_scan(torch, ss, g, B, S, H, P, G, N, chunk, timed: bool):
     """ssd_scan vs its plain version on the same random inputs (dt in
-    [0.01, 0.2], A in -[0.5, 2]); timed: also kernel and plain times and
-    the bound.  Returns the record."""
+    [0.01, 0.2], A in -[0.5, 2]), and each of its phases vs the plain
+    phase; timed: also kernel and plain times and the bounds.  Returns
+    the record."""
     x = torch.randn((B, S, H, P), generator=g, device="cuda")
     Bm, Cm = (torch.randn((B, S, G, N), generator=g, device="cuda") for _ in range(2))
     dt = 0.01 + 0.19 * torch.rand((B, S, H), generator=g, device="cuda")
@@ -585,13 +650,17 @@ def compare_scan(torch, ss, g, B, S, H, P, G, N, chunk, timed: bool):
            "max_abs_err": err, "max_abs_plain": float(want.abs().max()),
            "tolerance": SCAN_TOL}
     del got, want
+    rec["phases"] = compare_scan_phases(torch, ss, ops, chunk, timed)
     if not timed:
         return rec
     flops, nbytes = scan_work(B, S, H, P, G, N, chunk)
     rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_FLOPS["float32"])
+    # the kernel's own tensor-core work: three TF32 products per f32 product
+    rec["bound_ms_3xtf32"] = 3 * flops / TF32_FLOPS * 1e3
     rec.update(flops=flops, bytes=nbytes, library_ms=None,
                ms=cuda_ms(torch, lambda: ss.ssd_scan(*ops, chunk=chunk), 10),
                plain_ms=cuda_ms(torch, lambda: ss.ssd_chunked(*ops, chunk), 3))
+    rec["tflops"] = flops / rec["ms"] * 1e-9
     return rec
 
 
@@ -839,7 +908,8 @@ def main() -> None:
           "ptxas_lines": len(ptxas),
           "max_registers": max(int(ln.split("Used ")[1].split()[0])
                                for ln in ptxas if "registers" in ln),
-          "spills": sorted({ln for ln in ptxas if "spill" in ln})})
+          "spills": sorted({ln for ln in ptxas if "spill" in ln}),
+          "model_kernels": model_kernel_ptxas(ptxas)})
 
     # 3. kernels vs plain versions on the card
     n = optimal_num_blocks_bcast(P, PAYLOAD_BYTES, DEFAULT_MODEL)
@@ -1187,6 +1257,24 @@ def main() -> None:
     }
     ag_bound = sum(ag_bytes.values())
     ag_ov_bound = ag_bound + (R_ag - 1) * (2 * rows_ag * row_ag + idx)
+    # block_shuffle alone at the allgather's 192-byte rows, over the plan's
+    # own slot rows: kernel and plain time a launch, against its bytes-bound
+    recv_d_ag, send_d_ag = plan_ag.device_slots
+    work = torch.zeros((rows_ag, n_ag + 1, bs_ag), device="cuda")
+    msg = torch.randn((rows_ag, bs_ag), generator=g, device="cuda")
+
+    def ag_shuffles(fn):
+        for t in range(R_ag - 1):
+            fn(work, msg, recv_d_ag[t], send_d_ag[t + 1])
+
+    ag_shuffle = {
+        "rows": rows_ag, "row_bytes": row_ag, "launches": R_ag - 1,
+        "ms": cuda_ms(torch, lambda: ag_shuffles(bp.block_shuffle), 1) / (R_ag - 1),
+        "plain_ms": cuda_ms(torch, lambda: ag_shuffles(ref.block_shuffle_ref), 1)
+        / (R_ag - 1),
+        "bound_ms": ms_of_bytes(ag_bytes["shuffle"] / (R_ag - 1)), "bound_by": "bytes"}
+    del work, msg
+    torch.cuda.empty_cache()
     emit({"phase": "allgather", "p": P, "n": n_ag, "bs": bs_ag,
           "rounds": R_ag, "bytes_per_rank": GATHER_BYTES,
           "buffer_bytes": rows_ag * (n_ag + 1) * row_ag,
@@ -1199,6 +1287,7 @@ def main() -> None:
           "bytes_moved": ag_bound, "bytes_by_step": ag_bytes,
           "bytes_bound_ms": ms_of_bytes(ag_bound),
           "shuffle_rows_recv_eq_next_send": ag_coincide,
+          "block_shuffle_at_these_rows": ag_shuffle,
           "max_memory_allocated": ag_peak, "card": card})
     emit({"phase": "allgather_overlap", "p": P, "n": n_ag, "rounds": R_ag,
           "launches": {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,

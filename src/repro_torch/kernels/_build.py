@@ -52,9 +52,15 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "flash_attention_error_string": ((_E,), ctypes.c_char_p),
     },
     "ssd_scan": {
-        # x, B, C, dt, A_log, D, y, Bsz, S, H, P, G, N, chunk, device, stream
-        "ssd_scan_launch": (
-            (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _E, _P), _E),
+        # x, B, C, dt, A_log, D, y, cum, states, cb, Bsz, S, H, P, G, N,
+        # chunk, device, stream
+        "ssd_scan_launch": ((_P,) * 10 + (_I,) * 7 + (_E, _P), _E),
+        # x, B, dt, A_log, cum, states, sizes
+        "ssd_chunk_states_launch": ((_P,) * 6 + (_I,) * 7 + (_E, _P), _E),
+        # cum, states, sizes
+        "ssd_state_pass_launch": ((_P,) * 2 + (_I,) * 7 + (_E, _P), _E),
+        # x, B, C, dt, D, cum, states, cb, y, sizes
+        "ssd_chunk_outputs_launch": ((_P,) * 9 + (_I,) * 7 + (_E, _P), _E),
         "ssd_scan_error_string": ((_E,), ctypes.c_char_p),
     },
 }

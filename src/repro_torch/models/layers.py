@@ -85,7 +85,15 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype) -> nn.Parameter:
 
 
 def embed_apply(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    return table[tokens]
+    """``table[tokens]`` as ``jnp.take(table, tokens, axis=0)`` gives it:
+    ids in [-vocab, vocab) gather (negatives wrap), any other id gives a
+    NaN row.  Clamp, gather, then mask: no host synchronisation, and no
+    device-side assert on a bad id."""
+    vocab = table.shape[0]
+    inside = (tokens >= -vocab) & (tokens < vocab)
+    rows = table[torch.where(inside, tokens, 0) % vocab]
+    return torch.where(inside[..., None], rows, torch.full(
+        (), float("nan"), dtype=table.dtype, device=table.device))
 
 
 def unembed_apply(table: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -394,6 +394,63 @@ def test_flash_attention_value_width_differs(gen):
                                atol=2e-5, rtol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,hd_v,causal,window", [
+    (1, 200, 2, 1, 5, 5, True, None),        # tiny odd head, plain-load path
+    (1, 200, 4, 2, 40, 40, True, None),      # hd 40, S not a tile multiple
+    (2, 1000, 4, 1, 80, 80, True, None),     # zamba2's head over 16 key tiles
+    (1, 257, 2, 2, 128, 128, False, None),   # widest head, non-causal
+    (1, 190, 4, 2, 48, 72, True, None),      # hd_v != hd
+    (1, 150, 2, 1, 80, 64, True, None),      # hd_v < hd
+    (1, 300, 4, 2, 64, 64, True, 50),        # window inside a tile
+    (1, 600, 2, 1, 80, 80, True, 97),        # window straddling tiles
+])
+def test_flash_attention_mma_edges(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
+                                   window):
+    """The tensor-core kernel at its edges: ragged sequences and heads,
+    value width other than the key width, windows across tile borders."""
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd_v), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd_v)
+    want = fa.blocked_attention(q, k, v, causal, window, q_chunk=128, kv_chunk=64)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("window", [None, 90], ids=["causal", "window"])
+def test_flash_attention_wide_head_cuda_cores(gen, dtype, window):
+    """bf16/f16 heads wider than 128 run the CUDA-core kernel."""
+    q = torch.randn((1, 230, 4, 192), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, 230, 2, 192), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((1, 230, 2, 128), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    assert out.dtype == dtype and out.shape == (1, 230, 4, 128)
+    want = fa.blocked_attention(q, k, v, True, window, q_chunk=64, kv_chunk=32)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_attention_mma_unaligned_operands(gen):
+    """Operands off a 16-byte boundary take the plain-load path."""
+    buf = torch.randn((3 * 130 * 2 * 64 + 1,), generator=gen, device="cuda")
+    buf = buf.to(torch.bfloat16)
+    q, k, v = (buf[1 + i * 130 * 2 * 64:1 + (i + 1) * 130 * 2 * 64].view(1, 130, 2, 64)
+               for i in range(3))
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    out = fa.flash_attention(q, k, v)
+    want = fa.blocked_attention(q, k, v, True)
+    torch.testing.assert_close(out.float(), want.float(), atol=1e-5, rtol=2.0 ** -6)
+
+
 def _ssd_operands(gen, B, S, H, P, G, N):
     x = torch.randn((B, S, H, P), generator=gen, device="cuda")
     Bm = torch.randn((B, S, G, N), generator=gen, device="cuda")
@@ -420,6 +477,46 @@ def test_ssd_scan_matches_plain(gen, B, S, H, P, G, N, chunk):
     torch.cuda.synchronize()
     assert ss.LAUNCHES["ssd_scan"] - before == 1
     torch.testing.assert_close(y, ss.ssd_chunked(*ops, chunk), atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (1, 4096, 2, 64, 1, 64, 256),        # many chunks, small H
+    (2, 256, 3, 64, 1, 64, 256),         # exactly one chunk
+    (1, 512, 2, 64, 1, 128, 256),        # N 128 (mamba2-780m)
+    (1, 700, 4, 32, 2, 16, 160),         # G 2, chunk not a tile multiple
+])
+def test_ssd_scan_phases_match_plain(gen, B, S, H, P, G, N, chunk):
+    """Each CUDA phase against its plain phase on the same inputs, and
+    the whole scan against the plain scan."""
+    x, Bm, Cm, dt, A_log, D = ops = _ssd_operands(gen, B, S, H, P, G, N)
+    cum, sloc = ss.chunk_states(*ops, chunk=chunk)
+    want_cum, want_sloc = ss.ssd_chunk_states(x, Bm, dt, A_log, chunk)
+    torch.testing.assert_close(cum, want_cum, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(sloc, want_sloc, atol=1e-4, rtol=1e-4)
+    s_prev = ss.state_pass(want_cum, want_sloc.clone())
+    want_prev = ss.ssd_state_pass(want_cum, want_sloc)
+    torch.testing.assert_close(s_prev, want_prev, atol=1e-4, rtol=1e-4)
+    y = ss.chunk_outputs(*ops, want_cum, want_prev, chunk=chunk)
+    want_y = ss.ssd_chunk_outputs(x, Bm, Cm, dt, D, want_cum, want_prev, chunk)
+    torch.testing.assert_close(y, want_y, atol=1e-4, rtol=1e-4)
+    before = ss.LAUNCHES["ssd_scan"]
+    got = ss.ssd_scan(*ops, chunk=chunk)
+    torch.cuda.synchronize()
+    assert ss.LAUNCHES["ssd_scan"] - before == 1
+    torch.testing.assert_close(got, ss.ssd_chunked(*ops, chunk), atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_phases_reject_states_that_do_not_fit(gen):
+    """The phase wrappers check the scratch they are handed before a launch
+    could read past it."""
+    ops = _ssd_operands(gen, 1, 70, 4, 8, 2, 6)
+    cum, sloc = ss.chunk_states(*ops, chunk=16)
+    with pytest.raises(ValueError, match="do not fit"):
+        ss.chunk_outputs(*ops, cum[:, :2].contiguous(), sloc, chunk=16)
+    with pytest.raises(ValueError, match="do not fit"):
+        ss.state_pass(cum, sloc[:, :, :2].contiguous())
+    with pytest.raises(ValueError, match="float32"):
+        ss.chunk_outputs(*ops, cum, sloc.double(), chunk=16)
 
 
 def test_model_kernels_refuse_too_much_shared_memory(gen):

@@ -26,6 +26,7 @@ from repro.kernels import ref as jref
 from repro.kernels.ops import gqa_flash_attention, mamba2_ssd
 from repro.kernels.ssd_scan import ssd_scan as pallas_ssd_scan
 from repro_torch.kernels import ref
+from repro_torch.kernels import ssd_scan as ss
 from repro_torch.kernels.flash_attention import LAUNCHES as FA_LAUNCHES
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.ssd_scan import LAUNCHES as SSD_LAUNCHES
@@ -169,3 +170,105 @@ def test_ssd_scan_rejects_bad_operands():
         ssd_scan(x, B_, C_, dt, A_log, D, chunk=0)
     with pytest.raises(ValueError, match="dt"):
         ssd_scan(x, B_, C_, dt[:, :4], A_log, D)
+
+
+# ------------------------------------------- the scan's phases, plain
+
+
+def _ssd_chunked_unsplit(x, B_, C_, dt, A_log, D, chunk):
+    """The plain scan as one function, before it was split into the
+    CUDA kernel's three phases: the split must give the same bits."""
+    import torch.nn.functional as F
+
+    Bsz, S, H, Pd = x.shape
+    G, N = B_.shape[2], B_.shape[3]
+    rep = H // G
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    pad = nc * Q - S
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        B_ = F.pad(B_, (0, 0, 0, 0, 0, pad))
+        C_ = F.pad(C_, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    A = -torch.exp(A_log)
+    xc = x.reshape(Bsz, nc, Q, H, Pd)
+    Bc = B_.reshape(Bsz, nc, Q, G, N)
+    Cc = C_.reshape(Bsz, nc, Q, G, N)
+    dtc = dt.reshape(Bsz, nc, Q, H)
+    cum = torch.cumsum(dtc * A, dim=2)
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]
+    ii = torch.arange(Q)
+    tri = (ii[:, None] >= ii[None, :])[None, None, :, :, None]
+    seg = torch.where(tri, seg, 0.0)
+    Lmat = torch.where(tri, torch.exp(seg), 0.0)
+    Bh = Bc.repeat_interleave(rep, dim=3)
+    Ch = Cc.repeat_interleave(rep, dim=3)
+    cb = torch.einsum("bcihn,bcjhn->bcijh", Ch, Bh)
+    w = cb * Lmat * dtc[:, :, None, :, :]
+    y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xc)
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    sloc = torch.einsum("bcjh,bcjhn,bcjhp->bchnp", decay_to_end * dtc, Bh, xc)
+    chunk_decay = torch.exp(cum[:, :, -1, :])
+    s = torch.zeros((Bsz, H, N, Pd), dtype=x.dtype)
+    s_prevs = []
+    for c in range(nc):
+        s_prevs.append(s)
+        s = s * chunk_decay[:, c, :, None, None] + sloc[:, c]
+    s_prevs = torch.stack(s_prevs, dim=1)
+    y_inter = torch.einsum("bcihn,bchnp->bcihp", Ch, s_prevs) * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(Bsz, nc * Q, H, Pd)
+    y = y + x.reshape(Bsz, nc * Q, H, Pd) * D[None, None, :, None]
+    return y[:, :S] if pad else y
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 64, 2, 8, 1, 4, 16),      # whole chunks
+    (1, 70, 4, 16, 2, 8, 32),     # G 2, ragged last chunk
+    (1, 17, 1, 4, 1, 2, 8),       # tiny, odd
+    (2, 33, 2, 64, 1, 16, 256),   # chunk > S
+    (1, 300, 4, 64, 1, 64, 128),  # zamba2's widths, ragged
+])
+def test_ssd_phases_compose_to_the_unsplit_scan_bit_for_bit(B, S, H, P, G, N, chunk):
+    ins = tuple(map(torch.from_numpy, _ssd_inputs(B, S, H, P, G, N)))
+    want = _ssd_chunked_unsplit(*ins, chunk)
+    x, B_, C_, dt, A_log, D = ins
+    cum, sloc = ss.ssd_chunk_states(x, B_, dt, A_log, chunk)
+    s_prev = ss.ssd_state_pass(cum, sloc)
+    got = ss.ssd_chunk_outputs(x, B_, C_, dt, D, cum, s_prev, chunk)
+    assert torch.equal(got, want)
+    assert torch.equal(ss.ssd_chunked(*ins, chunk), want)
+
+
+@pytest.mark.parametrize("S,chunk", [(70, 16), (64, 16), (23, 8), (9, 32)])
+def test_ssd_states_entering_each_chunk_match_the_f64_recurrence(S, chunk):
+    """The state entering chunk c is h at position c*Q - 1 of the
+    sequential recurrence h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T, run
+    in float64 numpy (G 2, so heads 0-1 read group 0 and heads 2-3 group 1);
+    ``sloc`` of a chunk is the same recurrence from a zero start."""
+    Bsz, H, P, G, N = 2, 4, 8, 2, 6
+    x, B_, C_, dt, A_log, D = _ssd_inputs(Bsz, S, H, P, G, N)
+    cum, sloc = ss.ssd_chunk_states(*map(torch.from_numpy, (x, B_, dt, A_log)), chunk)
+    s_prev = ss.ssd_state_pass(cum, sloc).numpy()
+    Q = min(chunk, S)
+    nc = -(-S // Q)
+    assert s_prev.shape == sloc.shape == (Bsz, nc, H, N, P)
+    A = -np.exp(A_log.astype(np.float64))
+    Bh = np.repeat(B_.astype(np.float64), H // G, axis=2)        # [B, S, H, N]
+    h = np.zeros((Bsz, H, N, P))
+    want_prev, want_loc = [], []
+    for c in range(nc):
+        want_prev.append(h.copy())
+        loc = np.zeros_like(h)
+        for t in range(c * Q, min(S, (c + 1) * Q)):
+            decay = np.exp(dt[:, t].astype(np.float64) * A)[:, :, None, None]
+            inc = (dt[:, t, :, None, None] * Bh[:, t, :, :, None]
+                   * x[:, t, :, None, :].astype(np.float64))
+            h = decay * h + inc
+            loc = decay * loc + inc
+        want_loc.append(loc)
+    np.testing.assert_allclose(s_prev, np.stack(want_prev, 1), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(sloc.numpy(), np.stack(want_loc, 1), atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(cum.numpy()[:, -1, -1],
+                               (dt[:, (nc - 1) * Q:].astype(np.float64) * A).sum(1),
+                               atol=1e-5, rtol=1e-5)

@@ -35,6 +35,7 @@ from repro.serve.engine import ServeLoop as JServeLoop
 from repro_torch.configs import get_config
 from repro_torch.models import transformer as tt
 from repro_torch.models.attention import write_rows
+from repro_torch.models.layers import embed_apply
 from repro_torch.models.convert import cache_from_jax, params_from_jax
 from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
 
@@ -168,3 +169,22 @@ def test_write_rows_drops_out_of_range_rows():
     write_rows(cache, torch.tensor([1, 4], dtype=torch.int32), -torch.ones(2, 3))
     np.testing.assert_array_equal(cache.numpy(), want)
     assert (cache[0, 1] == -1).all() and (cache[1] >= 0).all()
+
+
+@pytest.mark.parametrize("dtype", [np.float32, jnp.bfloat16], ids=["f32", "bf16"])
+def test_embed_apply_fills_out_of_range_ids_as_jnp_take(dtype):
+    """A token id outside [-vocab, vocab) gives a NaN row, as the
+    reference's ``jnp.take`` (fill mode); ids inside gather, negatives
+    wrapping."""
+    vocab, d = 11, 5
+    table = np.random.default_rng(3).normal(size=(vocab, d)).astype(np.float32)
+    ids = np.asarray([[vocab, vocab + 7, -vocab - 1], [-1, 0, -vocab]])
+    want = np.asarray(jnp.take(jnp.asarray(table, dtype), jnp.asarray(ids), axis=0),
+                      np.float32)
+    got = embed_apply(torch.from_numpy(np.asarray(jnp.asarray(table, dtype),
+                                                  np.float32)).to(
+        torch.bfloat16 if dtype == jnp.bfloat16 else torch.float32),
+        torch.from_numpy(ids)).float().numpy()
+    assert np.isnan(want[0]).all() and not np.isnan(want[1]).any()
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[1], want[1])
