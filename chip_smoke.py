@@ -25,7 +25,8 @@ port's paths through their entry points at p = 1152 ranks (the paper's
   * allgather: 8 KiB float32 per rank, n = 43, 53 rounds, on
     [1152 * 1152, 44, 48] rank-major rows; every rank must hold every
     rank's blocks, "cuda" must equal "torch", overlapped must equal
-    sequential; block_shuffle is also timed alone at these 192-byte rows;
+    sequential; the four copy kernels are also held bit for bit against
+    their plain versions and timed alone at these 192-byte rows;
   * quantized_allreduce: the trainer's 4 MiB gradient bucket per rank
     (the q/k/v projection weights and biases of one Qwen2-0.5B layer,
     1,033,344 float32, bucketed by ``make_bucket_spec``/``bucketize``),
@@ -114,6 +115,11 @@ PATH_OF = {
     "block_qacc_shuffle": "quantized_allreduce",
     "flash_attention": "prefill", "ssd_scan": "prefill",
 }
+#: The allgather path whose run gives each copy kernel's launch count at
+#: the allgather's short rows: block_pack runs once a round only there.
+AG_PATH_OF = {"block_pack": "allgather_overlap", "block_unpack": "allgather",
+              "block_shuffle": "allgather",
+              "block_shuffle_staged": "allgather_overlap"}
 QBLOCK = 256                  # elements per quantization block (the default)
 BUCKET_BYTES = 4 << 20        # the trainer's gradient bucket (TrainConfig)
 ODD_Q = (37, 6, 8, 5)         # R, nslots, qb, blocks a row: a short odd shape
@@ -303,6 +309,87 @@ def compare_kernels(torch, bp, ref, g, R, nslots, bs, dtype, timed: bool):
         library_ms=None,
         bound_ms=ms_of_bytes((4 * R - coincide) * row_bytes))
     return out
+
+
+def short_row_kernels(torch, bp, ref, g, recv_d, send_d, nslots, bs):
+    """The four copy kernels alone on a buffer of the allgather's shape
+    ([rows, nslots, bs] float32, short rows), over the plan's own slot
+    rows: each held bit for bit against its plain version at the rounds
+    with the most and the fewest coincident slots (each kernel that
+    writes the buffer with a message of its own, so a write it drops
+    shows), then timed over every round it takes (kernel, plain and
+    library time a launch).  Bounds: each input read once, each output
+    written once, plus the int32 slot vectors; a coincident shuffle row
+    moves three rows, not four.  Returns ({name: record}, {what was
+    checked})."""
+    R, rows = len(recv_d), recv_d.shape[1]
+    row, idx = bs * 4, rows * 4
+    work = torch.randn((rows, nslots, bs), generator=g, device="cuda")
+    msgs = torch.randn((3, rows, bs), generator=g, device="cuda")
+    msg = msgs[0]
+    same = [int((recv_d[t] == send_d[t + 1]).sum()) for t in range(R - 1)]
+    eq = lambda a, b: same_bits(torch, a, b, rows=1 << 16)  # noqa: E731
+    err = lambda a, b: max_abs_err(torch, a, b, rows=1 << 16)  # noqa: E731
+    names = ("block_pack", "block_unpack", "block_shuffle", "block_shuffle_staged")
+    out = {name: {"max_abs_err": 0.0} for name in names}
+    # the rounds with the most and the fewest coincident slots
+    checked = sorted({max(range(R - 1), key=same.__getitem__),
+                      min(range(R - 1), key=same.__getitem__)})
+
+    def held(name, t, *pairs):
+        check(all(eq(a, b) for a, b in pairs),
+              f"{name} != plain at the allgather's rows, round {t}")
+        out[name]["max_abs_err"] = max([out[name]["max_abs_err"]]
+                                       + [err(a, b) for a, b in pairs])
+
+    for t in checked:
+        recv, send = recv_d[t], send_d[t + 1]
+        held("block_pack", t, (bp.block_pack(work, send), ref.block_pack_ref(work, send)))
+        snap = work.clone()
+        bp.block_unpack(work, msg, recv)
+        held("block_unpack", t, (work, ref.block_unpack_ref(snap, msg, recv)))
+        _, k = bp.block_shuffle(work, msgs[1], recv, send)
+        _, r = ref.block_shuffle_ref(snap, msgs[1], recv, send)
+        held("block_shuffle", t, (work, snap), (k, r))
+        pre = ref.block_pack_ref(work, send)
+        _, k = bp.block_shuffle_staged(work, msgs[2], pre, recv, send)
+        _, r = ref.block_shuffle_staged_ref(snap, msgs[2], pre, recv, send)
+        held("block_shuffle_staged", t, (work, snap), (k, r))
+        del snap, k, r
+    torch.cuda.synchronize()
+
+    ar = torch.arange(rows, device="cuda")
+
+    def per_launch(fn, n):
+        return cuda_ms(torch, lambda: [fn(i) for i in range(n)], 1) / n
+
+    pack_bytes = 2 * rows * row + idx
+    shuffle_bytes = sum((4 * rows - c) * row + 2 * idx for c in same) / (R - 1)
+    out["block_pack"].update(
+        ms=per_launch(lambda i: bp.block_pack(work, send_d[i]), R),
+        plain_ms=per_launch(lambda i: ref.block_pack_ref(work, send_d[i]), R),
+        library_ms=per_launch(lambda i: torch.gather(
+            work, 1, send_d[i].long().view(rows, 1, 1).expand(rows, 1, bs)), R),
+        bound_ms=ms_of_bytes(pack_bytes), timed_launches=R)
+    out["block_unpack"].update(
+        ms=per_launch(lambda i: bp.block_unpack(work, msg, recv_d[i]), R),
+        plain_ms=per_launch(lambda i: ref.block_unpack_ref(work, msg, recv_d[i]), R),
+        library_ms=per_launch(lambda i: work.index_put_((ar, recv_d[i].long()), msg), R),
+        bound_ms=ms_of_bytes(pack_bytes), timed_launches=R)
+    out["block_shuffle"].update(
+        ms=per_launch(lambda i: bp.block_shuffle(work, msg, recv_d[i], send_d[i + 1]),
+                      R - 1),
+        plain_ms=per_launch(lambda i: ref.block_shuffle_ref(
+            work, msg, recv_d[i], send_d[i + 1]), R - 1),
+        library_ms=None, bound_ms=ms_of_bytes(shuffle_bytes), timed_launches=R - 1)
+    out["block_shuffle_staged"].update(
+        ms=per_launch(lambda i: bp.block_shuffle_staged(
+            work, msg, pre, recv_d[i], send_d[i + 1]), R - 1),
+        plain_ms=per_launch(lambda i: ref.block_shuffle_staged_ref(
+            work, msg, pre, recv_d[i], send_d[i + 1]), R - 1),
+        library_ms=None, bound_ms=ms_of_bytes(shuffle_bytes), timed_launches=R - 1)
+    return out, {"rounds_checked": checked,
+                 "their_coincident_rows": [same[t] for t in checked]}
 
 
 def seed_specials(torch, buf, msg):
@@ -1220,6 +1307,7 @@ def main() -> None:
     out, got = counted_run(torch, kmods, lambda: plan_ag.run(vals_ag))
     expect = {"block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1}
     check(got == expect, f"allgather launches {got} != {expect}")
+    ag_launches = {"allgather": got}
     for i in range(0, P, 64):
         j = min(i + 64, P)
         check(torch.equal(out[i:j], vals_ag.expand(j - i, P, n_ag, bs_ag)),
@@ -1234,6 +1322,7 @@ def main() -> None:
     expect = {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
               "block_unpack": 1}
     check(got == expect, f"overlapped allgather launches {got} != {expect}")
+    ag_launches["allgather_overlap"] = got
     check(same_bits(torch, out_ov, out), "overlapped allgather != sequential")
     del out, out_ov
     torch.cuda.empty_cache()
@@ -1257,24 +1346,15 @@ def main() -> None:
     }
     ag_bound = sum(ag_bytes.values())
     ag_ov_bound = ag_bound + (R_ag - 1) * (2 * rows_ag * row_ag + idx)
-    # block_shuffle alone at the allgather's 192-byte rows, over the plan's
-    # own slot rows: kernel and plain time a launch, against its bytes-bound
-    recv_d_ag, send_d_ag = plan_ag.device_slots
-    work = torch.zeros((rows_ag, n_ag + 1, bs_ag), device="cuda")
-    msg = torch.randn((rows_ag, bs_ag), generator=g, device="cuda")
-
-    def ag_shuffles(fn):
-        for t in range(R_ag - 1):
-            fn(work, msg, recv_d_ag[t], send_d_ag[t + 1])
-
-    ag_shuffle = {
-        "rows": rows_ag, "row_bytes": row_ag, "launches": R_ag - 1,
-        "ms": cuda_ms(torch, lambda: ag_shuffles(bp.block_shuffle), 1) / (R_ag - 1),
-        "plain_ms": cuda_ms(torch, lambda: ag_shuffles(ref.block_shuffle_ref), 1)
-        / (R_ag - 1),
-        "bound_ms": ms_of_bytes(ag_bytes["shuffle"] / (R_ag - 1)), "bound_by": "bytes"}
-    del work, msg
+    # the four copy kernels alone at the allgather's 192-byte rows, over the
+    # plan's own slot rows: bit-exact against plain, then timed a launch
+    short, short_check = short_row_kernels(torch, bp, ref, g, *plan_ag.device_slots,
+                                           n_ag + 1, bs_ag)
     torch.cuda.empty_cache()
+    for name, rec in short.items():
+        rec.update(kernel=name, path=AG_PATH_OF[name], rows=rows_ag, row_bytes=row_ag)
+        launches[f"{name}@allgather"] = ag_launches[AG_PATH_OF[name]][name]
+        kern[f"{name}@allgather"] = rec
     emit({"phase": "allgather", "p": P, "n": n_ag, "bs": bs_ag,
           "rounds": R_ag, "bytes_per_rank": GATHER_BYTES,
           "buffer_bytes": rows_ag * (n_ag + 1) * row_ag,
@@ -1287,7 +1367,7 @@ def main() -> None:
           "bytes_moved": ag_bound, "bytes_by_step": ag_bytes,
           "bytes_bound_ms": ms_of_bytes(ag_bound),
           "shuffle_rows_recv_eq_next_send": ag_coincide,
-          "block_shuffle_at_these_rows": ag_shuffle,
+          "kernels_at_these_rows": short, "kernels_checked_at": short_check,
           "max_memory_allocated": ag_peak, "card": card})
     emit({"phase": "allgather_overlap", "p": P, "n": n_ag, "rounds": R_ag,
           "launches": {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
@@ -1491,8 +1571,10 @@ def main() -> None:
 
     # 13. the kernels line, each kernel with the launch count of its path
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES.get(name, KERNEL_SOURCE),
-         "replaces": REPLACES[name], "path": PATH_OF[name],
+        {"name": name, "route": "cuda",
+         "source": SOURCES.get(rec.get("kernel", name), KERNEL_SOURCE),
+         "replaces": REPLACES[rec.get("kernel", name)],
+         "path": rec.get("path", PATH_OF.get(name)),
          "launches": launches[name],
          "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],

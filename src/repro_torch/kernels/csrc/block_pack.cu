@@ -15,6 +15,8 @@
 // the row; the chunks of a row stride through it together.  Each thread block
 // reads its row's slot index itself (no scalar prefetch as on the TPU), and
 // traps on an index outside [0, nslots) rather than touch another row.
+// Shuffle and shuffle_staged take another grid for rows of fewer than 32
+// units (see "short rows" below); the launcher chooses by the units alone.
 //
 // What bounds them on an H100: bytes.  They do no arithmetic, so the least
 // time is the bytes they must move over the 3.35 TB/s of device memory:
@@ -24,12 +26,15 @@
 // The simple design answers that with wide, coalesced, aligned accesses and
 // enough thread blocks (R x chunks) to keep every SM's loads in flight; it
 // does not stage through shared memory, since each byte is touched once.
-// TMA bulk copies and warp specialisation are later work.
+// At short rows most of such a block idles; the short-row kernels pack many
+// rows into each warp instead.  TMA bulk copies and warp specialisation are
+// later work.
 //
 // C interface (bound with ctypes): each entry point makes the given device
 // current, launches on the given stream (the caller's PyTorch stream), does
 // not synchronise, and returns cudaGetLastError() (0 = success).
 
+#include <atomic>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -88,7 +93,8 @@ unpack_kernel(V* __restrict__ buf, const V* __restrict__ msg,
 // when recv[r] == send[r] the post-update block IS msg[r], so the thread
 // takes msg[r, j] and reads nothing from buf.  No thread reads an element
 // another thread writes, so there is no cross-thread hazard and no barrier.
-// msg and out must not overlap buf or each other.
+// msg and out must not overlap buf or each other.  Rows of 32 units or more;
+// shorter rows take shuffle_short_kernel, with the same ownership.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 shuffle_kernel(V* buf, const V* __restrict__ msg,
@@ -124,7 +130,8 @@ shuffle_kernel(V* buf, const V* __restrict__ msg,
 // Bytes: per row it reads msg and (unless the slots coincide) pre, and writes
 // buf[recv] and out: (4 * R - #{recv == send}) * row_bytes.  The simple
 // design is the shuffle's: one thread per unit, wide aligned unit copies.
-// msg, pre and out must not overlap buf or each other.
+// msg, pre and out must not overlap buf or each other.  Rows of 32 units or
+// more; shorter rows take shuffle_staged_short_kernel.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
@@ -146,6 +153,136 @@ shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
     rdst[j] = v;
     o[j] = same ? v : pr[j];
   }
+}
+
+// ------------------------------------------------------------ short rows
+//
+// A row of fewer than kShortUnits units cannot fill a thread block of its
+// own: the allgather's 192-byte rows are 12 units of 16 bytes, so the
+// row x chunk grid above ran 1.33 M blocks of 12 busy threads each, and
+// scheduling blocks, not bytes, set the pace of shuffle and shuffle_staged
+// (15 % of their bytes bound on an H100).  Their bound is still bytes; the
+// short-row kernels give no row a block.  Thread i of the flat range
+// [0, rows * units) takes unit j = i mod units of row r = i / units (one
+// 32-bit division), so a warp covers 32 consecutive units of consecutive
+// rows, with no idle lane; its loads of msg and out, which are [rows,
+// units] contiguous, coalesce fully, and each row's run of the buffer is
+// units * U contiguous bytes.  Neighbouring threads read the same slot
+// index, one L1 line for up to 32 rows.  A grid of a few resident blocks
+// an SM walks the range grid-stride; each thread loads kShortK units
+// (kShortK independent chains of index load, then data load) before it
+// stores any, to keep enough bytes in flight.  Ownership is as above:
+// each unit (r, j) belongs to one thread, which reads before it writes.
+// A launch covers at most kSlabRows rows, so every flat index fits in 31
+// bits; the launcher walks longer buffers slab by slab.
+constexpr int64_t kShortUnits = 32;
+constexpr int kShortK = 4;
+constexpr int64_t kSlabRows = int64_t(1) << 26;  // kSlabRows * 31 < 2^31
+
+// shuffle, with shuffle_kernel's semantics: the thread that owns (r, j)
+// takes msg when the slots coincide, else reads buf[r, send] before it
+// writes buf[r, recv].
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+shuffle_short_kernel(V* buf, const V* __restrict__ msg,
+                     const int32_t* __restrict__ recv,
+                     const int32_t* __restrict__ send, V* __restrict__ out,
+                     int64_t nslots, uint32_t units, uint32_t total) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < total;
+       i0 += stride * kShortK) {
+    V v[kShortK], s[kShortK];
+    int64_t dst[kShortK];
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        const uint32_t r = i / units;
+        const int64_t j = i - r * units;
+        const int64_t row = (int64_t)r * nslots;
+        const int64_t rs = load_slot(recv, r, nslots);
+        const int64_t ss = load_slot(send, r, nslots);
+        v[k] = msg[i];
+        s[k] = rs == ss ? v[k] : buf[(row + ss) * units + j];
+        dst[k] = (row + rs) * units + j;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        buf[dst[k]] = v[k];
+        out[i] = s[k];
+      }
+    }
+  }
+}
+
+// staged shuffle, with shuffle_staged_kernel's semantics: reads nothing
+// of buf.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+shuffle_staged_short_kernel(V* __restrict__ buf, const V* __restrict__ msg,
+                            const V* __restrict__ pre,
+                            const int32_t* __restrict__ recv,
+                            const int32_t* __restrict__ send,
+                            V* __restrict__ out, int64_t nslots,
+                            uint32_t units, uint32_t total) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < total;
+       i0 += stride * kShortK) {
+    V v[kShortK], s[kShortK];
+    int64_t dst[kShortK];
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        const uint32_t r = i / units;
+        const int64_t rs = load_slot(recv, r, nslots);
+        v[k] = msg[i];
+        s[k] = rs == load_slot(send, r, nslots) ? v[k] : pre[i];
+        dst[k] = ((int64_t)r * nslots + rs) * units + (i - r * units);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        buf[dst[k]] = v[k];
+        out[i] = s[k];
+      }
+    }
+  }
+}
+
+// Calls launch(r0, total, grid) for each slab of at most kSlabRows rows
+// (total = its rows * units), with a grid of at most as many blocks as
+// fit on the SMs at once (`per_sm`, asked of the runtime once a kernel);
+// returns the first error.
+template <typename Kernel, typename F>
+int by_slabs(Kernel kernel, std::atomic<int>& per_sm, int64_t R, int64_t units,
+             F launch) {
+  int occ = per_sm.load(std::memory_order_relaxed);
+  if (occ < 1) {
+    if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+            &occ, kernel, kThreads, 0))
+      return (int)e;
+    if (occ < 1) return (int)cudaErrorInvalidConfiguration;
+    per_sm.store(occ, std::memory_order_relaxed);
+  }
+  int dev = 0, sms = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
+    return (int)e;
+  const int64_t per_block = (int64_t)kThreads * kShortK;
+  for (int64_t r0 = 0; r0 < R; r0 += kSlabRows) {
+    const int64_t rows = R - r0 < kSlabRows ? R - r0 : kSlabRows;
+    int64_t grid = (rows * units + per_block - 1) / per_block;
+    if (grid > (int64_t)sms * occ) grid = (int64_t)sms * occ;
+    launch(r0, (uint32_t)(rows * units), (unsigned)grid);
+    if (cudaError_t e = cudaGetLastError()) return (int)e;
+  }
+  return 0;
 }
 
 // ------------------------------------------------- the reduce family's ops
@@ -595,10 +732,22 @@ int shuffle_typed(void* buf, const void* msg, const void* recv,
                   const void* send, void* out, int64_t R, int64_t nslots,
                   int64_t row_bytes, cudaStream_t stream) {
   const int64_t units = row_bytes / (int64_t)sizeof(V);
+  V* b = static_cast<V*>(buf);
+  const V* m = static_cast<const V*>(msg);
+  const int32_t* rv = static_cast<const int32_t*>(recv);
+  const int32_t* sd = static_cast<const int32_t*>(send);
+  V* o = static_cast<V*>(out);
+  if (units < kShortUnits) {
+    static std::atomic<int> per_sm{0};
+    return by_slabs(shuffle_short_kernel<V>, per_sm, R, units,
+                    [&](int64_t r0, uint32_t total, unsigned grid) {
+      shuffle_short_kernel<V><<<grid, kThreads, 0, stream>>>(
+          b + r0 * nslots * units, m + r0 * units, rv + r0, sd + r0,
+          o + r0 * units, nslots, (uint32_t)units, total);
+    });
+  }
   shuffle_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      static_cast<V*>(buf), static_cast<const V*>(msg),
-      static_cast<const int32_t*>(recv), static_cast<const int32_t*>(send),
-      static_cast<V*>(out), nslots, units);
+      b, m, rv, sd, o, nslots, units);
   return (int)cudaGetLastError();
 }
 
@@ -608,10 +757,23 @@ int shuffle_staged_typed(void* buf, const void* msg, const void* pre,
                          int64_t R, int64_t nslots, int64_t row_bytes,
                          cudaStream_t stream) {
   const int64_t units = row_bytes / (int64_t)sizeof(V);
+  V* b = static_cast<V*>(buf);
+  const V* m = static_cast<const V*>(msg);
+  const V* pr = static_cast<const V*>(pre);
+  const int32_t* rv = static_cast<const int32_t*>(recv);
+  const int32_t* sd = static_cast<const int32_t*>(send);
+  V* o = static_cast<V*>(out);
+  if (units < kShortUnits) {
+    static std::atomic<int> per_sm{0};
+    return by_slabs(shuffle_staged_short_kernel<V>, per_sm, R, units,
+                    [&](int64_t r0, uint32_t total, unsigned grid) {
+      shuffle_staged_short_kernel<V><<<grid, kThreads, 0, stream>>>(
+          b + r0 * nslots * units, m + r0 * units, pr + r0 * units, rv + r0,
+          sd + r0, o + r0 * units, nslots, (uint32_t)units, total);
+    });
+  }
   shuffle_staged_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      static_cast<V*>(buf), static_cast<const V*>(msg),
-      static_cast<const V*>(pre), static_cast<const int32_t*>(recv),
-      static_cast<const int32_t*>(send), static_cast<V*>(out), nslots, units);
+      b, m, pr, rv, sd, o, nslots, units);
   return (int)cudaGetLastError();
 }
 

@@ -53,6 +53,16 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float64, torch.int64,
 ACC_DTYPES = DTYPES + [torch.float16, torch.int16]
 _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 SHAPES = [(1, 4, 8), (37, 6, 131), (64, 9, 4096)]
+#: Short rows, which the copy kernels' short-row path takes (fewer than 32
+#: units): in float32, rows of 1, 3, 12, 15, 16, 17, 31, 32 and 33
+#: 16-byte units (32 and 33 take the long path); the allgather's 192-byte
+#: rows (p = 1152: 8 KiB a rank in 44 blocks of 48) at 70,000 rows, past
+#: any 65,535 grid limit; rows of 5 elements (5 bytes in int8: 1-byte
+#: units).  A fourth entry offsets every operand by that many elements,
+#: so the unit width falls to the element's (4, 2 or 1 bytes).
+SHORT_SHAPES = [(300, 5, 4 * u) for u in (1, 3, 12, 15, 16, 17, 31, 32, 33)] + [
+    (70_000, 9, 48), (600, 6, 5), (600, 6, 5, 1), (600, 6, 12, 1),
+    (600, 6, 48, 1)]
 
 
 @pytest.fixture
@@ -64,17 +74,28 @@ def gen():
     return torch.Generator(device="cuda").manual_seed(0)
 
 
+def _offset(t, off):
+    """``t`` copied to a contiguous tensor ``off`` elements past an
+    allocation's start (``off`` = 0: ``t`` itself)."""
+    if not off:
+        return t
+    return torch.empty(t.numel() + off, dtype=t.dtype,
+                       device=t.device)[off:].view(t.shape).copy_(t)
+
+
 def _operands(gen, shape, dtype):
-    R, ns, bs = shape
-    buf = torch.randint(-100, 100, shape, generator=gen, device="cuda").to(dtype)
+    R, ns, bs, *off = shape
+    off = off[0] if off else 0
+    buf = torch.randint(-100, 100, (R, ns, bs), generator=gen, device="cuda").to(dtype)
     msg = torch.randint(-100, 100, (R, bs), generator=gen, device="cuda").to(dtype)
+    buf, msg = _offset(buf, off), _offset(msg, off)
     recv = torch.randint(0, ns, (R,), generator=gen, device="cuda", dtype=torch.int32)
     send = torch.randint(0, ns, (R,), generator=gen, device="cuda", dtype=torch.int32)
     send[::3] = recv[::3]     # the pipeline case on every third row
     return buf, msg, recv, send
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_kernels_match_plain(gen, dtype, shape):
     buf, msg, recv, send = _operands(gen, shape, dtype)
@@ -100,7 +121,7 @@ def _same_bits(a, b):
     return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES, ids=str)
 def test_shuffle_staged_matches_plain(gen, dtype, shape):
     buf, msg, recv, send = _operands(gen, shape, dtype)

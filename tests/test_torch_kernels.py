@@ -31,7 +31,12 @@ from repro_torch.kernels import ref
 
 DTYPES = ["float32", "int32", "bfloat16", "float64", "int64"]
 SHAPES = [(1, 4, 8), (8, 6, 16), (17, 9, 131)]
-_BITS = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+#: Short rows, as the CUDA kernels' short-row path takes them: the
+#: allgather's (8 KiB a rank, p = 1152: 44 slots of 48 float32, 192-byte
+#: rows) at 40 rows, and rows of 5 elements (5 bytes in int8, copied a
+#: byte at a time on the card).
+SHORT_SHAPES = [(40, 44, 48), (24, 6, 5)]
+_BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
 
 def _np(rng, shape, dtype):
@@ -69,8 +74,8 @@ def _inputs(dtype, shape, seed):
     return buf, msg, recv, send
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES + ["int8"])
 def test_pack_matches_jax(dtype, shape):
     buf, _, _, send = _inputs(dtype, shape, 1)
     with _x64(dtype):
@@ -99,8 +104,8 @@ def test_unpack_matches_jax(dtype, shape):
             assert _same_bits(got, w)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES + ["int8"])
 def test_shuffle_matches_jax(dtype, shape):
     buf, msg, recv, send = _inputs(dtype, shape, 3)
     with _x64(dtype):
