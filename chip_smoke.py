@@ -26,7 +26,9 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     [1152 * 1152, 44, 48] rank-major rows; every rank must hold every
     rank's blocks, "cuda" must equal "torch", overlapped must equal
     sequential; the four copy kernels are also held bit for bit against
-    their plain versions and timed alone at these 192-byte rows;
+    their plain versions and timed alone at these 192-byte rows (their
+    short-row grid), and again at 1 KiB rows (64 units of 16 bytes, the
+    row x chunk grid) over a buffer of the same size;
   * quantized_allreduce: the trainer's 4 MiB gradient bucket per rank
     (the q/k/v projection weights and biases of one Qwen2-0.5B layer,
     1,033,344 float32, bucketed by ``make_bucket_spec``/``bucketize``),
@@ -89,6 +91,7 @@ SRC = ROOT / "src"
 P = 1152                      # ranks: the paper's 36 x 32 cluster
 PAYLOAD_BYTES = 16 << 20      # 16 MiB float32 per rank (broadcast, reduce)
 GATHER_BYTES = 8 << 10        # 8 KiB float32 per rank (allgather)
+KIB_BS = 256                  # 1 KiB float32 rows: 64 units, the row x chunk grid
 BCAST_ROOT = 100              # a nonzero root catches relabelling faults
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
@@ -311,25 +314,26 @@ def compare_kernels(torch, bp, ref, g, R, nslots, bs, dtype, timed: bool):
     return out
 
 
-def short_row_kernels(torch, bp, ref, g, recv_d, send_d, nslots, bs):
-    """The four copy kernels alone on a buffer of the allgather's shape
-    ([rows, nslots, bs] float32, short rows), over the plan's own slot
-    rows: each held bit for bit against its plain version at the rounds
-    with the most and the fewest coincident slots (each kernel that
-    writes the buffer with a message of its own, so a write it drops
-    shows), then timed over every round it takes (kernel, plain and
-    library time a launch).  Bounds: each input read once, each output
-    written once, plus the int32 slot vectors; a coincident shuffle row
-    moves three rows, not four.  Returns ({name: record}, {what was
-    checked})."""
+def copy_kernels_at(torch, bp, ref, g, recv_d, send_d, nslots, bs):
+    """The four copy kernels alone on a [rows, nslots, bs] float32
+    buffer, over the slot rows recv_d, send_d ([rounds, rows] int32, the
+    plan's own or a prefix of them): each held bit for bit against its
+    plain version at the rounds with the most and the fewest coincident
+    slots (each kernel that writes the buffer with a message of its own,
+    so a write it drops shows), then timed over every round it takes
+    (kernel, plain and library time a launch).  Bounds: each input read
+    once, each output written once, plus the int32 slot vectors; a
+    coincident shuffle row moves three rows, not four.  Returns
+    ({name: record}, {what was checked})."""
     R, rows = len(recv_d), recv_d.shape[1]
     row, idx = bs * 4, rows * 4
     work = torch.randn((rows, nslots, bs), generator=g, device="cuda")
     msgs = torch.randn((3, rows, bs), generator=g, device="cuda")
     msg = msgs[0]
     same = [int((recv_d[t] == send_d[t + 1]).sum()) for t in range(R - 1)]
-    eq = lambda a, b: same_bits(torch, a, b, rows=1 << 16)  # noqa: E731
-    err = lambda a, b: max_abs_err(torch, a, b, rows=1 << 16)  # noqa: E731
+    chunk = max(1, (512 << 20) // (nslots * row))   # ~0.5 GB of buffer rows
+    eq = lambda a, b: same_bits(torch, a, b, rows=chunk)  # noqa: E731
+    err = lambda a, b: max_abs_err(torch, a, b, rows=chunk)  # noqa: E731
     names = ("block_pack", "block_unpack", "block_shuffle", "block_shuffle_staged")
     out = {name: {"max_abs_err": 0.0} for name in names}
     # the rounds with the most and the fewest coincident slots
@@ -1348,8 +1352,15 @@ def main() -> None:
     ag_ov_bound = ag_bound + (R_ag - 1) * (2 * rows_ag * row_ag + idx)
     # the four copy kernels alone at the allgather's 192-byte rows, over the
     # plan's own slot rows: bit-exact against plain, then timed a launch
-    short, short_check = short_row_kernels(torch, bp, ref, g, *plan_ag.device_slots,
-                                           n_ag + 1, bs_ag)
+    short, short_check = copy_kernels_at(torch, bp, ref, g, *plan_ag.device_slots,
+                                         n_ag + 1, bs_ag)
+    torch.cuda.empty_cache()
+    # and at 1 KiB rows, which take the row x chunk grid: a buffer of the
+    # same bytes, over the first rows of the plan's slot rows
+    rows_1k = rows_ag * bs_ag // KIB_BS
+    wide, wide_check = copy_kernels_at(
+        torch, bp, ref, g, recv_rows[:, :rows_1k], send_rows[:, :rows_1k],
+        n_ag + 1, KIB_BS)
     torch.cuda.empty_cache()
     for name, rec in short.items():
         rec.update(kernel=name, path=AG_PATH_OF[name], rows=rows_ag, row_bytes=row_ag)
@@ -1368,6 +1379,8 @@ def main() -> None:
           "bytes_bound_ms": ms_of_bytes(ag_bound),
           "shuffle_rows_recv_eq_next_send": ag_coincide,
           "kernels_at_these_rows": short, "kernels_checked_at": short_check,
+          "kernels_at_1KiB_rows": {"shape": [rows_1k, n_ag + 1, KIB_BS],
+                                   "checked_at": wide_check, **wide},
           "max_memory_allocated": ag_peak, "card": card})
     emit({"phase": "allgather_overlap", "p": P, "n": n_ag, "rounds": R_ag,
           "launches": {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,

@@ -15,8 +15,8 @@
 // the row; the chunks of a row stride through it together.  Each thread block
 // reads its row's slot index itself (no scalar prefetch as on the TPU), and
 // traps on an index outside [0, nslots) rather than touch another row.
-// Shuffle and shuffle_staged take another grid for rows of fewer than 32
-// units (see "short rows" below); the launcher chooses by the units alone.
+// All four copy kernels take another grid for rows of fewer than 32 units
+// (see "short rows" below); the launcher chooses by the units alone.
 //
 // What bounds them on an H100: bytes.  They do no arithmetic, so the least
 // time is the bytes they must move over the 3.35 TB/s of device memory:
@@ -26,9 +26,9 @@
 // The simple design answers that with wide, coalesced, aligned accesses and
 // enough thread blocks (R x chunks) to keep every SM's loads in flight; it
 // does not stage through shared memory, since each byte is touched once.
-// At short rows most of such a block idles; the short-row kernels pack many
-// rows into each warp instead.  TMA bulk copies and warp specialisation are
-// later work.
+// At short rows most of such a block idles, so pack, unpack, shuffle and
+// shuffle_staged each have a short-row kernel that packs many rows into each
+// warp instead.  TMA bulk copies and warp specialisation are later work.
 //
 // C interface (bound with ctypes): each entry point makes the given device
 // current, launches on the given stream (the caller's PyTorch stream), does
@@ -54,7 +54,8 @@ __device__ __forceinline__ int64_t load_slot(const int32_t* idx, int64_t r,
 }
 
 // Replaces the TPU kernel repro/kernels/block_pack.py:block_pack (gather):
-// out[r] = buf[r, idx[r]].
+// out[r] = buf[r, idx[r]].  Rows of 32 units or more; shorter rows take
+// pack_short_kernel.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 pack_kernel(const V* __restrict__ buf, const int32_t* __restrict__ idx,
@@ -70,6 +71,7 @@ pack_kernel(const V* __restrict__ buf, const int32_t* __restrict__ idx,
 
 // Replaces the TPU kernel repro/kernels/block_pack.py:block_unpack (scatter,
 // in place): buf[r, idx[r]] = msg[r]; every other slot keeps its contents.
+// Rows of 32 units or more; shorter rows take unpack_short_kernel.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 unpack_kernel(V* __restrict__ buf, const V* __restrict__ msg,
@@ -160,24 +162,82 @@ shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
 // A row of fewer than kShortUnits units cannot fill a thread block of its
 // own: the allgather's 192-byte rows are 12 units of 16 bytes, so the
 // row x chunk grid above ran 1.33 M blocks of 12 busy threads each, and
-// scheduling blocks, not bytes, set the pace of shuffle and shuffle_staged
+// scheduling blocks, not bytes, set the pace of all four copy kernels
 // (15 % of their bytes bound on an H100).  Their bound is still bytes; the
-// short-row kernels give no row a block.  Thread i of the flat range
-// [0, rows * units) takes unit j = i mod units of row r = i / units (one
-// 32-bit division), so a warp covers 32 consecutive units of consecutive
-// rows, with no idle lane; its loads of msg and out, which are [rows,
-// units] contiguous, coalesce fully, and each row's run of the buffer is
-// units * U contiguous bytes.  Neighbouring threads read the same slot
-// index, one L1 line for up to 32 rows.  A grid of a few resident blocks
-// an SM walks the range grid-stride; each thread loads kShortK units
-// (kShortK independent chains of index load, then data load) before it
-// stores any, to keep enough bytes in flight.  Ownership is as above:
-// each unit (r, j) belongs to one thread, which reads before it writes.
+// short-row kernels (pack, unpack, shuffle, shuffle_staged) give no row a
+// block.  Thread i of the flat range [0, rows * units) takes unit
+// j = i mod units of row r = i / units (one 32-bit division), so a warp
+// covers 32 consecutive units of consecutive rows, with no idle lane; its
+// accesses of msg, pre and out, which are [rows, units] contiguous,
+// coalesce fully, and each row's run of the buffer is units * U
+// contiguous bytes.  Neighbouring threads read the same slot index, one
+// L1 line for up to 32 rows.  A grid of a few resident blocks an SM walks
+// the range grid-stride; each thread loads kShortK units (kShortK
+// independent chains of index load, then data load) before it stores any,
+// to keep enough bytes in flight.  Ownership is as above: each unit
+// (r, j) belongs to one thread, which reads before it writes.
 // A launch covers at most kSlabRows rows, so every flat index fits in 31
 // bits; the launcher walks longer buffers slab by slab.
 constexpr int64_t kShortUnits = 32;
 constexpr int kShortK = 4;
 constexpr int64_t kSlabRows = int64_t(1) << 26;  // kSlabRows * 31 < 2^31
+
+// pack, with pack_kernel's semantics: out[r] = buf[r, idx[r]].
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+pack_short_kernel(const V* __restrict__ buf, const int32_t* __restrict__ idx,
+                  V* __restrict__ out, int64_t nslots, uint32_t units,
+                  uint32_t total) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < total;
+       i0 += stride * kShortK) {
+    V v[kShortK];
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        const uint32_t r = i / units;
+        v[k] = buf[((int64_t)r * nslots + load_slot(idx, r, nslots)) * units +
+                   (i - r * units)];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) out[i] = v[k];
+    }
+  }
+}
+
+// unpack, with unpack_kernel's semantics: buf[r, idx[r]] = msg[r].  Rows
+// that name the same slot index are still distinct addresses, and the
+// kernel never reads buf.
+template <typename V>
+__global__ void __launch_bounds__(kThreads)
+unpack_short_kernel(V* __restrict__ buf, const V* __restrict__ msg,
+                    const int32_t* __restrict__ idx, int64_t nslots,
+                    uint32_t units, uint32_t total) {
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < total;
+       i0 += stride * kShortK) {
+    V v[kShortK];
+    int64_t dst[kShortK];
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        const uint32_t r = i / units;
+        v[k] = msg[i];
+        dst[k] = ((int64_t)r * nslots + load_slot(idx, r, nslots)) * units +
+                 (i - r * units);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      if (i0 + k * stride < total) buf[dst[k]] = v[k];
+    }
+  }
+}
 
 // shuffle, with shuffle_kernel's semantics: the thread that owns (r, j)
 // takes msg when the slots coincide, else reads buf[r, send] before it
@@ -711,9 +771,20 @@ template <typename V>
 int pack_typed(const void* buf, const void* idx, void* out, int64_t R,
                int64_t nslots, int64_t row_bytes, cudaStream_t stream) {
   const int64_t units = row_bytes / (int64_t)sizeof(V);
+  const V* b = static_cast<const V*>(buf);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  V* o = static_cast<V*>(out);
+  if (units < kShortUnits) {
+    static std::atomic<int> per_sm{0};
+    return by_slabs(pack_short_kernel<V>, per_sm, R, units,
+                    [&](int64_t r0, uint32_t total, unsigned grid) {
+      pack_short_kernel<V><<<grid, kThreads, 0, stream>>>(
+          b + r0 * nslots * units, ix + r0, o + r0 * units, nslots,
+          (uint32_t)units, total);
+    });
+  }
   pack_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      static_cast<const V*>(buf), static_cast<const int32_t*>(idx),
-      static_cast<V*>(out), nslots, units);
+      b, ix, o, nslots, units);
   return (int)cudaGetLastError();
 }
 
@@ -721,9 +792,20 @@ template <typename V>
 int unpack_typed(void* buf, const void* msg, const void* idx, int64_t R,
                  int64_t nslots, int64_t row_bytes, cudaStream_t stream) {
   const int64_t units = row_bytes / (int64_t)sizeof(V);
+  V* b = static_cast<V*>(buf);
+  const V* m = static_cast<const V*>(msg);
+  const int32_t* ix = static_cast<const int32_t*>(idx);
+  if (units < kShortUnits) {
+    static std::atomic<int> per_sm{0};
+    return by_slabs(unpack_short_kernel<V>, per_sm, R, units,
+                    [&](int64_t r0, uint32_t total, unsigned grid) {
+      unpack_short_kernel<V><<<grid, kThreads, 0, stream>>>(
+          b + r0 * nslots * units, m + r0 * units, ix + r0, nslots,
+          (uint32_t)units, total);
+    });
+  }
   unpack_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      static_cast<V*>(buf), static_cast<const V*>(msg),
-      static_cast<const int32_t*>(idx), nslots, units);
+      b, m, ix, nslots, units);
   return (int)cudaGetLastError();
 }
 

@@ -116,6 +116,37 @@ def test_kernels_match_plain(gen, dtype, shape):
         "block_pack": 1, "block_unpack": 1, "block_shuffle": 1}
 
 
+def test_copy_kernels_cross_a_slab(gen):
+    """Rows of one int8 byte, 2^26 + 5 of them: the short-row launchers
+    cover at most 2^26 rows a launch (kSlabRows), so this buffer takes a
+    second slab of 5 rows, and an offset wrong there shows in the last
+    rows.  The four copy kernels against their plain versions, bit for
+    bit, each one count a wrapper call."""
+    R = (1 << 26) + 5
+    buf, msg, recv, send = _operands(gen, (R, 2, 1), torch.int8)
+    before = dict(bp.LAUNCHES)
+    assert torch.equal(bp.block_pack(buf, send), ref.block_pack_ref(buf, send))
+
+    a, b = buf.clone(), buf.clone()
+    bp.block_unpack(a, msg, recv)
+    assert torch.equal(a, ref.block_unpack_ref(b, msg, recv))
+
+    a, b = buf.clone(), buf.clone()
+    _, ko = bp.block_shuffle(a, msg, recv, send)
+    _, ro = ref.block_shuffle_ref(b, msg, recv, send)
+    assert torch.equal(a, b) and torch.equal(ko, ro)
+
+    pre = ref.block_pack_ref(buf, send)
+    a, b = buf.clone(), buf.clone()
+    _, ko = bp.block_shuffle_staged(a, msg, pre, recv, send)
+    _, ro = ref.block_shuffle_staged_ref(b, msg, pre, recv, send)
+    assert torch.equal(a, b) and torch.equal(ko, ro)
+    torch.cuda.synchronize()
+    assert {k: bp.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "block_pack": 1, "block_unpack": 1,
+        "block_shuffle": 1, "block_shuffle_staged": 1}
+
+
 def _same_bits(a, b):
     bits = _BITS[a.element_size()]
     return a.dtype == b.dtype and torch.equal(a.view(bits), b.view(bits))

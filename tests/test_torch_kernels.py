@@ -88,8 +88,8 @@ def test_pack_matches_jax(dtype, shape):
             assert _same_bits(got, w)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES + ["int8"])
 def test_unpack_matches_jax(dtype, shape):
     buf, msg, recv, _ = _inputs(dtype, shape, 2)
     with _x64(dtype):
@@ -121,8 +121,8 @@ def test_shuffle_matches_jax(dtype, shape):
             assert _same_bits(got_buf, wb) and _same_bits(got_msg, wm)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
-@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
+@pytest.mark.parametrize("dtype", DTYPES + ["int8"])
 def test_shuffle_staged_matches_jax(dtype, shape):
     buf, msg, recv, send = _inputs(dtype, shape, 6)
     pre = np.take_along_axis(buf, send[:, None, None], axis=1)[:, 0]
@@ -130,7 +130,7 @@ def test_shuffle_staged_matches_jax(dtype, shape):
         args = (jnp.asarray(buf), jnp.asarray(msg), jnp.asarray(pre),
                 jnp.asarray(recv), jnp.asarray(send))
         want = [tuple(map(_torch, jref.block_shuffle_staged_ref(*args)))]
-        if shape == SHAPES[1]:
+        if shape == SHAPES[1] or shape in SHORT_SHAPES:
             want.append(tuple(map(_torch, jbp.block_shuffle_staged(
                 *args, interpret=True))))
     for fn in (ref.block_shuffle_staged_ref, bp.block_shuffle_staged):
