@@ -37,7 +37,18 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     root 100, two steps with error feedback (the second step's input is
     its gradients plus the first step's error); every rank's row must be
     identical, "cuda" must equal "torch" bit for bit, and sums plus
-    errors must give back the exact sum.
+    errors must give back the exact sum;
+  * the two-level host plans of the same 1152 ranks as 36 nodes x 32
+    cores (``hier_host_plan``, block counts from ``optimal_hier_blocks``):
+    hier_broadcast of the broadcast's 16 MiB from root 100, n = (41, 37);
+    hier_reduce (sum and max of the reduce's contributions, 19.3 GB, and
+    a sum of int32 contributions that wraps) and hier_allreduce to and
+    from root 100, n = (41, 37); hier_allgather of the allgather's 8 KiB a
+    rank, n = (30, 5).  Every rank must hold the exact result, "cuda"
+    must equal "torch" bit for bit, each path must launch its kernels
+    as often as its levels' rounds say, and the port's
+    ``simulate_hier_*(backend="cuda")`` must certify the plans at 36 x 32.
+    Each line gives the flat path's time of this run beside its own.
 
 Then the serving path of zamba2-2.7b at its full published configuration
 (54 Mamba2 layers and one shared attention block applied after every 6,
@@ -89,6 +100,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 P = 1152                      # ranks: the paper's 36 x 32 cluster
+NODES, HIER_CORES = 36, 32    # its two levels, for the hierarchical plans
 PAYLOAD_BYTES = 16 << 20      # 16 MiB float32 per rank (broadcast, reduce)
 GATHER_BYTES = 8 << 10        # 8 KiB float32 per rank (allgather)
 KIB_BS = 256                  # 1 KiB float32 rows: 64 units, the row x chunk grid
@@ -591,6 +603,38 @@ def reduce_bytes(P_, n, R, row, fwd_h, acc_h) -> dict:
     }, coincide
 
 
+def allgather_bytes(P_, n, R, row, recv_rows, send_rows) -> dict:
+    """Bytes the allgather must move over its P_ * P_ rank-major rows,
+    from the plan's own row tables ([R, P_ * P_] int32, on the device),
+    the int32 slot vectors included."""
+    rows, idx = P_ * P_, P_ * P_ * 4
+    coincide = sum(int((recv_rows[t] == send_rows[t + 1]).sum())
+                   for t in range(R - 1))
+    return {
+        "zero_fill": rows * (n + 1) * row,
+        "own_blocks": 2 * P_ * n * row,
+        "pack": 2 * rows * row + idx,
+        "roll": R * 2 * rows * row,
+        "shuffle": (4 * (R - 1) * rows - coincide) * row + (R - 1) * 2 * idx,
+        "unpack": 2 * rows * row + idx,
+    }, coincide
+
+
+def level_bytes(flat, m: int, itemsize: int, upload_rows: int = 1) -> int:
+    """Bytes one run of a hier level's flat plan must move, from its own
+    slot tables: m elements re-blocked into the plan's n blocks (the
+    padded tail included)."""
+    row = -(-m // flat.n) * itemsize
+    R = len(flat.ks)
+    if flat.kind == "reduce":
+        by, _ = reduce_bytes(flat.p, flat.n, R, row, *flat.slots)
+    elif flat.kind == "broadcast":
+        by, _ = bcast_bytes(flat.p, flat.n, R, row, *flat.slots, upload_rows)
+    else:
+        by, _ = allgather_bytes(flat.p, flat.n, R, row, *flat.device_slots)
+    return sum(by.values())
+
+
 def model_kernel_ptxas(ptxas) -> dict:
     """Registers and spill bytes of each model kernel, from ptxas's lines
     (an entry, then its stack and spill line, then its register line), by
@@ -753,6 +797,264 @@ def compare_scan(torch, ss, g, B, S, H, P, G, N, chunk, timed: bool):
                plain_ms=cuda_ms(torch, lambda: ss.ssd_chunked(*ops, chunk), 3))
     rec["tflops"] = flops / rec["ms"] * 1e-9
     return rec
+
+
+def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
+    """The two-level host plans at the paper's 36 x 32 topology: the
+    broadcast of the flat broadcast's payload, reduce (sum, max, int32
+    sum) and allreduce of the flat reduce's contributions, and the
+    allgather of the flat allgather's, each "cuda" bit for bit against
+    "torch" and the exact result, and each certified by the port's
+    message-passing simulator.  ``flat_ms``: the flat paths' times of
+    this run, printed beside.  Returns {phase: launches}."""
+    from repro_torch.core import (
+        hier_host_plan,
+        hier_rounds,
+        optimal_hier_blocks,
+        simulate_hier_allreduce,
+        simulate_hier_broadcast,
+        simulate_hier_reduce,
+    )
+    from repro_torch.core.hier import _split as hier_split
+
+    elems = PAYLOAD_BYTES // 4
+    counts = {}
+
+    def blocks(kind, m_inter, m_intra, cap_inter, cap_intra):
+        """The reference's _resolve_hier_blocks: the per-level optima
+        under DEFAULT_MODEL, capped at the elements a level splits."""
+        n_inter, n_intra = optimal_hier_blocks(NODES, HIER_CORES, m_inter,
+                                               m_intra, kind=kind)
+        return min(n_inter, cap_inter), min(n_intra, cap_intra)
+
+    def launches_of(plan):
+        """Rounds of each level and the launches one run makes: a forward
+        level of R rounds packs once, shuffles R - 1 times and unpacks
+        once; a reduce level acc_shuffles R + 1 times; the reduce's and
+        the allgather's intra level runs once a node, the broadcast's
+        once."""
+        want, rounds = {}, {}
+        for name, level, times in (("inter", plan.inter, 1),
+                                   ("intra", plan.intra, NODES)):
+            for flat in (level if isinstance(level, tuple) else (level,)):
+                R = len(flat.ks)
+                rounds[f"{name}_{flat.kind}"] = R
+                if flat.kind == "reduce":
+                    steps = {"block_acc_shuffle": times * (R + 1)}
+                else:
+                    k = 1 if flat.kind == "broadcast" else times
+                    steps = {"block_pack": k, "block_shuffle": k * (R - 1),
+                             "block_unpack": k}
+                for kname, c in steps.items():
+                    want[kname] = want.get(kname, 0) + c
+        return want, rounds
+
+    def every_rank(out, want_row):
+        """[NODES, HIER_CORES, m] equal to want_row [m] at every rank, a
+        node at a time."""
+        return all(torch.equal(out[j], want_row.expand(HIER_CORES, -1))
+                   for j in range(NODES))
+
+    def timed(plan, plain, x):
+        """CUDA-event times (warm, median of 5; plain median of 3), peak
+        memory since the last reset (it counts what earlier phases left
+        allocated: the cached flat plans' slot tables, the allgather's
+        [R, 1152^2] row tables above all), and the host time of the call
+        (it returns before the device has finished, except where a sweep
+        synchronises to check its copies)."""
+        ms, runs = median_ms(torch, lambda: plan.run(x), 5)
+        peak = torch.cuda.max_memory_allocated()
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan.run(x)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        plain_ms, plain_runs = median_ms(torch, lambda: plain.run(x), 3)
+        return {"ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+                "plain_ms_runs": plain_runs,
+                "host_call_ms": sorted(host)[2],
+                "max_memory_allocated": peak,
+                "allocated_before_the_phase": before}
+
+    def node_loop(plan, x):
+        """The re-blocking of node 0's contributions, one intra run (node
+        0's) and the inter run of a reduce or allgather plan, each timed
+        alone on what the sweep hands it (CUDA events, mean of 3)."""
+        split = hier_split(x[0], plan.n_intra)
+        width = x.shape[-1] * (1 if plan.kind == "reduce" else HIER_CORES)
+        parts = hier_split(torch.zeros((NODES, width), dtype=x.dtype,
+                                       device="cuda"), plan.n_inter)
+        seam = cuda_ms(torch, lambda: hier_split(x[0], plan.n_intra), 3)
+        one = cuda_ms(torch, lambda: plan.intra.run(split), 3)
+        inter = cuda_ms(torch, lambda: plan.inter.run(parts), 3)
+        return {"intra_split_one_node": seam, "intra_run_one_node": one,
+                "intra_splits_and_runs_all_nodes": NODES * (seam + one),
+                "inter_run": inter}
+
+    # 8a. hier_broadcast: 16 MiB f32 from root 100 (node 3, core 4)
+    nN, nC = blocks("broadcast", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
+    payload = np.random.default_rng(SEED).standard_normal(elems, dtype=np.float32)
+    want_row = torch.from_numpy(payload).cuda()
+    plan = hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC, root=BCAST_ROOT)
+    plain = hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC,
+                           root=BCAST_ROOT, backend="torch")
+    expect, rounds = launches_of(plan)
+    check(sum(rounds.values()) == hier_rounds("broadcast", NODES, HIER_CORES,
+                                              nN, nC), f"hier rounds {rounds}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, got = counted_run(torch, kmods, lambda: plan.run(payload))
+    check(got == expect, f"hier broadcast launches {got} != {expect}")
+    counts["hier_broadcast"] = got
+    check(tuple(out.shape) == (NODES, HIER_CORES, elems) and every_rank(out, want_row),
+          "hier broadcast: a rank does not hold the root's payload")
+    out_plain = plain.run(payload)
+    check(same_bits(torch, out, out_plain, rows=1),
+          "hier broadcast: cuda backend != torch backend")
+    del out, out_plain
+    sim = simulate_hier_broadcast(NODES, HIER_CORES, nN, nC, root=BCAST_ROOT,
+                                  backend="cuda")
+    t = timed(plan, plain, payload)
+    bound = (level_bytes(plan.inter, elems, 4, upload_rows=1)
+             + level_bytes(plan.intra, elems, 4, upload_rows=2))
+    emit({"phase": "hier_broadcast", "nodes": NODES, "cores": HIER_CORES,
+          "n": [nN, nC], "rounds": rounds, "root": BCAST_ROOT,
+          "payload_bytes": PAYLOAD_BYTES, "launches": got,
+          "every_rank_holds_payload": True, "equal_to_torch_backend": True,
+          "simulated": {"rounds": sim.rounds, "messages": sim.messages,
+                        "backend": sim.backend},
+          **t, "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound),
+          "flat_ms": flat_ms["broadcast"], "card": card})
+    del want_row
+    torch.cuda.empty_cache()
+
+    # 8b. hier_reduce (sum, max) and hier_allreduce: 16 MiB f32 a rank,
+    #     integer-valued first (exact sums), then standard normal
+    nN, nC = blocks("reduce", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
+    nNa, nCa = blocks("allreduce", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    contrib = torch.randint(-8, 9, (NODES, HIER_CORES, elems), generator=g,
+                            device="cuda", dtype=torch.float32)
+    plans = {op: (hier_host_plan("reduce", NODES, HIER_CORES, nN, nC,
+                                 root=BCAST_ROOT, op=op),
+                  hier_host_plan("reduce", NODES, HIER_CORES, nN, nC,
+                                 root=BCAST_ROOT, op=op, backend="torch"))
+             for op in ("sum", "max")}
+    plan_r, plain_r = plans["sum"]
+    plan_a = hier_host_plan("allreduce", NODES, HIER_CORES, nNa, nCa,
+                            root=BCAST_ROOT)
+    plain_a = hier_host_plan("allreduce", NODES, HIER_CORES, nNa, nCa,
+                             root=BCAST_ROOT, backend="torch")
+    expect_r, rounds_r = launches_of(plan_r)
+    expect_a, rounds_a = launches_of(plan_a)
+    out, got = counted_run(torch, kmods, lambda: plan_r.run(contrib))
+    check(got == expect_r, f"hier reduce launches {got} != {expect_r}")
+    counts["hier_reduce"] = got
+    exact = contrib.view(P, elems).sum(0)
+    check(torch.equal(out, exact), "hier reduce: root != values.sum over ranks")
+    del out
+    t_r = timed(plan_r, plain_r, contrib)
+    loop_r = node_loop(plan_r, contrib)
+    out, got = counted_run(torch, kmods, lambda: plan_a.run(contrib))
+    check(got == expect_a, f"hier allreduce launches {got} != {expect_a}")
+    counts["hier_allreduce"] = got
+    check(every_rank(out, exact), "hier allreduce: a rank does not hold the sum")
+    del out, exact
+    t_a = timed(plan_a, plain_a, contrib)
+    torch.cuda.empty_cache()
+
+    contrib.normal_(generator=g)
+    out = plan_r.run(contrib)
+    check(same_bits(torch, out, plain_r.run(contrib), rows=elems),
+          "hier reduce: cuda backend != torch backend on normal values")
+    out = plan_a.run(contrib)
+    check(same_bits(torch, out, plain_a.run(contrib), rows=1),
+          "hier allreduce: cuda backend != torch backend on normal values")
+    del out
+    plan_m, plain_m = plans["max"]
+    out, got = counted_run(torch, kmods, lambda: plan_m.run(contrib))
+    check(got == expect_r, f"hier max launches {got} != {expect_r}")
+    check(torch.equal(out, contrib.view(P, elems).amax(0)),
+          "hier reduce max: root != values.amax over ranks")
+    check(same_bits(torch, out, plain_m.run(contrib), rows=elems),
+          "hier reduce max: cuda backend != torch backend")
+    del out, contrib
+    torch.cuda.empty_cache()
+    contrib = torch.randint(-2 ** 31, 2 ** 31, (NODES, HIER_CORES, elems),
+                            generator=g, device="cuda", dtype=torch.int32)
+    out, got = counted_run(torch, kmods, lambda: plan_r.run(contrib))
+    check(got == expect_r, f"hier int32 reduce launches {got} != {expect_r}")
+    check(out.dtype == torch.int32 and torch.equal(
+        out, contrib.view(P, elems).sum(0, dtype=torch.int32)),
+        "hier reduce int32: root != values.sum over ranks (wrapping)")
+    red_peak = torch.cuda.max_memory_allocated()
+    del out, contrib
+    torch.cuda.empty_cache()
+    sims = {op: simulate_hier_reduce(NODES, HIER_CORES, nN, nC, root=BCAST_ROOT,
+                                     op=op, backend="cuda").rounds
+            for op in ("+", "max")}
+    sim_a = simulate_hier_allreduce(NODES, HIER_CORES, nNa, nCa,
+                                    root=BCAST_ROOT, backend="cuda")
+    bound_r = (NODES * level_bytes(plan_r.intra, elems, 4)
+               + level_bytes(plan_r.inter, elems, 4))
+    red_c, bc_c = plan_a.intra
+    red_n, bc_n = plan_a.inter
+    bound_a = (NODES * level_bytes(red_c, elems, 4) + level_bytes(red_n, elems, 4)
+               + level_bytes(bc_n, elems, 4, upload_rows=2)
+               + level_bytes(bc_c, elems, 4, upload_rows=2))
+    emit({"phase": "hier_reduce", "nodes": NODES, "cores": HIER_CORES,
+          "n": [nN, nC], "rounds": rounds_r, "root": BCAST_ROOT,
+          "ops": ["sum", "max", "sum int32"], "payload_bytes": PAYLOAD_BYTES,
+          "contribution_bytes": P * PAYLOAD_BYTES, "launches": expect_r,
+          "root_equals_exact_sum": True, "equal_to_torch_backend": True,
+          "max_root_equals_amax": True, "int32_root_equals_wrapped_sum": True,
+          "simulated_rounds": sims, **t_r, "max_memory_allocated_int32": red_peak,
+          "bytes_moved": bound_r, "bytes_bound_ms": ms_of_bytes(bound_r),
+          "breakdown_ms": loop_r, "flat_ms": flat_ms["reduce"], "card": card})
+    emit({"phase": "hier_allreduce", "nodes": NODES, "cores": HIER_CORES,
+          "n": [nNa, nCa], "rounds": rounds_a, "root": BCAST_ROOT, "op": "sum",
+          "launches": expect_a, "every_rank_holds_exact_sum": True,
+          "equal_to_torch_backend": True,
+          "simulated": {"rounds": sim_a.rounds, "messages": sim_a.messages},
+          **t_a, "bytes_moved": bound_a, "bytes_bound_ms": ms_of_bytes(bound_a),
+          "flat_ms": flat_ms["allreduce"], "card": card})
+
+    # 8c. hier_allgather: 8 KiB f32 a rank
+    e = GATHER_BYTES // 4
+    nN, nC = blocks("allgather", P * GATHER_BYTES, HIER_CORES * GATHER_BYTES,
+                    HIER_CORES * e, e)
+    vals = torch.randn((NODES, HIER_CORES, e), generator=g, device="cuda")
+    plan_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC)
+    plain_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC,
+                             backend="torch")
+    expect_g, rounds_g = launches_of(plan_g)
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    out, got = counted_run(torch, kmods, lambda: plan_g.run(vals))
+    check(got == expect_g, f"hier allgather launches {got} != {expect_g}")
+    counts["hier_allgather"] = got
+    check(torch.equal(out, vals.view(P, e)),
+          "hier allgather: the result is not every rank's values, rank-major")
+    check(same_bits(torch, out, plain_g.run(vals)),
+          "hier allgather: cuda backend != torch backend")
+    del out
+    t_g = timed(plan_g, plain_g, vals)
+    loop_g = node_loop(plan_g, vals)
+    bound_g = (NODES * level_bytes(plan_g.intra, e, 4)
+               + level_bytes(plan_g.inter, HIER_CORES * e, 4))
+    emit({"phase": "hier_allgather", "nodes": NODES, "cores": HIER_CORES,
+          "n": [nN, nC], "rounds": rounds_g, "bytes_per_rank": GATHER_BYTES,
+          "launches": expect_g, "every_rank_holds_every_block": True,
+          "equal_to_torch_backend": True, **t_g,
+          "bytes_moved": bound_g, "bytes_bound_ms": ms_of_bytes(bound_g),
+          "breakdown_ms": loop_g, "flat_ms": flat_ms["allgather"], "card": card})
+    del vals
+    torch.cuda.empty_cache()
+    return counts
 
 
 def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
@@ -1336,18 +1638,9 @@ def main() -> None:
     ag_plain_ms, ag_plain_times = median_ms(torch, lambda: plain_ag.run(vals_ag), 3)
     rows_ag, row_ag = P * P, bs_ag * 4
     recv_rows, send_rows = plan_ag.device_slots
-    ag_coincide = sum(int((recv_rows[t] == send_rows[t + 1]).sum())
-                      for t in range(R_ag - 1))
     idx = rows_ag * 4                                   # one int32 slot vector
-    ag_bytes = {
-        "zero_fill": rows_ag * (n_ag + 1) * row_ag,
-        "own_blocks": 2 * P * n_ag * row_ag,
-        "pack": 2 * rows_ag * row_ag + idx,
-        "roll": R_ag * 2 * rows_ag * row_ag,
-        "shuffle": (4 * (R_ag - 1) * rows_ag - ag_coincide) * row_ag
-        + (R_ag - 1) * 2 * idx,
-        "unpack": 2 * rows_ag * row_ag + idx,
-    }
+    ag_bytes, ag_coincide = allgather_bytes(P, n_ag, R_ag, row_ag, recv_rows,
+                                            send_rows)
     ag_bound = sum(ag_bytes.values())
     ag_ov_bound = ag_bound + (R_ag - 1) * (2 * rows_ag * row_ag + idx)
     # the four copy kernels alone at the allgather's 192-byte rows, over the
@@ -1577,9 +1870,14 @@ def main() -> None:
           "breakdown_ms": q_steps,
           "max_memory_allocated": q_peak, "card": card})
 
-    # 9-12. the model kernels, zamba2-2.7b's prefill and the serve loop
+    # 8. the two-level host plans at 36 x 32
     del qmsg, smsg, plan_q, plain_q
     torch.cuda.empty_cache()
+    hier = hier_phases(torch, np, card, kmods, g, {
+        "broadcast": bcast_ms, "reduce": red_ms, "allreduce": allred_ms,
+        "allgather": ag_ms})
+
+    # 9-12. the model kernels, zamba2-2.7b's prefill and the serve loop
     model_phases(torch, np, card, kmods, g, launches, kern)
 
     # 13. the kernels line, each kernel with the launch count of its path
@@ -1592,7 +1890,9 @@ def main() -> None:
          "max_abs_err": rec["max_abs_err"],
          "ms": rec["ms"], "plain_ms": rec["plain_ms"],
          "bound_ms": rec["bound_ms"], "bound_by": rec.get("bound_by", "bytes"),
-         "library_ms": rec["library_ms"]}
+         "library_ms": rec["library_ms"],
+         **({"hier_launches": {ph: c[name] for ph, c in hier.items() if name in c}}
+            if any(name in c for c in hier.values()) else {})}
         for name, rec in kern.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ against; ``repro_torch`` imports nothing of it and nothing of JAX.
 It ports the paper's own path: the O(log p) schedules, the cached
 schedule engine, the correctness conditions, the cost model and the
 single-device data planes of the broadcast, its time-reversed dual (the
-reduction, and allreduce as reduce then broadcast), the allgather and
-the int8 quantized allreduce of gradient compression, whose round steps
+reduction, and allreduce as reduce then broadcast), the allgather, the
+int8 quantized allreduce of gradient compression and the two-level
+hierarchical collectives of the paper's 36 x 32 cluster, whose round steps
 run in hand-written CUDA kernels on an H100 (:mod:`repro_torch.kernels`),
 and the collective-free half of gradient compression with error
 feedback (:mod:`repro_torch.optim.compression`).  It also serves the
@@ -26,6 +27,7 @@ from .core import (
     SimResult,
     get_bundle,
     get_round_step,
+    hier_host_plan,
     host_plan,
     optimal_num_blocks_allgather,
     optimal_num_blocks_allreduce,
@@ -35,6 +37,9 @@ from .core import (
     simulate_allgather,
     simulate_allreduce,
     simulate_broadcast,
+    simulate_hier_allreduce,
+    simulate_hier_broadcast,
+    simulate_hier_reduce,
     simulate_reduce,
     verify_bundle,
 )
@@ -59,6 +64,7 @@ __all__ = [
     "bucketize",
     "get_bundle",
     "get_round_step",
+    "hier_host_plan",
     "host_plan",
     "init_error_state",
     "init_grad_sync_state",
@@ -71,6 +77,9 @@ __all__ = [
     "simulate_allgather",
     "simulate_allreduce",
     "simulate_broadcast",
+    "simulate_hier_allreduce",
+    "simulate_hier_broadcast",
+    "simulate_hier_reduce",
     "simulate_reduce",
     "unbucketize",
     "verify_bundle",

@@ -1,8 +1,9 @@
 """Core of the port: schedules (Träff 2023) in O(log p), the cached
 schedule engine, verification, the cost model, the round-step data
 plane and the single-device host plans of the exact collectives
-(broadcast, allgather, reduce; sequential and overlapped) and of the
-int8 quantized allreduce."""
+(broadcast, allgather, reduce; sequential and overlapped), of the
+int8 quantized allreduce and of the two-level hierarchical collectives
+over a nodes x cores grid."""
 
 from .comm import HostDataPlan, host_plan, resolve_device
 from .costmodel import (
@@ -12,8 +13,11 @@ from .costmodel import (
     optimal_num_blocks_allreduce,
     optimal_num_blocks_bcast,
     optimal_num_blocks_reduce,
+    hier_cost,
+    optimal_hier_blocks,
 )
 from .engine import ScheduleBundle, cached_plan, get_bundle, plan_cache_limit
+from .hier import HIER_KINDS, HierHostPlan, hier_host_plan, hier_rounds
 from .roundstep import (
     PhaseStatic,
     RoundStep,
@@ -38,11 +42,15 @@ from .schedule import (
     virtual_rounds,
 )
 from .simulator import (
+    HierSimResult,
     SimResult,
     simulate_allbroadcast,
     simulate_allgather,
     simulate_allreduce,
     simulate_broadcast,
+    simulate_hier_allreduce,
+    simulate_hier_broadcast,
+    simulate_hier_reduce,
     simulate_reduce,
 )
 from .verify import verify_bundle, verify_reversed_schedules, verify_schedules
@@ -57,10 +65,16 @@ __all__ = [
     "optimal_num_blocks_allreduce",
     "optimal_num_blocks_bcast",
     "optimal_num_blocks_reduce",
+    "hier_cost",
+    "optimal_hier_blocks",
     "ScheduleBundle",
     "cached_plan",
     "get_bundle",
     "plan_cache_limit",
+    "HIER_KINDS",
+    "HierHostPlan",
+    "hier_host_plan",
+    "hier_rounds",
     "PhaseStatic",
     "RoundStep",
     "allgather_phase_static",
@@ -80,11 +94,15 @@ __all__ = [
     "schedule_tables",
     "send_schedule",
     "virtual_rounds",
+    "HierSimResult",
     "SimResult",
     "simulate_allbroadcast",
     "simulate_allgather",
     "simulate_allreduce",
     "simulate_broadcast",
+    "simulate_hier_allreduce",
+    "simulate_hier_broadcast",
+    "simulate_hier_reduce",
     "simulate_reduce",
     "verify_bundle",
     "verify_reversed_schedules",

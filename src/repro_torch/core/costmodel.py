@@ -230,7 +230,7 @@ def optimal_num_blocks_allreduce(p: int, m: float, model: CommModel) -> int:
 # The paper's 36x32 evaluation cluster has an order-of-magnitude gap
 # between intra-node and inter-node link costs; a flat circulant
 # schedule over p = nodes*cores prices every hop with one (alpha, beta).
-# The hierarchical composition (a later slice of the port) runs one circulant
+# The hierarchical composition (repro_torch.core.hier) runs one circulant
 # collective per level, each under its own CommModel, so the two-level
 # cost is simply the sum of the per-level single-collective costs --
 # and because the levels pipeline nothing into each other, the block

@@ -2,7 +2,9 @@
 
 Port of ``repro.core.simulator`` (``SimResult``, ``simulate_broadcast``,
 ``simulate_allgather``, ``simulate_allbroadcast``, ``simulate_reduce``,
-``simulate_allreduce``).  Executes the paper's broadcast and all-to-all
+``simulate_allreduce``, and the two-level ``HierSimResult``,
+``simulate_hier_broadcast``, ``simulate_hier_reduce`` and
+``simulate_hier_allreduce``).  Executes the paper's broadcast and all-to-all
 broadcast algorithms -- and, via the time-reversed schedules, the
 derived reduction and all-reduction -- over a simulated
 fully-connected, one-ported, bidirectional network in plain Python and
@@ -34,7 +36,11 @@ __all__ = [
     "simulate_allbroadcast",
     "simulate_reduce",
     "simulate_allreduce",
+    "simulate_hier_broadcast",
+    "simulate_hier_reduce",
+    "simulate_hier_allreduce",
     "SimResult",
+    "HierSimResult",
 ]
 
 # Reduction operators: name -> (binary combine on numpy values).  Both are
@@ -458,4 +464,313 @@ def simulate_allreduce(
     res.blocks_moved += bcast.blocks_moved
     assert res.rounds == res.optimal_rounds
     res.buffers = bcast.buffers
+    return res
+
+
+# ---------------------------------------------- hierarchical composition
+#
+# Two-level (nodes x cores) collectives: one flat circulant phase per
+# level (repro_torch.core.hier).  The inter phase runs among the node
+# leaders and the intra phases run inside every node *in parallel*, so
+# the composed round count is the SUM of the per-level optima while the
+# per-node simulations each re-certify their own level (payload
+# delivery / exactly-once contribution certificates come from the flat
+# simulators, which raise on any violation).  ``backend`` additionally
+# executes the composed hierarchical data plane
+# (:func:`repro_torch.core.hier.hier_host_plan`) on ``device`` and
+# asserts it bit-exact against the NumPy reference -- the certification
+# of the 36x32 evaluation topology.
+
+
+@dataclass
+class HierSimResult:
+    rounds: int                      # composed communication rounds
+    optimal_rounds: int              # the closed-form two-level optimum
+    rounds_inter: int                # inter-node (leader) rounds
+    rounds_intra: int                # intra-node rounds
+    messages: int = 0                # point-to-point messages, all nodes
+    blocks_moved: int = 0
+    buffers: Optional[list] = None
+    backend: Optional[str] = None
+
+
+def _hier_atoms(nodes: int, cores: int, n_inter: int, n_intra: int,
+                payloads: Optional[List]) -> List:
+    """The message as a flat list of atoms divisible into both block
+    counts (default m = n_inter * n_intra distinct ints)."""
+    if payloads is None:
+        return list(range(n_inter * n_intra))
+    m = len(payloads)
+    assert m % n_inter == 0 and m % n_intra == 0, (
+        f"hier payload length {m} must divide into both n_inter={n_inter} "
+        f"and n_intra={n_intra} blocks"
+    )
+    return list(payloads)
+
+
+def _chunk(atoms: List, n: int) -> List[Tuple]:
+    """Group atoms into n equal tuple-blocks (tuples compare by value in
+    the flat simulators' payload checks)."""
+    sz = len(atoms) // n
+    return [tuple(atoms[i * sz: (i + 1) * sz]) for i in range(n)]
+
+
+def _hier_default_values(nodes: int, cores: int, m: int) -> np.ndarray:
+    """Seeded default contributions for the hier reductions: distinct
+    int64 values, so '+' is bit-exact and duplicate/missing
+    contributions shift the result.  One definition shared by
+    simulate_hier_reduce and simulate_hier_allreduce (the latter's
+    backend certification must regenerate the identical array)."""
+    return (np.arange(nodes * cores * m, dtype=np.int64)
+            .reshape(nodes, cores, m) ** 2 + 7) % 2027
+
+
+def _first_rank_off(got: torch.Tensor, want: np.ndarray):
+    """The first (node, core) of ``got`` [nodes, cores, m] whose row is
+    not ``want`` [m] (compared as ``np.array_equal`` does), or None; one
+    comparison for all ranks."""
+    expect = torch.from_numpy(np.ascontiguousarray(want)).to(got.device)
+    off = (got != expect).flatten(2).any(2)
+    if not bool(off.any()):
+        return None
+    return tuple(int(i) for i in off.nonzero()[0])
+
+
+def simulate_hier_broadcast(
+    nodes: int,
+    cores: int,
+    n_inter: int,
+    n_intra: int,
+    root: int = 0,
+    keep_buffers: bool = False,
+    payloads: Optional[List] = None,
+    backend: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
+) -> HierSimResult:
+    """Two-level broadcast: inter-node among leaders, then intra-node.
+
+    The root's flat node-major rank is ``root = node * cores + core``.
+    The message is a list of atoms (default ``n_inter * n_intra``
+    distinct values) re-blocked between the levels exactly as the data
+    plane re-blocks its buffers; each flat phase re-certifies its own
+    delivery, and the composed round count must equal the closed form
+    :func:`repro_torch.core.hier.hier_rounds`.  ``backend`` ("torch" /
+    "cuda") additionally runs the composed host data plane on
+    ``device`` (``None`` means ``"cuda"``) and asserts every rank's
+    final state bit-exact against the atoms.
+    """
+    from .hier import hier_host_plan, hier_rounds
+
+    rootN, rootC = divmod(root, cores)
+    atoms = _hier_atoms(nodes, cores, n_inter, n_intra, payloads)
+    res = HierSimResult(
+        rounds=0,
+        optimal_rounds=hier_rounds("broadcast", nodes, cores, n_inter,
+                                   n_intra),
+        rounds_inter=0, rounds_intra=0, backend=backend,
+    )
+    # Phase A: the leaders (core rootC of every node) run the flat
+    # inter-node broadcast of the n_inter-blocked message.
+    if nodes > 1:
+        a = simulate_broadcast(nodes, n_inter, root=rootN,
+                               payloads=_chunk(atoms, n_inter))
+        res.rounds_inter = a.rounds
+        res.messages += a.messages
+        res.blocks_moved += a.blocks_moved
+    # Phase B: every node runs the same intra-node broadcast in
+    # parallel (identical payloads after phase A -> simulate once,
+    # count messages nodes times, rounds once).
+    if cores > 1:
+        b = simulate_broadcast(cores, n_intra, root=rootC,
+                               payloads=_chunk(atoms, n_intra))
+        res.rounds_intra = b.rounds
+        res.messages += nodes * b.messages
+        res.blocks_moved += nodes * b.blocks_moved
+    res.rounds = res.rounds_inter + res.rounds_intra
+    assert res.rounds == res.optimal_rounds
+    assert res.rounds_inter == num_rounds(nodes, n_inter)
+    assert res.rounds_intra == num_rounds(cores, n_intra)
+    if backend is not None:
+        vals = np.asarray(atoms)
+        got = hier_host_plan("broadcast", nodes, cores, n_inter, n_intra,
+                             root=root, backend=backend,
+                             device=device).run(vals)
+        off = _first_rank_off(got, vals)
+        assert off is None, (
+            f"{nodes}x{cores} n=({n_inter},{n_intra}) root={root}: "
+            f"{backend} hier data plane diverged at rank {off}"
+        )
+    if keep_buffers:
+        res.buffers = [[list(atoms) for _ in range(cores)]
+                       for _ in range(nodes)]
+    return res
+
+
+def simulate_hier_reduce(
+    nodes: int,
+    cores: int,
+    n_inter: int,
+    n_intra: int,
+    root: int = 0,
+    op: str = "+",
+    values: Optional[np.ndarray] = None,
+    keep_buffers: bool = True,
+    backend: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
+) -> HierSimResult:
+    """Two-level reduction: intra-reduce to each leader, inter-reduce to
+    the root.
+
+    ``values`` has shape ``[nodes, cores, m]`` with ``m`` divisible by
+    both block counts (a seeded int array when omitted, so '+' is
+    bit-exact).  Every per-node intra simulation and the inter
+    simulation carry the flat simulators' exactly-once contribution
+    certificates, composing to exactly-once over all nodes*cores
+    origins; the final value at the root is asserted bit-exact against
+    the NumPy op-reduction over the flat rank axis.  ``backend``
+    additionally certifies the composed host data plane on ``device``
+    against the same reference.
+    """
+    from .hier import hier_host_plan, hier_rounds
+
+    _OPS[op]  # validate the op name before any sub-simulation runs
+    if values is None:
+        values = _hier_default_values(nodes, cores, n_inter * n_intra)
+    values = np.asarray(values)
+    assert values.shape[:2] == (nodes, cores)
+    m = values.shape[-1] if values.ndim > 2 else 1
+    values = values.reshape(nodes, cores, m)
+    assert m % n_inter == 0 and m % n_intra == 0, (
+        f"hier values length {m} must divide into both n_inter={n_inter} "
+        f"and n_intra={n_intra} blocks"
+    )
+    rootN, rootC = divmod(root, cores)
+    res = HierSimResult(
+        rounds=0,
+        optimal_rounds=hier_rounds("reduce", nodes, cores, n_inter, n_intra),
+        rounds_inter=0, rounds_intra=0, backend=backend,
+    )
+    # Phase A: every node reduces its cores' contributions to the
+    # leader (parallel across nodes: rounds counted once).
+    partials = np.empty((nodes, m), values.dtype)
+    if cores > 1:
+        for j in range(nodes):
+            a = simulate_reduce(
+                cores, n_intra, root=rootC, op=op,
+                values=values[j].reshape(cores, n_intra, m // n_intra),
+            )
+            res.rounds_intra = a.rounds
+            res.messages += a.messages
+            res.blocks_moved += a.blocks_moved
+            partials[j] = np.stack(a.buffers[rootC]).reshape(-1)
+    else:
+        partials[:] = values[:, 0]
+    # Phase B: the leaders reduce the node partials to the root.
+    if nodes > 1:
+        b = simulate_reduce(
+            nodes, n_inter, root=rootN, op=op,
+            values=partials.reshape(nodes, n_inter, m // n_inter),
+        )
+        res.rounds_inter = b.rounds
+        res.messages += b.messages
+        res.blocks_moved += b.blocks_moved
+        final = np.stack(b.buffers[rootN]).reshape(-1)
+    else:
+        final = partials[0]
+    res.rounds = res.rounds_inter + res.rounds_intra
+    assert res.rounds == res.optimal_rounds
+    # The flat certificates compose: each intra run delivered every core
+    # of its node exactly once into the leader partial, the inter run
+    # delivered every node partial exactly once into the root.  For the
+    # order-free ops (any int '+', any 'max') the end-to-end reference
+    # is exact.
+    flat = values.reshape(nodes * cores, m)
+    expect = np.maximum.reduce(flat) if op == "max" else np.add.reduce(flat)
+    if op == "max" or np.issubdtype(values.dtype, np.integer):
+        assert np.array_equal(final, expect), (
+            f"{nodes}x{cores}: hier reduction diverged from the NumPy "
+            f"reference"
+        )
+    else:
+        np.testing.assert_allclose(final, expect, rtol=1e-6)
+    if backend is not None:
+        got = hier_host_plan("reduce", nodes, cores, n_inter, n_intra,
+                             root=root, op=op, backend=backend,
+                             device=device).run(values)
+        assert np.array_equal(got.cpu().numpy(), final), (
+            f"{nodes}x{cores} n=({n_inter},{n_intra}) root={root} op={op}: "
+            f"{backend} hier data plane diverged from the reference"
+        )
+    res.buffers = [final] if keep_buffers else None
+    return res
+
+
+def simulate_hier_allreduce(
+    nodes: int,
+    cores: int,
+    n_inter: int,
+    n_intra: int,
+    root: int = 0,
+    op: str = "+",
+    values: Optional[np.ndarray] = None,
+    keep_buffers: bool = True,
+    backend: Optional[str] = None,
+    device: Union[str, torch.device, None] = None,
+) -> HierSimResult:
+    """Two-level all-reduction: intra-reduce -> inter-allreduce among
+    the leaders -> intra-broadcast fan-out, ``2(n_C-1+q_C) +
+    2(n_N-1+q_N)`` composed rounds.  The return path re-runs the
+    payload-checked broadcast simulations carrying the reduced blocks,
+    so every rank provably ends with the composed op-reduction;
+    ``backend`` certifies the composed data plane of all four sweeps on
+    ``device``.
+    """
+    from .hier import hier_host_plan, hier_rounds
+
+    red = simulate_hier_reduce(
+        nodes, cores, n_inter, n_intra, root=root, op=op, values=values,
+        keep_buffers=True, backend=None,
+    )
+    res = HierSimResult(
+        rounds=red.rounds,
+        optimal_rounds=hier_rounds("allreduce", nodes, cores, n_inter,
+                                   n_intra),
+        rounds_inter=red.rounds_inter,
+        rounds_intra=red.rounds_intra,
+        messages=red.messages,
+        blocks_moved=red.blocks_moved,
+        backend=backend,
+    )
+    reduced = list(red.buffers[0])
+    rootN, rootC = divmod(root, cores)
+    # Return path: inter broadcast among leaders, intra fan-out -- both
+    # carry the reduced payload through the content-checked simulator.
+    if nodes > 1:
+        b1 = simulate_broadcast(nodes, n_inter, root=rootN,
+                                payloads=_chunk(reduced, n_inter))
+        res.rounds_inter += b1.rounds
+        res.messages += b1.messages
+        res.blocks_moved += b1.blocks_moved
+    if cores > 1:
+        b2 = simulate_broadcast(cores, n_intra, root=rootC,
+                                payloads=_chunk(reduced, n_intra))
+        res.rounds_intra += b2.rounds
+        res.messages += nodes * b2.messages
+        res.blocks_moved += nodes * b2.blocks_moved
+    res.rounds = res.rounds_inter + res.rounds_intra
+    assert res.rounds == res.optimal_rounds
+    if backend is not None:
+        vals = values
+        if vals is None:
+            vals = _hier_default_values(nodes, cores, n_inter * n_intra)
+        vals = np.asarray(vals).reshape(nodes, cores, -1)
+        got = hier_host_plan("allreduce", nodes, cores, n_inter, n_intra,
+                             root=root, op=op, backend=backend,
+                             device=device).run(vals)
+        off = _first_rank_off(got, np.asarray(reduced).reshape(-1))
+        assert off is None, (
+            f"{nodes}x{cores} n=({n_inter},{n_intra}) op={op}: "
+            f"{backend} hier data plane diverged at rank {off}"
+        )
+    res.buffers = [reduced] if keep_buffers else None
     return res

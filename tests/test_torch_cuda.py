@@ -35,10 +35,14 @@ from repro_torch.configs import get_config
 from repro_torch.models import init_params, layer_pattern, prefill
 from repro_torch.serve.engine import Request, ServeLoop
 from repro_torch.core import (
+    hier_host_plan,
     host_plan,
     simulate_allgather,
     simulate_allreduce,
     simulate_broadcast,
+    simulate_hier_allreduce,
+    simulate_hier_broadcast,
+    simulate_hier_reduce,
     simulate_reduce,
 )
 from repro_torch.kernels import block_pack as bp
@@ -302,6 +306,63 @@ def test_simulators_certify_cuda(gen, p):
     assert simulate_reduce(p, 7, p - 1, op="max", backend="cuda").backend == "cuda"
     assert simulate_allreduce(p, 4, p // 2, backend="cuda").backend == "cuda"
     assert simulate_allgather(p, 4, backend="cuda").backend == "cuda"
+
+
+def _hier_launches(plan):
+    """The kernel launches of one run of a hier host plan: a forward level
+    of R rounds packs once, shuffles R - 1 times and unpacks once, a
+    reduce level acc_shuffles R + 1 times; the intra level of the reduce
+    and the allgather runs once a node, that of the broadcast once."""
+    want = dict.fromkeys(("block_pack", "block_shuffle", "block_unpack",
+                          "block_acc_shuffle"), 0)
+    levels = []
+    for level, times in ((plan.inter, 1), (plan.intra, plan.nodes)):
+        for flat in (level if isinstance(level, tuple) else (level,)):
+            if flat is not None:
+                levels.append((flat, 1 if flat.kind == "broadcast" else times))
+    for flat, times in levels:
+        R = len(flat.ks)
+        if flat.kind == "reduce":
+            want["block_acc_shuffle"] += times * (R + 1)
+        else:
+            want["block_pack"] += times
+            want["block_shuffle"] += times * (R - 1)
+            want["block_unpack"] += times
+    return {k: v for k, v in want.items() if v}
+
+
+#: (nodes, cores, n_inter, n_intra, m, op): the last case pads m = 301
+#: into 7 and 9 blocks.
+HIER_CASES = [(2, 3, 2, 3, 12, "sum"), (5, 4, 3, 2, 300, "max"),
+              (36, 32, 5, 4, 400, "sum"), (5, 4, 7, 9, 301, "sum")]
+
+
+@pytest.mark.parametrize("nodes,cores,nN,nC,m,op", HIER_CASES)
+@pytest.mark.parametrize("kind", ["broadcast", "reduce", "allreduce", "allgather"])
+def test_hier_cuda_matches_torch(gen, kind, nodes, cores, nN, nC, m, op):
+    root = nodes * cores - 1 if kind != "allgather" else 0
+    shape = (m,) if kind == "broadcast" else (nodes, cores, m)
+    vals = torch.randn(shape, generator=gen, device="cuda")
+    plan = hier_host_plan(kind, nodes, cores, nN, nC, root=root, op=op)
+    before = dict(bp.LAUNCHES)
+    got = plan.run(vals)
+    assert _launched(before) == _hier_launches(plan)
+    want = hier_host_plan(kind, nodes, cores, nN, nC, root=root, op=op,
+                          backend="torch").run(vals)
+    assert got.is_cuda and _same_bits(got, want)
+    if kind == "broadcast":
+        assert torch.equal(got, vals.expand(nodes, cores, m))
+    elif kind == "allgather":
+        assert torch.equal(got, vals.view(nodes * cores, m))
+
+
+def test_simulate_hier_certifies_cuda(gen):
+    # the reference test's 36 x 32 arguments (tests/test_hier.py)
+    assert simulate_hier_broadcast(36, 32, 3, 2, root=35 * 32 + 7,
+                                   backend="cuda").backend == "cuda"
+    assert simulate_hier_reduce(36, 32, 2, 2, root=100, op="max",
+                                backend="cuda").backend == "cuda"
+    assert simulate_hier_allreduce(36, 32, 2, 1, backend="cuda").backend == "cuda"
 
 
 def _same_or_nan(a, b):
