@@ -48,7 +48,21 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     must equal "torch" bit for bit, each path must launch its kernels
     as often as its levels' rounds say, and the port's
     ``simulate_hier_*(backend="cuda")`` must certify the plans at 36 x 32.
-    Each line gives the flat path's time of this run beside its own.
+    Each line gives the flat path's time of this run beside its own;
+  * the plan/execute communicator, ``get_comm(StackedGroup(1152))`` with
+    pytree payloads: comm_broadcast of {"w": 12 MiB f32, "b": 4 MiB int32}
+    a rank from root 100 (n = 58, 68 rounds), with ``broadcast_state`` of
+    one Qwen2-0.5B layer's bf16 q/k/v weights, their f32 biases and an
+    int32 step counter (three messages a round); comm_reduce of the same
+    pytree (an f32 sum of normal values and a wrapping int32 sum, then
+    max) and comm_allreduce (2 x 68 rounds); comm_allgather of 8 KiB f32
+    a rank (n = 43, 53 rounds); comm_reduce_scatter of [1152, 1152 x 2048]
+    f32 integer values; comm_allgatherv of int32 rows of capacity 2048
+    with seeded sizes in [64, 2048].  Each is held exactly against the
+    expected values, per leaf bit for bit against the port's host_plan
+    where one exists, "cuda" against "torch" (at 1 MiB a rank for the
+    16 MiB payloads), overlapped against sequential, and by its launches,
+    and prints its time beside the flat host plan's.
 
 Then the serving path of zamba2-2.7b at its full published configuration
 (54 Mamba2 layers and one shared attention block applied after every 6,
@@ -1057,6 +1071,533 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
     return counts
 
 
+def comm_launches(plan, buffers: int) -> dict:
+    """The launches one call of a communicator plan makes: each of its
+    ``buffers`` round-step buffers (one a leaf; allgatherv: one a leaf and
+    block size) takes each phase's rounds -- a forward phase of R rounds
+    packs once, shuffles R - 1 times and unpacks once (overlapped: a pack
+    every round and the staged shuffle), a reversed phase acc_shuffles
+    R + 1 times (overlapped: once, then a pack and a staged acc_shuffle a
+    round)."""
+    out = {}
+    for phase in plan.statics:
+        R = len(phase.ks)
+        if phase.direction == "fwd":
+            steps = {"block_pack": R if plan.overlap else 1,
+                     ("block_shuffle_staged" if plan.overlap
+                      else "block_shuffle"): R - 1,
+                     "block_unpack": 1}
+        elif plan.overlap:
+            steps = {"block_acc_shuffle": 1, "block_pack": R,
+                     "block_acc_shuffle_staged": R}
+        else:
+            steps = {"block_acc_shuffle": R + 1}
+        for k, c in steps.items():
+            if c:
+                out[k] = out.get(k, 0) + c * buffers
+    return out
+
+
+def coincident(a, b) -> int:
+    """Rows where two [rows] slot vectors on the card agree."""
+    return int((a == b).sum())
+
+
+def scatter_bytes(P_, n, R, row, fwd_rows, acc_rows, in_bytes, out_bytes) -> dict:
+    """Bytes the reduce_scatter must move over its P_ * P_ rank-major rows,
+    from its own row tables ([R+1, rows] fwd with the garbage row last,
+    [R, rows] acc, int32 on the card): the contributions read and laid
+    into blocks, the garbage slot and zero message, the rolls, the
+    acc_shuffles (a row whose acc slot is its fwd slot moves four rows,
+    not six) with their slot vectors, and the own rows out."""
+    rows = P_ * P_
+    idx = rows * 4
+    coincide = coincident(fwd_rows[0], n) + sum(
+        coincident(acc_rows[t], fwd_rows[t + 1]) for t in range(R))
+    return {
+        "initial_copy": in_bytes + rows * n * row,
+        "fills": rows * row,
+        "zero_message": rows * row,
+        "roll": R * 2 * rows * row,
+        "acc_shuffle": (6 * (R + 1) * rows - 2 * coincide) * row
+                       + (R + 1) * 2 * idx,
+        "own_rows": 2 * out_bytes,
+    }, coincide
+
+
+def gatherv_bytes(P_, n, R, groups, cap, itemsize) -> dict:
+    """Bytes the allgatherv must move: for each group of roots of one
+    block size (``(bs, roots, recv_rows, send_rows)``, the row tables on
+    the card) the allgather's steps over its P_ * len(roots) rows, and
+    the own blocks in and rank 0's rows out (each input element read
+    once, the [P_, cap] result zeroed and written)."""
+    out = dict.fromkeys(("zero_fill", "pack", "roll", "shuffle", "unpack"), 0)
+    data = 0
+    for bs, roots, recv_rows, send_rows in groups:
+        rows, row, idx = P_ * len(roots), bs * itemsize, P_ * len(roots) * 4
+        same = sum(coincident(recv_rows[t], send_rows[t + 1]) for t in range(R - 1))
+        out["zero_fill"] += rows * (n + 1) * row
+        out["pack"] += 2 * rows * row + idx
+        out["roll"] += R * 2 * rows * row
+        out["shuffle"] += (4 * (R - 1) * rows - same) * row + (R - 1) * 2 * idx
+        out["unpack"] += 2 * rows * row + idx
+        data += len(roots) * n * row
+    out["own_blocks"] = P_ * cap * itemsize + data
+    out["result"] = 2 * P_ * cap * itemsize + data
+    return out
+
+
+def acc_kernel_at(torch, bp, ref, g, fwd_rows, acc_rows, nslots, bs) -> dict:
+    """block_acc_shuffle (op sum) alone on a [rows, nslots, bs] float32
+    buffer over a plan's own row tables (fwd [R+1, rows] with the garbage
+    row last, acc [R, rows]): held bit for bit against its plain version
+    at the round with the most coincident rows, then timed over every
+    round (kernel and plain time a launch).  Bound: six rows a row, four
+    where acc == fwd, plus the two int32 slot vectors, averaged over the
+    rounds.  Returns the kernel's record."""
+    R, rows = len(acc_rows), acc_rows.shape[1]
+    row, idx = bs * 4, rows * 4
+    work = torch.randn((rows, nslots, bs), generator=g, device="cuda")
+    msg = torch.randn((rows, bs), generator=g, device="cuda")
+    same = [coincident(acc_rows[t], fwd_rows[t + 1]) for t in range(R)]
+    t = max(range(R), key=same.__getitem__)
+    chunk = max(1, (512 << 20) // (nslots * row))
+    snap = work.clone()
+    _, k = bp.block_acc_shuffle(work, msg, acc_rows[t], fwd_rows[t + 1])
+    _, r = ref.block_acc_shuffle_ref(snap, msg, acc_rows[t], fwd_rows[t + 1])
+    check(same_bits(torch, work, snap, rows=chunk) and same_bits(torch, k, r, rows=chunk),
+          f"block_acc_shuffle != plain at the reduce_scatter's rows, round {t}")
+    rec = {"max_abs_err": max(max_abs_err(torch, work, snap, rows=chunk),
+                              max_abs_err(torch, k, r, rows=chunk)),
+           "round_checked": t, "its_coincident_rows": same[t]}
+    del snap, k, r
+    torch.cuda.synchronize()
+
+    def per_launch(fn):
+        return cuda_ms(torch, lambda: [fn(i) for i in range(R)], 1) / R
+
+    rec.update(
+        ms=per_launch(lambda i: bp.block_acc_shuffle(work, msg, acc_rows[i],
+                                                     fwd_rows[i + 1])),
+        plain_ms=per_launch(lambda i: ref.block_acc_shuffle_ref(
+            work, msg, acc_rows[i], fwd_rows[i + 1])),
+        library_ms=None, timed_launches=R,
+        bound_ms=ms_of_bytes(sum((6 * rows - 2 * c) * row + 2 * idx
+                                 for c in same) / R))
+    return rec
+
+
+def comm_phases(torch, np, card, kmods, g, flat):
+    """The plan/execute communicator over a StackedGroup of the 1152 ranks
+    on the card, through ``get_comm(group).plan(kind, payload)(payload)``:
+    broadcast (with ``broadcast_state`` of a mixed-dtype state), reduce
+    (f32 sum, int32 sum, max), allreduce, allgather, reduce_scatter and
+    allgatherv.  Each result is held exactly against the expected values,
+    per leaf bit for bit against the port's host_plan of the same kind and
+    n where one exists, "cuda" against "torch" (at 1 MiB a rank for the
+    16 MiB payloads, at full size for the rest), overlapped against
+    sequential, and by its launch counts.  ``flat``: the flat host plans'
+    times of this run at the same bytes.  Returns ({phase: launches}, the
+    record of block_acc_shuffle alone at the reduce_scatter's rows)."""
+    from repro_torch.core import StackedGroup, get_bundle, get_comm, host_plan
+    from repro_torch.core.comm import _rotated_rows, _with_garbage
+    from repro_torch.core.roundstep import broadcast_slot_plan, scatter_slot_plan
+    from repro_torch.core.tree import tree_flatten
+    from repro_torch.kernels import block_pack as bp
+    from repro_torch.kernels import ref
+    from repro_torch.train.restore_broadcast import DCN_MODEL, broadcast_state
+
+    group = StackedGroup(P)
+    comm, plain = get_comm(group), get_comm(group, backend="torch")
+    counts = {}
+    f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
+
+    def meta(shapes):
+        return {k: torch.empty(sh, dtype=dt, device="meta")
+                for k, (sh, dt) in shapes.items()}
+
+    def build(kind, spec, **kw):
+        t0 = time.perf_counter()
+        plan = comm.plan(kind, spec, **kw)
+        return plan, time.perf_counter() - t0
+
+    def blocked(n, E, dtype, normal):
+        """A [P, E] leaf: the first E columns of a [P, n * ceil(E / n)]
+        tensor with a zero tail, so the host plan takes it as [P, n, bs]
+        blocks without a copy.  Standard normal, or int32 over the whole
+        range (sums wrap)."""
+        full = torch.zeros((P, n * -(-E // n)), dtype=dtype, device="cuda")
+        x = full[:, :E]
+        if normal:
+            x.normal_(generator=g)
+        else:
+            x.random_(-2 ** 31, 2 ** 31, generator=g)
+        return full, x
+
+    def every_row(t, row, rows=64):
+        return all(torch.equal(t[i:i + rows], row.expand(min(rows, t.shape[0] - i), -1))
+                   for i in range(0, t.shape[0], rows))
+
+    def same_tree(a, b, rows=64):
+        return all(same_bits(torch, u, v, rows=rows)
+                   for u, v in zip(tree_flatten(a)[0], tree_flatten(b)[0]))
+
+    def timed(plan, x):
+        """CUDA-event times (warm, median of 5), the host time of the call
+        (median of 5; it returns before the card has finished) and the
+        peak memory since the phase began."""
+        ms, runs = median_ms(torch, lambda: plan(x), 5)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan(x)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return {"ms": ms, "ms_runs": runs, "host_call_ms": sorted(host)[2],
+                "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def small_vs_plain(kind, shapes, **kw):
+        """"cuda" against "torch" at 1 MiB a rank (the same pytree, same
+        p), bit for bit, and the launches of the "cuda" call."""
+        n = comm.plan(kind, meta(shapes), **kw).n_blocks
+        x = {k: blocked(n, sh[1], dt, dt != i32)[1] for k, (sh, dt) in shapes.items()}
+        plan = comm.plan(kind, x, **kw)
+        out, got = counted_run(torch, kmods, lambda: plan(x))
+        check(got == comm_launches(plan, len(x)),
+              f"comm {kind} at 1 MiB: launches {got}")
+        check(same_tree(out, plain.plan(kind, x, **kw)(x)),
+              f"comm {kind} at 1 MiB a rank: cuda backend != torch backend")
+        return {"n": n, "launches": got}
+
+    W, B = PAYLOAD_BYTES * 3 // 16, PAYLOAD_BYTES // 16   # 12 MiB f32, 4 MiB int32
+    big = {"w": ((P, W), f32), "b": ((P, B), i32)}
+    small = {"w": ((P, W // 16), f32), "b": ((P, B // 16), i32)}
+
+    # comm_broadcast: {"w": 12 MiB f32, "b": 4 MiB int32} a rank
+    fresh()
+    plan, build_s = build("broadcast", meta(big), root=BCAST_ROOT)
+    n, R = plan.n_blocks, plan.rounds
+    (wfull, w), (bfull, b) = blocked(n, W, f32, True), blocked(n, B, i32, False)
+    x = {"w": w, "b": b}
+    out, got = counted_run(torch, kmods, lambda: plan(x))
+    check(got == comm_launches(plan, 2), f"comm broadcast launches {got}")
+    counts["comm_broadcast"] = got
+    check(all(every_row(out[k], x[k][BCAST_ROOT]) for k in x),
+          "comm broadcast: a rank does not hold the root's slices")
+    hp = host_plan("broadcast", P, n, root=BCAST_ROOT)
+    for k, full in (("w", wfull), ("b", bfull)):
+        ref_out = hp.run(full[BCAST_ROOT].view(n, -1)).reshape(P, -1)[:, :x[k].shape[1]]
+        check(same_bits(torch, out[k], ref_out),
+              f"comm broadcast leaf {k} != host_plan broadcast")
+        del ref_out
+    plan_ov = comm.plan("broadcast", x, root=BCAST_ROOT, overlap=True)
+    out_ov, got_ov = counted_run(torch, kmods, lambda: plan_ov(x))
+    check(got_ov == comm_launches(plan_ov, 2), f"comm broadcast overlap {got_ov}")
+    counts["comm_broadcast_overlap"] = got_ov
+    check(same_tree(out_ov, out), "comm overlapped broadcast != sequential")
+    del out, out_ov
+    small_b = small_vs_plain("broadcast", small, root=BCAST_ROOT)
+    fresh()
+    t = timed(plan, x)
+    t_ov = timed(plan_ov, x)["ms"]
+    recv_h, send_h = plan.statics[0].slots
+    by = {k: bcast_bytes(P, n, R, -(-v.shape[1] // n) * v.element_size(),
+                         recv_h, send_h, upload_rows=2)[0] for k, v in x.items()}
+    bound = sum(sum(v.values()) for v in by.values())
+    del x, w, b, wfull, bfull
+    torch.cuda.empty_cache()
+    # broadcast_state: one Qwen2-0.5B layer's q/k/v (bf16 weights, f32
+    # biases) and an int32 step counter; one message a dtype a round
+    state = {name: {"weight": torch.randn((P,) + sh["weight"], generator=g,
+                                          device="cuda").to(bf16),
+                    "bias": torch.randn((P,) + sh["bias"], generator=g, device="cuda")}
+             for name, sh in QKV_SHAPES.items()}
+    state["step"] = torch.randint(0, 10 ** 6, (P,), generator=g, device="cuda",
+                                  dtype=i32)
+    st, got_st = counted_run(torch, kmods,
+                             lambda: broadcast_state(group, state, root=BCAST_ROOT))
+    leaves = tree_flatten(state)[0]
+    check(all(every_row(o.reshape(P, -1), v[BCAST_ROOT].reshape(1, -1))
+              for o, v in zip(tree_flatten(st)[0], leaves)),
+          "broadcast_state: a rank does not hold the root's state")
+    check(same_tree(st, broadcast_state(group, state, root=BCAST_ROOT, backend="torch")),
+          "broadcast_state: cuda backend != torch backend")
+    packed = {}
+    for v in leaves:
+        packed[v.dtype] = packed.get(v.dtype, 0) + v[0].numel()
+    st_plan = get_comm(group, model=DCN_MODEL).plan(
+        "broadcast", {str(dt).removeprefix("torch."): torch.empty(
+            (P, e), dtype=dt, device="meta") for dt, e in packed.items()},
+        root=BCAST_ROOT)                 # the plan broadcast_state ran: a cache hit
+    check(got_st == comm_launches(st_plan, 3), f"broadcast_state launches {got_st}")
+    counts["comm_broadcast_state"] = got_st
+    st_ms, _ = median_ms(torch, lambda: broadcast_state(group, state, root=BCAST_ROOT), 5)
+    del st, state, leaves
+    emit({"phase": "comm_broadcast", "p": P, "n": n, "rounds": R, "root": BCAST_ROOT,
+          "leaves": {k: [list(sh), str(dt).removeprefix("torch.")]
+                     for k, (sh, dt) in big.items()},
+          "bytes_per_rank": PAYLOAD_BYTES, "plan_build_s": build_s,
+          "launches": got, "every_rank_holds_root_slices": True,
+          "leaves_equal_to_host_plan": True, "equal_to_torch_backend_at_1MiB": small_b,
+          "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
+          **t, "overlap_ms": t_ov, "flat_ms": flat["broadcast"],
+          "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound),
+          "broadcast_state": {"n": st_plan.n_blocks, "rounds": st_plan.rounds,
+                              "messages_a_round": 3, "launches": got_st,
+                              "equal_to_torch_backend": True, "ms": st_ms},
+          "card": card})
+
+    # comm_reduce (f32 sum of normal values and a wrapping int32 sum in
+    # one pytree, then both as max) and comm_allreduce
+    fresh()
+    plan, build_s = build("reduce", meta(big), root=BCAST_ROOT)
+    n, R = plan.n_blocks, plan.rounds
+    (wfull, w), (bfull, b) = blocked(n, W, f32, True), blocked(n, B, i32, False)
+    x = {"w": w, "b": b}
+    out, got = counted_run(torch, kmods, lambda: plan(x))
+    check(got == comm_launches(plan, 2), f"comm reduce launches {got}")
+    counts["comm_reduce"] = got
+    check(torch.equal(out["b"][BCAST_ROOT], b.sum(0, dtype=i32)),
+          "comm reduce: int32 root != values.sum over ranks (wrapping)")
+    check(all(all_equal_to(torch, out[k][:BCAST_ROOT], 0)
+              and all_equal_to(torch, out[k][BCAST_ROOT + 1:], 0) for k in x),
+          "comm reduce: a rank but the root does not hold zeros")
+    roots = {k: out[k][BCAST_ROOT].clone() for k in x}
+    del out
+    torch.cuda.empty_cache()
+    hp = host_plan("reduce", P, n, root=BCAST_ROOT)
+    for k, full in (("w", wfull), ("b", bfull)):
+        hrow = hp.run(full.view(P, n, -1))[BCAST_ROOT].reshape(-1)[:x[k].shape[1]]
+        check(same_bits(torch, roots[k][None], hrow[None]),
+              f"comm reduce leaf {k} != host_plan reduce")
+        del hrow
+        torch.cuda.empty_cache()
+    plan_ov = comm.plan("reduce", x, root=BCAST_ROOT, overlap=True)
+    out, got_ov = counted_run(torch, kmods, lambda: plan_ov(x))
+    check(got_ov == comm_launches(plan_ov, 2), f"comm reduce overlap {got_ov}")
+    counts["comm_reduce_overlap"] = got_ov
+    check(all(same_bits(torch, out[k][BCAST_ROOT][None], roots[k][None])
+              and all_equal_to(torch, out[k][:BCAST_ROOT], 0)
+              and all_equal_to(torch, out[k][BCAST_ROOT + 1:], 0) for k in x),
+          "comm overlapped reduce != sequential")
+    del out
+    plan_max = comm.plan("reduce", x, root=BCAST_ROOT, op="max")
+    out, got_max = counted_run(torch, kmods, lambda: plan_max(x))
+    check(got_max == got, f"comm reduce max launches {got_max}")
+    check(all(torch.equal(out[k][BCAST_ROOT], x[k].amax(0)) for k in x),
+          "comm reduce max: root != values.amax over ranks")
+    del out
+    torch.cuda.empty_cache()
+    small_r = {op: small_vs_plain("reduce", small, root=BCAST_ROOT, op=op)
+               for op in ("sum", "max")}
+    fresh()
+    t = timed(plan, x)
+    t_ov = timed(plan_ov, x)["ms"]
+    fwd_h, acc_h = plan.statics[0].slots
+    rows = {k: -(-v.shape[1] // n) * v.element_size() for k, v in x.items()}
+    bound = sum(sum(reduce_bytes(P, n, R, rows[k], fwd_h, acc_h)[0].values())
+                + (P - 1) * v.shape[1] * v.element_size() for k, v in x.items())
+    # allreduce: 2 x R rounds, every rank the sum
+    fresh()
+    plan_a, build_a = build("allreduce", x, root=BCAST_ROOT)
+    out, got_a = counted_run(torch, kmods, lambda: plan_a(x))
+    check(got_a == comm_launches(plan_a, 2), f"comm allreduce launches {got_a}")
+    counts["comm_allreduce"] = got_a
+    check(all(every_row(out[k], roots[k][None]) for k in x),
+          "comm allreduce: a rank does not hold the reduce's sum")
+    del out
+    small_a = small_vs_plain("allreduce", small, root=BCAST_ROOT)
+    fresh()
+    t_a = timed(plan_a, x)
+    recv_h, send_h = plan_a.statics[1].slots
+    bound_a = sum(sum(reduce_bytes(P, n, R, rows[k], fwd_h, acc_h)[0].values())
+                  + sum(bcast_bytes(P, n, R, rows[k], recv_h, send_h,
+                                    upload_rows=2)[0].values()) for k in x)
+    del x, w, b, wfull, bfull, roots
+    torch.cuda.empty_cache()
+    emit({"phase": "comm_reduce", "p": P, "n": n, "rounds": R, "root": BCAST_ROOT,
+          "ops": ["sum (w f32 normal, b int32 wrapping)", "max"],
+          "leaves": {k: [list(sh), str(dt).removeprefix("torch.")]
+                     for k, (sh, dt) in big.items()},
+          "bytes_per_rank": PAYLOAD_BYTES, "plan_build_s": build_s,
+          "launches": got, "int32_root_equals_wrapped_sum": True,
+          "non_roots_hold_zeros": True, "leaves_equal_to_host_plan": True,
+          "max_root_equals_amax": True, "equal_to_torch_backend_at_1MiB": small_r,
+          "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
+          **t, "overlap_ms": t_ov, "flat_ms": flat["reduce"],
+          "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound), "card": card})
+    emit({"phase": "comm_allreduce", "p": P, "n": n, "rounds": plan_a.rounds,
+          "root": BCAST_ROOT, "op": "sum",
+          "leaves": {k: [list(sh), str(dt).removeprefix("torch.")]
+                     for k, (sh, dt) in big.items()}, "plan_build_s": build_a,
+          "launches": got_a, "every_rank_holds_the_sum": True,
+          "equal_to_torch_backend_at_1MiB": small_a, **t_a,
+          "flat_ms": flat["allreduce"], "bytes_moved": bound_a,
+          "bytes_bound_ms": ms_of_bytes(bound_a), "card": card})
+
+    # comm_allgather: {"a": 8 KiB f32} a rank, [1152^2, 44, 48] rows
+    fresh()
+    E = GATHER_BYTES // 4
+    plan, build_s = build("allgather", meta({"a": ((P, E), f32)}))
+    n, R = plan.n_blocks, plan.rounds
+    full, a = blocked(n, E, f32, True)
+    x = {"a": a}
+    out, got = counted_run(torch, kmods, lambda: plan(x))
+    check(got == comm_launches(plan, 1), f"comm allgather launches {got}")
+    counts["comm_allgather"] = got
+    check(torch.equal(out["a"], a), "comm allgather: the result is not every rank's slice")
+    # every rank's copy, not only the first: exact, and against the host
+    # plan's rows of that rank
+    copies = plan.per_rank(x)["a"]                     # [P, P, E]
+    hp = host_plan("allgather", P, n)
+    hv = hp.run(full.view(P, n, -1))                   # [P, P, n, bs]
+    check(same_bits(torch, copies, a.expand(P, -1, -1)),
+          "comm allgather: a rank's copy is not every rank's slice")
+    check(all(same_bits(torch, copies[i:i + 64],
+                        hv[i:i + 64].reshape(-1, P, hv.shape[2] * hv.shape[3])[:, :, :E])
+              for i in range(0, P, 64)),
+          "comm allgather: a rank's copy != host_plan allgather's rows of it")
+    del copies, hv
+    check(same_tree(out, plain.plan("allgather", x)(x)),
+          "comm allgather: cuda backend != torch backend")
+    plan_ov = comm.plan("allgather", x, overlap=True)
+    out_ov, got_ov = counted_run(torch, kmods, lambda: plan_ov(x))
+    check(got_ov == comm_launches(plan_ov, 1), f"comm allgather overlap {got_ov}")
+    counts["comm_allgather_overlap"] = got_ov
+    check(same_tree(out_ov, out), "comm overlapped allgather != sequential")
+    del out, out_ov
+    fresh()
+    t = timed(plan, x)
+    t_ov = timed(plan_ov, x)["ms"]
+    bs = -(-E // n)
+    by, _ = allgather_bytes(P, n, R, bs * 4, *hp.device_slots)
+    bound = sum(by.values()) + 2 * P * E * 4     # + rank 0's rows out
+    emit({"phase": "comm_allgather", "p": P, "n": n, "rounds": R,
+          "leaves": {"a": [[P, E], "float32"]}, "bytes_per_rank": GATHER_BYTES,
+          "buffer_shape": [P * P, n + 1, bs], "plan_build_s": build_s,
+          "launches": got, "result_equals_every_slice": True,
+          "every_rank_copy_exact": True, "every_rank_copy_equal_to_host_plan": True,
+          "equal_to_host_plan": True, "equal_to_torch_backend": True,
+          "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
+          **t, "overlap_ms": t_ov, "flat_ms": flat["allgather"],
+          "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound), "card": card})
+    del x, a, full
+    torch.cuda.empty_cache()
+
+    # comm_reduce_scatter: [1152, 1152 x 2048] f32 integer values
+    # (exact sums), a [1152^2, n+1, bs] f32 buffer
+    fresh()
+    L = P * E
+    plan, build_s = build("reduce_scatter", meta({"m": ((P, L), f32)}))
+    n, R = plan.n_blocks, plan.rounds
+    m = torch.randint(-8, 9, (P, L), generator=g, device="cuda", dtype=f32)
+    x = {"m": m}
+    out, got = counted_run(torch, kmods, lambda: plan(x))
+    check(got == comm_launches(plan, 1), f"comm reduce_scatter launches {got}")
+    counts["comm_reduce_scatter"] = got
+    exact = torch.zeros((L,), device="cuda")
+    for i in range(0, P, 64):
+        exact += m[i:i + 64].sum(0)
+    check(torch.equal(out["m"], exact.view(P, E)),
+          "comm reduce_scatter: row r != the sum of every rank's shard r")
+    keep = out["m"].clone()
+    del out, exact
+    torch.cuda.empty_cache()
+    check(same_bits(torch, plain.plan("reduce_scatter", x)(x)["m"], keep),
+          "comm reduce_scatter: cuda backend != torch backend")
+    torch.cuda.empty_cache()
+    plan_ov = comm.plan("reduce_scatter", x, overlap=True)
+    out, got_ov = counted_run(torch, kmods, lambda: plan_ov(x))
+    check(got_ov == comm_launches(plan_ov, 1), f"comm reduce_scatter overlap {got_ov}")
+    counts["comm_reduce_scatter_overlap"] = got_ov
+    check(same_bits(torch, out["m"], keep), "comm overlapped reduce_scatter != sequential")
+    del out
+    fresh()
+    t = timed(plan, x)
+    t_ov = timed(plan_ov, x)["ms"]
+    bundle = get_bundle(P, 0)
+    fwd, acc, _ = scatter_slot_plan(bundle, n)
+    everyone = range(P)
+    fwd_rows = _rotated_rows(_with_garbage(fwd, n), P, everyone, everyone, None, "cuda")
+    acc_rows = _rotated_rows(acc, P, everyone, everyone, None, "cuda")
+    bs = -(-E // n)
+    by, rs_coincide = scatter_bytes(P, n, R, bs * 4, fwd_rows, acc_rows,
+                                    P * L * 4, P * E * 4)
+    bound = sum(by.values())
+    del x, m, keep
+    torch.cuda.empty_cache()
+    # the kernel alone at these 192-byte rows, over the plan's own rows
+    acc_rec = acc_kernel_at(torch, bp, ref, g, fwd_rows, acc_rows, n + 1, bs)
+    acc_rec.update(kernel="block_acc_shuffle", path="comm_reduce_scatter",
+                   rows=P * P, row_bytes=bs * 4)
+    del fwd_rows, acc_rows
+    torch.cuda.empty_cache()
+    emit({"phase": "comm_reduce_scatter", "p": P, "n": n, "rounds": R,
+          "leaves": {"m": [[P, L], "float32"]}, "input_bytes": P * L * 4,
+          "buffer_shape": [P * P, n + 1, bs], "plan_build_s": build_s,
+          "launches": got, "rows_equal_exact_sums": True,
+          "equal_to_torch_backend": True, "overlap_equal_to_sequential": True,
+          "overlap_launches": got_ov, **t, "overlap_ms": t_ov,
+          "flat_ms": None, "allgather_flat_ms": flat["allgather"],
+          "bytes_moved": bound, "bytes_by_step": by,
+          "acc_rows_acc_eq_fwd": rs_coincide,
+          "bytes_bound_ms": ms_of_bytes(bound),
+          "block_acc_shuffle_at_these_rows": acc_rec, "card": card})
+
+    # comm_allgatherv: int32 capacity 2048, sizes in [64, 2048]
+    fresh()
+    rng = np.random.default_rng(SEED)
+    sizes = [int(s) for s in rng.integers(64, E + 1, size=P)]
+    v = torch.randint(-2 ** 31, 2 ** 31, (P, E), generator=g, device="cuda", dtype=i32)
+    x = {"v": v}
+    plan, build_s = build("allgatherv", x, sizes=sizes)
+    n, R = plan.n_blocks, plan.rounds
+    by_bs = {}
+    for j, s_ in enumerate(sizes):
+        by_bs.setdefault(max(1, -(-s_ // n)), []).append(j)
+    out, got = counted_run(torch, kmods, lambda: plan(x))
+    check(got == comm_launches(plan, len(by_bs)), f"comm allgatherv launches {got}")
+    counts["comm_allgatherv"] = got
+    want = v.clone()
+    want[torch.arange(E, device="cuda")[None, :]
+         >= torch.tensor(sizes, device="cuda")[:, None]] = 0
+    check(torch.equal(out["v"], want),
+          "comm allgatherv: row j is not rank j's first sizes[j] elements")
+    copies = plan.per_rank(x)["v"]                     # every rank's copy
+    check(same_bits(torch, copies, want.expand(P, -1, -1)),
+          "comm allgatherv: a rank's copy is not every rank's rows")
+    del copies
+    check(same_tree(out, plain.plan("allgatherv", x, sizes=sizes)(x)),
+          "comm allgatherv: cuda backend != torch backend")
+    del out, want
+    fresh()
+    t = timed(plan, x)
+    recv, _, ks = broadcast_slot_plan(get_bundle(P, 0), n)
+    shifts = [int(get_bundle(P, 0).skip[int(k)]) for k in ks]
+    groups = [(bs_, roots, _rotated_rows(recv, P, everyone, roots, None, "cuda"),
+               _rotated_rows(recv, P, everyone, roots, shifts, "cuda"))
+              for bs_, roots in sorted(by_bs.items())]
+    by = gatherv_bytes(P, n, R, groups, E, 4)
+    bound = sum(by.values())
+    del groups, x, v
+    torch.cuda.empty_cache()
+    emit({"phase": "comm_allgatherv", "p": P, "n": n, "rounds": R,
+          "leaves": {"v": [[P, E], "int32"]}, "capacity": E, "sizes_min_max_sum": [min(sizes), max(sizes), sum(sizes)],
+          "block_sizes": len(by_bs), "plan_build_s": build_s,
+          "launches": got, "launches_total": sum(got.values()),
+          "rows_equal_their_sizes": True, "every_rank_copy_exact": True,
+          "equal_to_torch_backend": True,
+          **t, "flat_ms": None, "allgather_flat_ms": flat["allgather"],
+          "bytes_moved": bound, "bytes_by_step": by,
+          "bytes_bound_ms": ms_of_bytes(bound), "card": card})
+    return counts, acc_rec
+
+
 def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     """The model kernels against their plain versions, then zamba2-2.7b's
     prefill and a continuous-batching serve loop at full width, and the
@@ -1072,7 +1613,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     s = cfg.ssm
     H_ssm = s.expand * cfg.d_model // s.head_dim
 
-    # 9. each model kernel against its plain version
+    # 10. each model kernel against its plain version
     t0 = time.perf_counter()
     bf16, f32 = torch.bfloat16, torch.float32
     attn = compare_attention(torch, fa, g, PREFILL_B, PREFILL_S, cfg.n_heads,
@@ -1111,7 +1652,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "seconds": time.perf_counter() - t0, "card": card})
 
-    # 10. prefill: zamba2-2.7b FULL, 2 x 4096 tokens
+    # 11. prefill: zamba2-2.7b FULL, 2 x 4096 tokens
     pattern, R, shared = layer_pattern(cfg)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1159,7 +1700,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
           "rest_share": 1 - attn_share - scan_share,
           "max_memory_allocated": pre_peak, "card": card})
 
-    # 11. serve: ServeLoop answers 8 requests, 16 greedy tokens each
+    # 12. serve: ServeLoop answers 8 requests, 16 greedy tokens each
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(16, 65, SERVE_REQUESTS)]
     reqs = [Request(i, p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
@@ -1224,7 +1765,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     del params, loop
     torch.cuda.empty_cache()
 
-    # 12. the same prefill in f32: "cuda" against "torch" at a tight tolerance
+    # 13. the same prefill in f32: "cuda" against "torch" at a tight tolerance
     cfg32 = replace(cfg, dtype="float32")
     params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED))
     step32 = make_prefill_step(cfg32)
@@ -1263,6 +1804,8 @@ def main() -> None:
         optimal_num_blocks_reduce,
         verify_bundle,
     )
+    from repro_torch.core.comm import _forward_rounds as forward_rounds
+    from repro_torch.core.comm import _roll as roll_rows
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import flash_attention as fa
@@ -1819,11 +2362,10 @@ def main() -> None:
         werr[BCAST_ROOT, :n_q] += qops.quant_error(d, q_, s_).view(n_q, bs_q)
 
     def q_bcast():
-        roll = lambda m, t: torch.roll(m, bc_skips[t], dims=0)  # noqa: E731
         qb_ = torch.zeros((P, n_q + 1, bs_q), dtype=torch.int8, device="cuda")
         sb_ = torch.zeros((P, n_q + 1, nb_q), device="cuda")
-        plan_q._forward_rounds(qb_, recv_q, send_q, roll)
-        plan_q._forward_rounds(sb_, recv_q, send_q, roll)
+        forward_rounds(plan_q.step, False, [qb_, sb_], [(recv_q, send_q)] * 2,
+                       bc_skips, roll_rows)
 
     def q_dequant():
         o = qbuf[:, :n_q].float().view(P, n_q, nb_q, QBLOCK)
@@ -1873,14 +2415,22 @@ def main() -> None:
     # 8. the two-level host plans at 36 x 32
     del qmsg, smsg, plan_q, plain_q
     torch.cuda.empty_cache()
-    hier = hier_phases(torch, np, card, kmods, g, {
-        "broadcast": bcast_ms, "reduce": red_ms, "allreduce": allred_ms,
-        "allgather": ag_ms})
+    flat_ms = {"broadcast": bcast_ms, "reduce": red_ms, "allreduce": allred_ms,
+               "allgather": ag_ms}
+    hier = hier_phases(torch, np, card, kmods, g, flat_ms)
+    torch.cuda.empty_cache()
 
-    # 9-12. the model kernels, zamba2-2.7b's prefill and the serve loop
+    # 9. the plan/execute communicator over the 1152 ranks, pytree payloads
+    comm, acc_rec = comm_phases(torch, np, card, kmods, g, flat_ms)
+    launches["block_acc_shuffle@reduce_scatter"] = \
+        comm["comm_reduce_scatter"]["block_acc_shuffle"]
+    kern["block_acc_shuffle@reduce_scatter"] = acc_rec
+    torch.cuda.empty_cache()
+
+    # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop
     model_phases(torch, np, card, kmods, g, launches, kern)
 
-    # 13. the kernels line, each kernel with the launch count of its path
+    # 14. the kernels line, each kernel with the launch count of its path
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": SOURCES.get(rec.get("kernel", name), KERNEL_SOURCE),
@@ -1892,7 +2442,9 @@ def main() -> None:
          "bound_ms": rec["bound_ms"], "bound_by": rec.get("bound_by", "bytes"),
          "library_ms": rec["library_ms"],
          **({"hier_launches": {ph: c[name] for ph, c in hier.items() if name in c}}
-            if any(name in c for c in hier.values()) else {})}
+            if any(name in c for c in hier.values()) else {}),
+         **({"comm_launches": {ph: c[name] for ph, c in comm.items() if name in c}}
+            if any(name in c for c in comm.values()) else {})}
         for name, rec in kern.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

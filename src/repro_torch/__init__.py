@@ -4,13 +4,17 @@ The JAX package ``repro`` is the reference this package is held
 against; ``repro_torch`` imports nothing of it and nothing of JAX.
 It ports the paper's own path: the O(log p) schedules, the cached
 schedule engine, the correctness conditions, the cost model and the
-single-device data planes of the broadcast, its time-reversed dual (the
-reduction, and allreduce as reduce then broadcast), the allgather, the
-int8 quantized allreduce of gradient compression and the two-level
-hierarchical collectives of the paper's 36 x 32 cluster, whose round steps
-run in hand-written CUDA kernels on an H100 (:mod:`repro_torch.kernels`),
-and the collective-free half of gradient compression with error
-feedback (:mod:`repro_torch.optim.compression`).  It also serves the
+plan/execute communicator (``get_comm`` over a ``StackedGroup`` of p
+ranks on one device or a ``DistGroup`` of ``torch.distributed``
+processes: broadcast, reduce, allreduce, allgather, allgatherv and
+reduce_scatter of pytree payloads, with the checkpoint-restore fan-out
+``broadcast_state`` as its first consumer), the single-device data
+planes of the same collectives, of the int8 quantized allreduce of
+gradient compression and of the two-level hierarchical collectives of
+the paper's 36 x 32 cluster, whose round steps run in hand-written CUDA
+kernels on an H100 (:mod:`repro_torch.kernels`), and the
+collective-free half of gradient compression with error feedback
+(:mod:`repro_torch.optim.compression`).  It also serves the
 dense, ssm and hybrid model families (:mod:`repro_torch.models`,
 :mod:`repro_torch.serve`, configs in :mod:`repro_torch.configs`), whose
 prefill runs attention and the Mamba2 SSD scan in hand-written CUDA.
@@ -19,13 +23,18 @@ Importing the package builds no kernel.
 
 from .core import (
     DEFAULT_MODEL,
+    CirculantComm,
+    CollectivePlan,
     CommModel,
+    DistGroup,
     HostDataPlan,
     PhaseStatic,
     RoundStep,
     ScheduleBundle,
     SimResult,
+    StackedGroup,
     get_bundle,
+    get_comm,
     get_round_step,
     hier_host_plan,
     host_plan,
@@ -43,6 +52,7 @@ from .core import (
     simulate_reduce,
     verify_bundle,
 )
+from .train.restore_broadcast import broadcast_state
 from .optim.compression import (
     BucketSpec,
     bucketize,
@@ -54,15 +64,21 @@ from .optim.compression import (
 
 __all__ = [
     "BucketSpec",
+    "CirculantComm",
+    "CollectivePlan",
     "DEFAULT_MODEL",
     "CommModel",
+    "DistGroup",
     "HostDataPlan",
     "PhaseStatic",
     "RoundStep",
     "ScheduleBundle",
     "SimResult",
+    "StackedGroup",
+    "broadcast_state",
     "bucketize",
     "get_bundle",
+    "get_comm",
     "get_round_step",
     "hier_host_plan",
     "host_plan",

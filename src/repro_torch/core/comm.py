@@ -1,15 +1,48 @@
-"""Host data plans: whole collectives on one device.
+"""The plan/execute communicator and the single-device host data plans.
 
-Port of the host data plans of ``repro.core.comm`` (``_as_blocks``,
-``HostDataPlan``, ``host_plan``): the exact kinds ``"broadcast"``,
-``"allgather"`` and ``"reduce"`` (allreduce is a reduce followed by a
-broadcast of the root's blocks), and the lossy
-``"quantized_allreduce"`` (int8 blocks and f32 scales on the wire).
-The p ranks are the rows of one device buffer and the network exchange
-is a row rotation (the circulant round's r -> (r + skip) mod p is
-exactly ``torch.roll`` along the rank axis; the reduction's partials
-travel the other way, by ``-skip``).
-The round steps are the backend's (:mod:`repro_torch.core.roundstep`):
+Port of ``repro.core.comm``.  The paper splits an O(log p) schedule
+*computation* from the n-1+ceil(log2 p) *execution* rounds, and the API
+has the same shape:
+
+  * :class:`CirculantComm` binds a rank group, a round-step backend and
+    a cost model once;
+  * ``comm.plan(kind, payload_spec, ...)`` resolves everything on the
+    host -- the block count, the cached schedule bundle, the clamped
+    per-round slot tables (on the device, once a plan), the per-round
+    shifts and the round-step handle -- into an immutable
+    :class:`CollectivePlan`, cached process-wide;
+  * ``plan(payload)`` checks the payload against the plan's spec and
+    runs the rounds, with no schedule or slot-table work.
+
+``KINDS`` are the reference's: ``broadcast``, ``allgather`` (alias
+``allbroadcast``), ``allgatherv``, ``reduce_scatter``, ``reduce``,
+``allreduce`` and ``quantized_allreduce`` (not in the communicator yet:
+the host plan below runs it on one device).  Payloads are pytrees
+(:mod:`repro_torch.core.tree`): every leaf is split into the same n
+blocks (``ceil(leaf_elems / n)`` elements a block, the last padded) and
+all leaves ride one schedule, each round one exchange of every leaf's
+message on the same rotation, every leaf in its own dtype.
+
+A group is where the ranks are; the round bodies are written once over
+its ``exchange(msgs, shift)``, which returns for every rank r it holds
+the messages rank ``(r - shift) mod p`` sent (the circulant round's
+r -> (r + shift) mod p):
+
+  * :class:`StackedGroup`: all p ranks on one device, as the leading axis
+    of every leaf (the reference's global array, unsharded); the
+    exchange is ``torch.roll`` along that axis;
+  * :class:`DistGroup`: one rank a process of a ``torch.distributed``
+    group; each process passes and gets its own shard (allgather and
+    allgatherv return the whole gathered array, which every rank holds);
+    the exchange is one ``batch_isend_irecv`` (gloo groups only).
+
+Every tensor leaf must lie on the group's device; nothing moves it.
+
+The host data plans (``HostDataPlan``, ``host_plan``) run the exact
+kinds ``"broadcast"``, ``"allgather"``, ``"reduce"`` and the lossy
+``"quantized_allreduce"`` (int8 blocks and f32 scales on the wire) on
+one device over blocks the caller has laid out, with the same round
+loops:
 
   * broadcast: pack -> exchange -> shuffle, and the last round unpack,
     on a ``[p, n+1, bs]`` buffer (slot n garbage);
@@ -17,7 +50,7 @@ The round steps are the backend's (:mod:`repro_torch.core.roundstep`):
     ``r*p + j`` is rank r's copy of root j's blocks), send slots from
     Condition 2's base rotation of the one receive table;
   * reduce: exchange -> acc_shuffle on a ``[p, n+2, bs]`` buffer (slot n
-    garbage, slot n+1 the op identity);
+    garbage, slot n+1 the op identity); the partials travel by -skip;
   * quantized_allreduce: the reduce's rounds with qacc_shuffle on f32
     ``[p, n+2, bs]`` buffer and error state (the exchange rolls the int8
     payload and its scales), the root's requantization, then the
@@ -38,13 +71,20 @@ on the device once per plan, not once per round.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..kernels.quant_ops import QBLOCK, quant_blocks, quant_error
 from ..kernels.reduce_ops import _validate, op_identity
+from .costmodel import (
+    DEFAULT_MODEL,
+    CommModel,
+    optimal_num_blocks_allgather,
+    optimal_num_blocks_bcast,
+    optimal_num_blocks_reduce,
+)
 from .engine import cached_plan, get_bundle
 from .roundstep import (
     BACKENDS,
@@ -56,9 +96,26 @@ from .roundstep import (
     get_round_step,
     reduce_phase_static,
     reduce_slot_plan,
+    scatter_phase_static,
+    scatter_slot_plan,
 )
+from .tree import TreeDef, tree_flatten, tree_leaves, tree_structure, tree_unflatten
 
-__all__ = ["HostDataPlan", "host_plan", "resolve_device"]
+__all__ = [
+    "KINDS",
+    "PayloadSpec",
+    "payload_spec",
+    "validate_payload",
+    "StackedGroup",
+    "DistGroup",
+    "CollectivePlan",
+    "CirculantComm",
+    "get_comm",
+    "check_devices",
+    "HostDataPlan",
+    "host_plan",
+    "resolve_device",
+]
 
 #: The kinds, with the audit records of their phases in execution order.
 _STATICS = {"broadcast": (broadcast_phase_static,),
@@ -96,20 +153,111 @@ def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.array(table, np.int32)).to(device)
 
 
-def _allgather_rows(recv: np.ndarray, skips: Tuple[int, ...], p: int,
-                    device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The allgather's [R, p*p] int32 row-slot tables, built on the
-    device: row ``r*p + j`` (rank r, root j) of round t takes
-    ``recv[t][(r - j + shift) % p]`` (Condition 2's base rotation), with
-    shift 0 for the receive slots and ``skips[t]`` for the send slots."""
-    recv_d = _upload(recv, device)
-    r = torch.arange(p, device=device)
-    base = (r[:, None] - r[None, :]).remainder(p).reshape(-1)
-    recv_rows = recv_d[:, base]
-    send_rows = torch.empty_like(recv_rows)
-    for t, s in enumerate(skips):
-        send_rows[t] = recv_d[t][(base + s) % p]
-    return recv_rows, send_rows
+def _with_garbage(fwd: np.ndarray, n: int) -> np.ndarray:
+    """A reversed fwd table with the garbage slot n appended as row R:
+    the capture slot after the last round."""
+    return np.concatenate([fwd, np.full((1, fwd.shape[1]), n, np.int32)])
+
+
+def _rotated_rows(table: np.ndarray, p: int, ranks: range,
+                  roots: Sequence[int], shifts: Optional[Sequence[int]],
+                  device: torch.device) -> torch.Tensor:
+    """Rank-major row tables, built on the device: row ``(r, j)`` (rank r
+    of ``ranks``, root j of ``roots``) of round t takes
+    ``table[t][(r - j + shifts[t]) % p]`` (Condition 2's base rotation),
+    shift 0 where ``shifts`` is None -> ``[R, len(ranks) * len(roots)]``
+    int32."""
+    tab = _upload(table, device)
+    r = torch.arange(ranks.start, ranks.stop, device=device)
+    j = torch.as_tensor(list(roots), device=device)
+    base = (r[:, None] - j[None, :]).remainder(p).reshape(-1)
+    if shifts is None:
+        return tab[:, base]
+    out = torch.empty((len(table), base.numel()), dtype=torch.int32,
+                      device=device)
+    for t, s in enumerate(shifts):
+        out[t] = tab[t][(base + s) % p]
+    return out
+
+
+def _roll(msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+    """The stacked exchange: rank r's row takes rank (r - shift)'s."""
+    return [torch.roll(m, shift, dims=0) for m in msgs]
+
+
+def _by_rank(exchange: Callable, nranks: int) -> Callable:
+    """An exchange of messages whose rows are rank-major: each rank's
+    rows travel together (``msg.view(nranks, -1)``)."""
+    def rank_major(msgs, shift):
+        got = exchange([m.view(nranks, -1) for m in msgs], shift)
+        return [g.view(m.shape) for g, m in zip(got, msgs)]
+
+    return rank_major
+
+
+# ------------------------------------------------------------ round loops
+#
+# One copy of each round loop, shared by the host data plans and the
+# communicator's plans: the buffers of all leaves ride one schedule, each
+# round one exchange of every buffer's message.  ``tables[i]`` are buffer
+# i's device slot rows; ``shifts[t]`` is round t's rotation.
+
+
+def _forward_rounds(step: RoundStep, overlap: bool, bufs: List[torch.Tensor],
+                    tables, shifts: Sequence[int],
+                    exchange: Callable) -> List[torch.Tensor]:
+    """The broadcast family's rounds, in place: pack, then per round the
+    exchange and a shuffle, the last round an unpack.  ``tables[i]`` is
+    ``(recv, send)``, each ``[R, rows]`` int32.  Overlapped: each round
+    first packs the next send block from the pre-update buffer, then
+    takes the staged shuffle."""
+    R = len(shifts)
+    msgs = [step.pack(b, send[0]) for b, (_, send) in zip(bufs, tables)]
+    for t in range(R):
+        got = exchange(msgs, shifts[t])
+        for i, (recv, send) in enumerate(tables):
+            if t + 1 < R:
+                if overlap:
+                    pre = step.pack(bufs[i], send[t + 1])
+                    bufs[i], msgs[i] = step.shuffle_staged(
+                        bufs[i], got[i], pre, recv[t], send[t + 1])
+                else:
+                    bufs[i], msgs[i] = step.shuffle(bufs[i], got[i], recv[t],
+                                                    send[t + 1])
+            else:
+                bufs[i] = step.unpack(bufs[i], got[i], recv[t])
+    return bufs
+
+
+def _reduce_rounds(step: RoundStep, overlap: bool, bufs: List[torch.Tensor],
+                   tables, shifts: Sequence[int], exchange: Callable,
+                   op: str) -> List[torch.Tensor]:
+    """The reduction's rounds, in place: the initial capture and drain of
+    round 0's forwarded partials (folding a zero message into the garbage
+    slot), then per round the exchange and an acc_shuffle.  ``tables[i]``
+    is ``(fwd, acc)``: ``fwd`` ``[R+1, rows]`` with the garbage slot as
+    its last row, ``acc`` ``[R, rows]``.  Overlapped: each round first
+    packs the next forward block from the pre-accumulate buffer, then
+    takes the staged step."""
+    R = len(shifts)
+    msgs = []
+    for i, (fwd, _) in enumerate(tables):
+        b = bufs[i]
+        zero = torch.zeros((b.shape[0], b.shape[2]), dtype=b.dtype,
+                           device=b.device)
+        bufs[i], m = step.acc_shuffle(b, zero, fwd[R], fwd[0], op=op)
+        msgs.append(m)
+    for t in range(R):
+        got = exchange(msgs, shifts[t])
+        for i, (fwd, acc) in enumerate(tables):
+            if overlap:
+                pre = step.pack(bufs[i], fwd[t + 1])
+                bufs[i], msgs[i] = step.acc_shuffle_staged(
+                    bufs[i], got[i], pre, acc[t], fwd[t + 1], op=op)
+            else:
+                bufs[i], msgs[i] = step.acc_shuffle(bufs[i], got[i], acc[t],
+                                                    fwd[t + 1], op=op)
+    return bufs
 
 
 @dataclass(frozen=True, eq=False)
@@ -162,28 +310,6 @@ class HostDataPlan:
             return self._run_quantized(values)
         return self._run_reduce(values)
 
-    def _forward_rounds(self, buf, recv_rows, send_rows, roll):
-        """The broadcast family's round loop on ``buf`` (in place):
-        pack, then per round exchange (``roll(msg, t)``) and shuffle, the
-        last round unpack.  Overlapped: each round first packs the next
-        send block from the pre-update buffer, then takes the staged
-        shuffle."""
-        step, R = self.step, len(recv_rows)
-        msg = step.pack(buf, send_rows[0])
-        for t in range(R):
-            got = roll(msg, t)
-            if t + 1 < R:
-                if self.overlap:
-                    pre = step.pack(buf, send_rows[t + 1])
-                    buf, msg = step.shuffle_staged(buf, got, pre, recv_rows[t],
-                                                   send_rows[t + 1])
-                else:
-                    buf, msg = step.shuffle(buf, got, recv_rows[t],
-                                            send_rows[t + 1])
-            else:
-                buf = step.unpack(buf, got, recv_rows[t])
-        return buf
-
     def _run_broadcast(self, values) -> torch.Tensor:
         """``values``: [n] (or [n, bs], or [n, ...]) block payloads at the
         root, a numpy array or a tensor -> the final [p, n, bs] data slots
@@ -200,16 +326,15 @@ class HostDataPlan:
                           device=self.device)
         buf[self.root, :n] = vals
         if len(self.ks):                             # p == 1: nothing moves
-            buf = self._forward_rounds(
-                buf, *self.device_slots,
-                lambda msg, t: torch.roll(msg, self.skips[t], dims=0))
+            (buf,) = _forward_rounds(self.step, self.overlap, [buf],
+                                     [self.device_slots], self.skips, _roll)
         return buf[:, :n]
 
     def _run_allgather(self, values) -> torch.Tensor:
         """``values``: [p, n(, bs)] per-root payloads -> the final
         [p_rank, p_root, n, bs] data slots, a view of the device buffer
         of p*p rank-major rows.  The exchange rolls the messages of all
-        p roots of a rank together: ``msg.view(p, p, bs)`` along dim 0."""
+        p roots of a rank together: ``msg.view(p, p * bs)`` along dim 0."""
         p, n = self.p, self.n
         vals = _as_blocks(_as_tensor(values), 1)     # [p, n, bs]
         if tuple(vals.shape[:2]) != (p, n):
@@ -220,10 +345,9 @@ class HostDataPlan:
                           device=self.device)
         buf[:: p + 1, :n] = vals                     # row j*p + j: root j's own
         if len(self.ks):
-            buf = self._forward_rounds(
-                buf, *self.device_slots,
-                lambda msg, t: torch.roll(msg.view(p, p, bs), self.skips[t],
-                                          dims=0).view(p * p, bs))
+            (buf,) = _forward_rounds(self.step, self.overlap, [buf],
+                                     [self.device_slots], self.skips,
+                                     _by_rank(_roll, p))
         return buf.view(p, p, n + 1, bs)[:, :, :n]
 
     def _run_reduce(self, values) -> torch.Tensor:
@@ -242,25 +366,10 @@ class HostDataPlan:
         buf[:, :n] = vals
         buf[:, n].zero_()                            # garbage slot n
         buf[:, n + 1].fill_(op_identity(op, vals.dtype))  # identity slot n+1
-        R = len(self.ks)
-        if R == 0:
-            return buf[:, :n]
-        step = self.step
-        fwd, acc = self.device_slots                 # fwd[R]: the garbage slot
-        # Initial capture+drain of round 0's forwarded partials (the acc
-        # part folds a zero message into the garbage slot).
-        buf, msg = step.acc_shuffle(
-            buf, torch.zeros((p, bs), dtype=vals.dtype, device=self.device),
-            fwd[R], fwd[0], op=op)
-        for t in range(R):
-            got = torch.roll(msg, -self.skips[t], dims=0)
-            if self.overlap:
-                pre = step.pack(buf, fwd[t + 1])
-                buf, msg = step.acc_shuffle_staged(buf, got, pre, acc[t],
-                                                   fwd[t + 1], op=op)
-            else:
-                buf, msg = step.acc_shuffle(buf, got, acc[t], fwd[t + 1],
-                                            op=op)
+        if len(self.ks):
+            (buf,) = _reduce_rounds(self.step, self.overlap, [buf],
+                                    [self.device_slots],
+                                    [-s for s in self.skips], _roll, op)
         return buf[:, :n]
 
     def _run_quantized(self, values) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -279,7 +388,7 @@ class HostDataPlan:
         :mod:`repro_torch.kernels.quant_ops`, as the reference computes it
         outside any kernel.  Broadcast phase: the broadcast's rounds over
         the int8 ``[p, n+1, bs]`` and the f32 ``[p, n+1, nb]`` scale
-        buffers, then a dequantize ``q * scale``.
+        buffers, one schedule for both, then a dequantize ``q * scale``.
         """
         p, n, qb = self.p, self.n, self.qblock
         vals = _as_blocks(_as_tensor(values), 1)     # [p, n, bs]
@@ -319,12 +428,8 @@ class HostDataPlan:
         qbuf[root, :n] = q.view(n, bs)
         sbuf = torch.zeros((p, n + 1, nb), dtype=torch.float32, device=dev)
         sbuf[root, :n] = sc.view(n, nb)
-
-        def roll(msg, t):
-            return torch.roll(msg, bc_skips[t], dims=0)
-
-        qbuf = self._forward_rounds(qbuf, recv, send, roll)
-        sbuf = self._forward_rounds(sbuf, recv, send, roll)
+        qbuf, sbuf = _forward_rounds(step, False, [qbuf, sbuf],
+                                     [(recv, send)] * 2, bc_skips, _roll)
         out = qbuf[:, :n].float().view(p, n, nb, qb)
         out.mul_(sbuf[:, :n, :, None])
         return out.view(p, n, bs), err[:, :n]
@@ -377,8 +482,7 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
         if kind in ("reduce", "quantized_allreduce"):
             fwd, acc, ks = reduce_slot_plan(bundle, n)
             slots = (fwd, acc)
-            garbage = np.full((1, int(p)), n, np.int32)
-            device_slots = (_upload(np.concatenate([fwd, garbage]), dev),
+            device_slots = (_upload(_with_garbage(fwd, n), dev),
                             _upload(acc, dev))
         else:
             recv, send, ks = broadcast_slot_plan(bundle, n)
@@ -387,7 +491,10 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
         if kind == "broadcast":
             device_slots = (_upload(recv, dev), _upload(send, dev))
         elif kind == "allgather":
-            device_slots = _allgather_rows(recv, skips, int(p), dev)
+            everyone = range(int(p))
+            device_slots = (
+                _rotated_rows(recv, int(p), everyone, everyone, None, dev),
+                _rotated_rows(recv, int(p), everyone, everyone, skips, dev))
         elif quantized:
             # one skip tuple per phase (reduce rounds, broadcast rounds)
             recv, send, ks_b = broadcast_slot_plan(bundle, n)
@@ -401,3 +508,846 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
             overlap=bool(overlap), qblock=qblock)
 
     return cached_plan(key, build)
+
+
+# --------------------------------------------------- the communicator
+
+
+#: Collective kinds a plan can be built for.  ``"allbroadcast"`` is the
+#: family name (arXiv:2407.18004) for the all-to-all broadcast and
+#: canonicalizes to ``"allgather"``: both resolve to the same plan.
+KINDS = (
+    "broadcast",
+    "allgather",
+    "allgatherv",
+    "reduce_scatter",
+    "reduce",
+    "allreduce",
+    "allbroadcast",
+    "quantized_allreduce",
+)
+
+_CANONICAL_KIND = {"allbroadcast": "allgather"}
+
+
+# ------------------------------------------------------------- payload spec
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _shape_dtype(leaf) -> Tuple[Tuple[int, ...], torch.dtype]:
+    if not isinstance(leaf, torch.Tensor):
+        leaf = torch.as_tensor(leaf)
+    return tuple(int(s) for s in leaf.shape), leaf.dtype
+
+
+@dataclass(frozen=True)
+class PayloadSpec:
+    """Hashable shape/dtype signature of a pytree payload.
+
+    ``treedef`` is the tree structure; ``leaves`` is a tuple of
+    ``(shape, dtype)`` per leaf in flatten order.  Two payloads with
+    equal specs share one plan.
+    """
+
+    treedef: TreeDef
+    leaves: Tuple[Tuple[Tuple[int, ...], torch.dtype], ...]
+
+    @property
+    def num_leaves(self) -> int:
+        return len(self.leaves)
+
+    def describe(self) -> str:
+        body = ", ".join(f"{s}:{_dtype_name(d)}" for s, d in self.leaves)
+        return f"{self.treedef} [{body}]"
+
+
+def payload_spec(payload: Any) -> PayloadSpec:
+    """The :class:`PayloadSpec` of a payload pytree.
+
+    Leaves may be tensors (``device="meta"`` ones build a spec without
+    data), NumPy arrays or numbers.  Passing an existing spec returns it
+    unchanged.
+    """
+    if isinstance(payload, PayloadSpec):
+        return payload
+    leaves, treedef = tree_flatten(payload)
+    return PayloadSpec(treedef=treedef,
+                       leaves=tuple(_shape_dtype(x) for x in leaves))
+
+
+def validate_payload(spec: PayloadSpec, payload: Any) -> None:
+    """Raise ``ValueError`` unless ``payload`` matches ``spec`` (tree
+    structure, per-leaf shape and dtype)."""
+    leaves, treedef = tree_flatten(payload)
+    if treedef != spec.treedef:
+        raise ValueError(
+            f"payload tree {treedef} does not match the plan spec "
+            f"{spec.treedef}"
+        )
+    for i, (leaf, (shape, dtype)) in enumerate(zip(leaves, spec.leaves)):
+        got_shape, got_dtype = _shape_dtype(leaf)
+        if got_shape != shape or got_dtype != dtype:
+            raise ValueError(
+                f"payload leaf {i} is {got_shape}:{_dtype_name(got_dtype)}, "
+                f"plan expects {shape}:{_dtype_name(dtype)}"
+            )
+
+
+# ------------------------------------------------------------ small helpers
+
+
+def _split_blocks(flat: torch.Tensor, n: int, nslots: int,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``[rows, size]`` -> a ``[rows, nslots, bs]`` buffer with
+    ``bs = ceil(size / n)``: each row split into n blocks (the last padded
+    with zeros) in slots 0..n-1, the slots from n on zero."""
+    rows, size = flat.shape
+    bs = -(-size // n)
+    buf = torch.empty((rows, nslots, bs), dtype=dtype or flat.dtype,
+                      device=flat.device)
+    data = buf.view(rows, nslots * bs)
+    data[:, :size] = flat
+    data[:, size:].zero_()
+    return buf
+
+
+def _unblock(buf: torch.Tensor, n: int, size: int) -> torch.Tensor:
+    """The first ``size`` elements of each row's data slots 0..n-1, a
+    ``[rows, size]`` view of the buffer."""
+    rows, _, bs = buf.shape
+    return buf[:, :n].reshape(rows, n * bs)[:, :size]
+
+
+def _leaf_elems(shape: Tuple[int, ...]) -> int:
+    out = 1
+    for s in shape:
+        out *= int(s)
+    return out
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+def _acc_dtype(dt: torch.dtype) -> torch.dtype:
+    """Accumulation dtype of the reduce-scatter partials: bf16 and f16
+    widen to float32; everything else (int32/int64/float32/float64)
+    accumulates natively, so integer sums are exact (and wrap)."""
+    if dt.is_floating_point and dt.itemsize < 4:
+        return torch.float32
+    return dt
+
+
+# ------------------------------------------------------------ rank groups
+
+
+@dataclass(frozen=True)
+class StackedGroup:
+    """p ranks on one device: rank r's slice of a payload leaf is row r of
+    its leading axis (the reference's global array, unsharded), and the
+    exchange rolls that axis.  ``device=None`` means ``"cuda"`` (the
+    current card) and raises with no card."""
+
+    p: int
+    device: Union[str, torch.device, None] = None
+
+    def __post_init__(self):
+        if int(self.p) < 1:
+            raise ValueError(f"a group needs p >= 1 ranks, got {self.p}")
+        object.__setattr__(self, "p", int(self.p))
+        dev = resolve_device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        object.__setattr__(self, "device", dev)
+
+    @property
+    def ranks(self) -> range:
+        """The ranks this process holds: all of them."""
+        return range(self.p)
+
+    def global_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return shape
+
+    def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        """Rank r's row of each ``[p, ...]`` message goes to rank
+        ``(r + shift) % p``."""
+        return _roll(msgs, shift)
+
+
+@dataclass(frozen=True)
+class DistGroup:
+    """One rank of a ``torch.distributed`` process group a process
+    (``group=None``: the default group, which must be initialized).  A
+    leaf is the rank's shard of the reference's global array (a leading
+    axis of ``shape[0] // p``).  The exchange is one
+    ``batch_isend_irecv``: rank r sends to ``(r + shift) % p`` and
+    receives from ``(r - shift) % p``, every message of the round in one
+    batch.  Only gloo groups are taken, so the tensors live on the CPU."""
+
+    group: Any = None
+    p: int = field(init=False)
+    rank: int = field(init=False)
+    device: torch.device = field(init=False)
+
+    def __post_init__(self):
+        import torch.distributed as dist
+
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "DistGroup needs an initialized torch.distributed process "
+                "group: call torch.distributed.init_process_group first")
+        if dist.get_rank(self.group) < 0:
+            raise ValueError("this process is not a member of the group")
+        backend = dist.get_backend(self.group)
+        if backend != "gloo":
+            raise ValueError(f"DistGroup runs over gloo only, not {backend!r}")
+        object.__setattr__(self, "p", dist.get_world_size(self.group))
+        object.__setattr__(self, "rank", dist.get_rank(self.group))
+        object.__setattr__(self, "device", torch.device("cpu"))
+
+    @property
+    def ranks(self) -> range:
+        """The ranks this process holds: its own."""
+        return range(self.rank, self.rank + 1)
+
+    def global_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return (shape[0] * self.p,) + tuple(shape[1:]) if shape else shape
+
+    def _peer(self, r: int) -> int:
+        import torch.distributed as dist
+
+        return r if self.group is None else dist.get_global_rank(self.group, r)
+
+    def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        import torch.distributed as dist
+
+        dst = self._peer((self.rank + shift) % self.p)
+        src = self._peer((self.rank - shift) % self.p)
+        got = [torch.empty_like(m) for m in msgs]
+        ops = []
+        for i, (m, g) in enumerate(zip(msgs, got)):
+            if m.numel():
+                ops.append(dist.P2POp(dist.isend, m.contiguous(), dst,
+                                      self.group, tag=i))
+                ops.append(dist.P2POp(dist.irecv, g, src, self.group, tag=i))
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+        return got
+
+
+def check_devices(group, leaves) -> None:
+    """Raise ``ValueError`` unless every tensor leaf lies on the group's
+    device: a collective never moves a tensor to another device (NumPy
+    arrays and numbers are host data, copied onto it)."""
+    for i, x in enumerate(leaves):
+        if isinstance(x, torch.Tensor) and x.device != group.device:
+            raise ValueError(f"payload leaf {i} is on {x.device}, the "
+                             f"group's ranks are on {group.device}")
+
+
+# ------------------------------------------------------------ lowerings
+#
+# One lowering per collective kind: it resolves the device slot rows of
+# the group's ranks once and returns ``execute(leaves) -> leaves``.
+
+
+def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
+                     overlap: bool) -> Callable:
+    recv, send, ks = broadcast_slot_plan(bundle, n)
+    shifts = [int(bundle.skip[int(k)]) for k in ks]
+    ranks, dev = group.ranks, group.device
+    tables = (_upload(recv[:, ranks.start:ranks.stop], dev),
+              _upload(send[:, ranks.start:ranks.stop], dev))
+    lr = len(ranks)
+
+    def execute(leaves):
+        bufs, metas = [], []
+        for x in leaves:
+            x = torch.as_tensor(x)
+            size = _leaf_elems(x.shape[1:])
+            buf = torch.zeros((lr, n + 1, -(-size // n)), dtype=x.dtype,
+                              device=dev)
+            if root in ranks:              # every other rank's slice is zero
+                buf[root - ranks.start].view(-1)[:size] = \
+                    x[root - ranks.start].reshape(-1)
+            bufs.append(buf)
+            metas.append((x.shape, size))
+        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
+                               shifts, group.exchange)
+        return [_unblock(b, n, size).reshape(shape)
+                for b, (shape, size) in zip(bufs, metas)]
+
+    return execute
+
+
+def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
+                  overlap: bool, drain: bool = True) -> Callable:
+    """``drain``: every rank but the root returns zeros (the reference's
+    result); the allreduce's broadcast reads only the root's rows, so it
+    skips that."""
+    p = bundle.p
+    fwd, acc, ks = reduce_slot_plan(bundle, n)
+    shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
+    ranks, dev = group.ranks, group.device
+    tables = (_upload(_with_garbage(fwd, n)[:, ranks.start:ranks.stop], dev),
+              _upload(acc[:, ranks.start:ranks.stop], dev))
+    lr = len(ranks)
+
+    def execute(leaves):
+        bufs, metas = [], []
+        for x in leaves:
+            x = torch.as_tensor(x, device=dev)
+            size = _leaf_elems(x.shape[1:])
+            buf = _split_blocks(x.reshape(lr, size), n, n + 2)
+            buf[:, n + 1].fill_(op_identity(op, x.dtype))
+            bufs.append(buf)
+            metas.append((x.shape, size))
+        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
+                              shifts, group.exchange, op)
+        outs = []
+        for b, (shape, size) in zip(bufs, metas):
+            out = _unblock(b, n, size)
+            if drain:
+                if root in ranks:
+                    out[:root - ranks.start].zero_()
+                    out[root - ranks.start + 1:].zero_()
+                else:
+                    out.zero_()
+            outs.append(out.reshape(shape))
+        return outs
+
+    return execute
+
+
+def _lower_allgather(group, bundle, n: int, step: RoundStep,
+                     overlap: bool) -> Callable:
+    p = bundle.p
+    recv, _, ks = broadcast_slot_plan(bundle, n)
+    shifts = [int(bundle.skip[int(k)]) for k in ks]
+    ranks, dev = group.ranks, group.device
+    tables = (_rotated_rows(recv, p, ranks, range(p), None, dev),
+              _rotated_rows(recv, p, ranks, range(p), shifts, dev))
+    lr = len(ranks)
+    exchange = _by_rank(group.exchange, lr)
+
+    def execute(leaves, copies=False):
+        bufs, metas = [], []
+        for x in leaves:
+            x = torch.as_tensor(x, device=dev)
+            size, bs = x.numel() // lr, -(-x.numel() // (lr * n))
+            buf = torch.zeros((lr * p, n + 1, bs), dtype=x.dtype, device=dev)
+            # row r*p + r: rank r's own blocks
+            buf.view(lr * p, (n + 1) * bs)[ranks.start::p + 1][:lr, :size] = \
+                x.reshape(lr, size)
+            bufs.append(buf)
+            metas.append((x.shape, size))
+        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
+                               shifts, exchange)
+        # every rank holds the same p * size elements: return the first
+        # rank's copy, or (copies) each held rank's
+        held = lr if copies else 1
+        outs = [_unblock(b[:held * p], n, size).reshape(
+                    (held, p * (shape[0] // lr)) + tuple(shape[1:]))
+                for b, (shape, size) in zip(bufs, metas)]
+        return outs if copies else [o[0] for o in outs]
+
+    return execute
+
+
+def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
+                      spec: PayloadSpec,
+                      sizes_canon: Tuple[Tuple[int, ...], ...]) -> Callable:
+    """The irregular allgather.  Root j's blocks are ``max(1, ceil(sizes[j]
+    / n))`` elements (per leaf), so the wire carries ``sum(sizes)``, not
+    ``p * max(sizes)`` (paper Figure 2's degenerate case).  The roots of
+    one block size share one buffer of rank-major rows, so a round is one
+    shuffle per leaf and block size, not a pack and an unpack per root;
+    the slot of row ``(r, j)`` is the allgather's."""
+    p = bundle.p
+    recv, _, ks = broadcast_slot_plan(bundle, n)
+    shifts = [int(bundle.skip[int(k)]) for k in ks]
+    ranks, dev = group.ranks, group.device
+    lr = len(ranks)
+    exchange = _by_rank(group.exchange, lr)
+    layouts, tables = [], {}
+    for sizes in sizes_canon:
+        by_bs: dict = {}
+        for j, s in enumerate(sizes):
+            by_bs.setdefault(max(1, -(-s // n)), []).append(j)
+        layout = []
+        for bs, roots in sorted(by_bs.items()):
+            roots = tuple(roots)
+            if roots not in tables:      # the row tables of these roots
+                own = [(r - ranks.start) * len(roots) + roots.index(r)
+                       for r in ranks if r in roots]
+                tables[roots] = (
+                    _rotated_rows(recv, p, ranks, roots, None, dev),
+                    _rotated_rows(recv, p, ranks, roots, shifts, dev),
+                    torch.as_tensor(own, dtype=torch.long, device=dev),
+                    torch.as_tensor([r - ranks.start for r in ranks if r in roots],
+                                    dtype=torch.long, device=dev),
+                    torch.as_tensor(roots, dtype=torch.long, device=dev))
+            layout.append((bs, roots, torch.as_tensor([sizes[j] for j in roots],
+                                                      device=dev)))
+        layouts.append(layout)
+
+    def execute(leaves, copies=False):
+        bufs, bufs_tables, metas = [], [], []
+        for x, layout in zip(leaves, layouts):
+            x = torch.as_tensor(x, device=dev)
+            cap = x.shape[1]
+            for bs, roots, _ in layout:
+                own_rows, own_ranks = tables[roots][2:4]
+                w = min(cap, n * bs)
+                buf = torch.zeros((lr * len(roots), n + 1, bs), dtype=x.dtype,
+                                  device=dev)
+                if own_rows.numel():
+                    buf.view(lr * len(roots), -1)[own_rows, :w] = x[own_ranks, :w]
+                bufs.append(buf)
+                bufs_tables.append(tables[roots][:2])
+            metas.append((x.dtype, cap))
+        bufs = _forward_rounds(step, False, bufs, bufs_tables, shifts, exchange)
+        # the first rank held, or (copies) each: rows j of its copy, cut
+        # at sizes[j]
+        held = lr if copies else 1
+        outs, it = [], iter(bufs)
+        for (dtype, cap), layout in zip(metas, layouts):
+            out = torch.zeros((held, p, cap), dtype=dtype, device=dev)
+            for bs, roots, sizes_t in layout:
+                roots_t = tables[roots][4]
+                w, k = min(cap, n * bs), len(roots)
+                rows = _unblock(next(it)[:held * k], n, w).reshape(held, k, w).clone()
+                rows.masked_fill_(torch.arange(w, device=dev)[None, None, :]
+                                  >= sizes_t[None, :, None], 0)
+                out[:, roots_t, :w] = rows
+            outs.append(out)
+        return outs if copies else [o[0] for o in outs]
+
+    return execute
+
+
+def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
+                          overlap: bool) -> Callable:
+    p = bundle.p
+    fwd, acc, ks = scatter_slot_plan(bundle, n)
+    shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
+    ranks, dev = group.ranks, group.device
+    tables = (_rotated_rows(_with_garbage(fwd, n), p, ranks, range(p), None, dev),
+              _rotated_rows(acc, p, ranks, range(p), None, dev))
+    lr = len(ranks)
+    exchange = _by_rank(group.exchange, lr)
+
+    def execute(leaves):
+        bufs, metas = [], []
+        for x in leaves:
+            x = torch.as_tensor(x, device=dev)
+            shard = x.shape[1] // p
+            # row r*p + j: rank r's contribution to shard j, accumulated in
+            # _acc_dtype (native for ints, float32 for bf16/f16)
+            bufs.append(_split_blocks(x.reshape(lr * p, shard), n, n + 1,
+                                      dtype=_acc_dtype(x.dtype)))
+            metas.append((shard, x.dtype))
+        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
+                              shifts, exchange, "sum")
+        return [_unblock(b[ranks.start::p + 1][:lr], n, shard).to(dt)
+                for b, (shard, dt) in zip(bufs, metas)]
+
+    return execute
+
+
+# ------------------------------------------------------------ plan objects
+
+
+@dataclass(frozen=True, eq=False)
+class CollectivePlan:
+    """A fully precomputed, immutable collective: call it with payloads.
+
+    Everything static was resolved at plan time: the cached schedule
+    bundle, the clamped per-round slot tables (on the device), the
+    per-round shifts and the round-step handle.  ``plan(payload)``
+    validates the payload against ``spec`` and runs the rounds; there is
+    no schedule or slot-table work per call.  Plans are cached
+    process-wide: building the same plan twice returns the same object.
+    """
+
+    kind: str
+    spec: PayloadSpec
+    p: int
+    root: int
+    op: Optional[str]
+    n_blocks: int
+    rounds: int
+    backend: str
+    group: Any
+    #: True when the executor runs the overlapped round loop (bit-exact
+    #: with the sequential one).
+    overlap: bool = False
+    #: Auditable per-phase schedule statics (the cached slot tables the
+    #: executor was built from); () on the p == 1 fast path.
+    statics: Tuple[PhaseStatic, ...] = field(repr=False, default=())
+    _execute: Optional[Callable] = field(repr=False, default=None)
+
+    def __call__(self, payload: Any) -> Any:
+        """Execute the collective -> one payload-shaped tree."""
+        leaves = self._leaves(payload)
+        if self._execute is None:  # p == 1 fast path: nothing moves
+            return payload
+        return tree_unflatten(self.spec.treedef, self._execute(leaves))
+
+    def per_rank(self, payload: Any) -> Any:
+        """Execute an allgather or allgatherv and return every held rank's
+        copy of its replicated result: each leaf gains a leading axis over
+        ``group.ranks`` (all p of them on a :class:`StackedGroup`, the
+        process's own on a :class:`DistGroup`).  ``plan(payload)`` returns
+        the first copy."""
+        _require(self.kind in ("allgather", "allgatherv"),
+                 f"per_rank applies to allgather and allgatherv, not "
+                 f"{self.kind!r}")
+        leaves = self._leaves(payload)
+        if self._execute is None:
+            outs = [torch.as_tensor(x)[None] for x in leaves]
+        else:
+            outs = self._execute(leaves, copies=True)
+        return tree_unflatten(self.spec.treedef, outs)
+
+    def _leaves(self, payload: Any) -> list:
+        """The payload's leaves, checked against ``spec`` and the group's
+        device."""
+        validate_payload(self.spec, payload)
+        leaves, _ = tree_flatten(payload)
+        check_devices(self.group, leaves)
+        return leaves
+
+    def describe(self) -> str:
+        """One-line human summary of the plan."""
+        extra = f" op={self.op}" if self.op else ""
+        if self.overlap:
+            extra += " overlap"
+        return (f"{self.kind} p={self.p} root={self.root} "
+                f"n={self.n_blocks} rounds={self.rounds} "
+                f"backend={self.backend}{extra} spec={self.spec.describe()}")
+
+
+def _plan_statics(kind: str, bundle, n: int,
+                  overlap: bool = False) -> Tuple[PhaseStatic, ...]:
+    """The per-phase audit records of a collective, in execution order
+    (the allreduce's reduction phase before its broadcast phase)."""
+    if kind == "broadcast":
+        return (broadcast_phase_static(bundle, n, overlap=overlap),)
+    if kind in ("allgather", "allgatherv"):
+        return (allgather_phase_static(bundle, n, overlap=overlap),)
+    if kind == "reduce_scatter":
+        return (scatter_phase_static(bundle, n, overlap=overlap),)
+    if kind == "reduce":
+        return (reduce_phase_static(bundle, n, overlap=overlap),)
+    return (reduce_phase_static(bundle, n, overlap=overlap),
+            broadcast_phase_static(bundle, n, overlap=overlap))
+
+
+# --------------------------------------------------------- n-block choice
+
+
+def _resolve_broadcast(spec: PayloadSpec, p: int, n_blocks: Optional[int],
+                       model: CommModel, optimizer) -> int:
+    elems, total = [], 0
+    for shape, dtype in spec.leaves:
+        _require(len(shape) >= 1 and shape[0] == p,
+                 "payload leaves must have leading axis == axis size "
+                 f"(one slice/rank); got {shape} for p={p}")
+        e = _leaf_elems(shape[1:])
+        elems.append(e)
+        total += e * dtype.itemsize
+    n = n_blocks or max(1, optimizer(p, total, model))
+    return min(n, max(1, max(elems)))
+
+
+def _resolve_allgather(spec: PayloadSpec, p: int, n_blocks: Optional[int],
+                       model: CommModel) -> int:
+    shard_elems, total = [], 0
+    for shape, dtype in spec.leaves:
+        _require(len(shape) >= 1 and shape[0] % p == 0,
+                 f"leading dim {shape[0] if shape else 0} not divisible by "
+                 f"axis size {p}")
+        e = (shape[0] // p) * _leaf_elems(shape[1:])
+        shard_elems.append(e)
+        total += e * dtype.itemsize
+    n = n_blocks or max(1, optimal_num_blocks_allgather(p, total * p, model))
+    return min(n, max(1, max(shard_elems)))
+
+
+def _resolve_allgatherv(spec: PayloadSpec, p: int, n_blocks: Optional[int],
+                        model: CommModel,
+                        sizes_canon: Tuple[Tuple[int, ...], ...]) -> int:
+    total = 0
+    min_pos = None
+    for (shape, dtype), sizes in zip(spec.leaves, sizes_canon):
+        _require(len(shape) == 2 and shape[0] == p,
+                 f"allgatherv leaves must be [p, cap]; got {shape} for p={p}")
+        _require(len(sizes) == p, f"sizes must have length p={p}")
+        for s in sizes:
+            _require(0 <= s <= shape[1],
+                     f"size {s} out of range for leaf capacity {shape[1]}")
+            if s > 0:
+                min_pos = s if min_pos is None else min(min_pos, s)
+        total += sum(sizes) * dtype.itemsize
+    n = n_blocks or max(
+        1, optimal_num_blocks_allgather(p, max(total, 1), model))
+    return min(n, max(1, min_pos if min_pos is not None else 1))
+
+
+def _resolve_reduce_scatter(spec: PayloadSpec, p: int,
+                            n_blocks: Optional[int],
+                            model: CommModel) -> int:
+    shards, total = [], 0
+    for shape, dtype in spec.leaves:
+        _require(len(shape) == 2 and shape[0] == p,
+                 f"reduce_scatter leaves must be [p, L]; got {shape}")
+        _require(shape[1] % p == 0,
+                 f"row length {shape[1]} not divisible by p={p}")
+        shards.append(shape[1] // p)
+        total += shape[1] * dtype.itemsize
+    n = n_blocks or max(1, optimal_num_blocks_allgather(p, total, model))
+    return min(n, max(1, max(shards)))
+
+
+def _is_sizes_leaf(x: Any) -> bool:
+    """A per-rank size vector: a flat int sequence or a NumPy array."""
+    if isinstance(x, np.ndarray):
+        return True
+    return isinstance(x, (list, tuple)) and all(
+        isinstance(s, (int, np.integer)) for s in x)
+
+
+def _canon_sizes(spec: PayloadSpec, sizes: Any) -> Tuple[Tuple[int, ...], ...]:
+    """Normalize allgatherv sizes: one per-rank list shared by every
+    leaf, or a pytree of per-rank lists matching the payload structure."""
+    _require(sizes is not None, "allgatherv requires sizes")
+    if _is_sizes_leaf(sizes):
+        per_leaf = [sizes] * spec.num_leaves
+    else:
+        treedef = tree_structure(sizes, is_leaf=_is_sizes_leaf)
+        _require(
+            treedef == spec.treedef,
+            f"sizes tree {treedef} does not match payload tree "
+            f"{spec.treedef} (pass one per-rank list to share it)")
+        per_leaf = tree_leaves(sizes, is_leaf=_is_sizes_leaf)
+    return tuple(tuple(int(s) for s in leaf_sizes) for leaf_sizes in per_leaf)
+
+
+# -------------------------------------------------------------- the comm
+
+
+@dataclass(frozen=True)
+class CirculantComm:
+    """Communicator for the circulant collective family over one rank
+    group (:class:`StackedGroup` or :class:`DistGroup`).
+
+    Binds the static context -- the group, the round-step ``backend``
+    (``"cuda"``: the kernels on a CUDA tensor, their plain versions on a
+    CPU one; ``"torch"``: the plain versions) and the alpha-beta cost
+    ``model`` -- once.  ``plan`` precomputes a :class:`CollectivePlan`;
+    the named collective methods are thin plan-cache lookups over it.
+    Frozen and hashable.
+    """
+
+    group: Any
+    backend: str = "cuda"
+    model: CommModel = DEFAULT_MODEL
+
+    def __post_init__(self):
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown round-step backend {self.backend!r} "
+                f"(use one of {BACKENDS})")
+
+    @property
+    def p(self) -> int:
+        return self.group.p
+
+    # ------------------------------------------------------------- planning
+
+    def plan(self, kind: str, spec: Any, *, n_blocks: Optional[int] = None,
+             root: int = 0, op: str = "sum", sizes: Any = None,
+             qblock: Optional[int] = None,
+             overlap: bool = False) -> CollectivePlan:
+        """Precompute a :class:`CollectivePlan` for ``kind`` and a payload
+        spec (an example payload, a pytree of meta tensors, or a
+        :class:`PayloadSpec`).  Cached process-wide: equal arguments
+        return the identical plan object.
+
+        ``overlap=True`` plans the overlapped round loop (bit-exact with
+        the sequential one) for broadcast / allgather / allbroadcast /
+        reduce / allreduce / reduce_scatter; ``allgatherv`` stays
+        sequential.  ``kind="quantized_allreduce"`` raises
+        ``NotImplementedError``: it runs on one device through
+        ``host_plan("quantized_allreduce", ...)``.
+        """
+        if kind not in KINDS:
+            raise ValueError(f"unknown collective kind {kind!r} "
+                             f"(use one of {KINDS})")
+        kind = _CANONICAL_KIND.get(kind, kind)
+        if kind == "quantized_allreduce":
+            raise NotImplementedError(
+                "quantized_allreduce is not in the communicator yet "
+                "(ROADMAP.md Queue 1 item 6b); host_plan('quantized_allreduce',"
+                " ...) runs it on one device")
+        _require(not overlap or kind != "allgatherv",
+                 f"overlap= is not supported for kind {kind!r}")
+        spec = payload_spec(spec)
+        _require(spec.num_leaves > 0, "payload has no array leaves")
+        # Arguments that don't apply to the kind are rejected (a silently
+        # dropped op= or root= would return wrong results with no
+        # diagnostic), then normalized out of the cache key.
+        rooted = kind in ("broadcast", "reduce", "allreduce")
+        reducing = kind in ("reduce", "allreduce")
+        _require(rooted or int(root) == 0,
+                 f"root= does not apply to kind {kind!r}")
+        _require(reducing or op == "sum",
+                 f"op= does not apply to kind {kind!r}"
+                 + (" (reduce_scatter always sums)"
+                    if kind == "reduce_scatter" else ""))
+        _require(kind == "allgatherv" or sizes is None,
+                 f"sizes= only applies to allgatherv, not {kind!r}")
+        _require(qblock is None,
+                 f"qblock= only applies to quantized_allreduce, not {kind!r}")
+        root_key = int(root) if rooted else 0
+        op_key = op if reducing else None
+        sizes_key = _canon_sizes(spec, sizes) if kind == "allgatherv" else None
+        # Resolve the block count up front (host work, and the payload-shape
+        # validation) so n_blocks=None and an explicit n_blocks equal to the
+        # cost-model optimum key the same entry.
+        n = self._resolve_n(kind, spec, n_blocks, sizes_key)
+        key = ("commplan", self.group, self.backend, self.model, kind, spec,
+               n, root_key, op_key, sizes_key, bool(overlap))
+        return cached_plan(key, lambda: self._build(
+            kind, spec, n, root_key, op_key, sizes_key, overlap=bool(overlap)))
+
+    def _resolve_n(self, kind: str, spec: PayloadSpec,
+                   n_blocks: Optional[int], sizes_canon) -> int:
+        p = self.p
+        if p == 1:
+            # The fast path skips payload-shape validation; sizes lengths
+            # ARE still checked, so a wrong-length sizes list shows before
+            # it meets a real group.
+            if kind == "allgatherv":
+                for sizes in sizes_canon:
+                    _require(len(sizes) == p,
+                             f"sizes must have length p={p}, "
+                             f"got {len(sizes)}")
+            return n_blocks or 1
+        gspec = PayloadSpec(spec.treedef, tuple(
+            (self.group.global_shape(s), d) for s, d in spec.leaves))
+        if kind == "broadcast":
+            return _resolve_broadcast(gspec, p, n_blocks, self.model,
+                                      optimal_num_blocks_bcast)
+        if kind == "allgather":
+            return _resolve_allgather(gspec, p, n_blocks, self.model)
+        if kind == "allgatherv":
+            return _resolve_allgatherv(gspec, p, n_blocks, self.model,
+                                       sizes_canon)
+        if kind == "reduce_scatter":
+            return _resolve_reduce_scatter(gspec, p, n_blocks, self.model)
+        # reduce / allreduce
+        return _resolve_broadcast(gspec, p, n_blocks, self.model,
+                                  optimal_num_blocks_reduce)
+
+    def _build(self, kind: str, spec: PayloadSpec, n: int, root: int,
+               op: Optional[str], sizes_canon,
+               overlap: bool = False) -> CollectivePlan:
+        p, group = self.p, self.group
+        if op is not None:
+            _validate(op)
+        if p == 1:
+            # Fast path: nothing moves on a one-rank group; the plan is
+            # the identity and returns the payload object itself.
+            return CollectivePlan(
+                kind=kind, spec=spec, p=p, root=0, op=op, n_blocks=n,
+                rounds=0, backend=self.backend, group=group,
+                overlap=overlap)
+        bundle = get_bundle(p, root)
+        step = get_round_step(self.backend)
+        rounds = bundle.rounds(n)
+        if kind == "broadcast":
+            ex = _lower_broadcast(group, bundle, n, root, step, overlap)
+        elif kind == "allgather":
+            ex = _lower_allgather(group, bundle, n, step, overlap)
+        elif kind == "allgatherv":
+            ex = _lower_allgatherv(group, bundle, n, step, spec, sizes_canon)
+        elif kind == "reduce_scatter":
+            ex = _lower_reduce_scatter(group, bundle, n, step, overlap)
+        elif kind == "reduce":
+            ex = _lower_reduce(group, bundle, n, root, op, step, overlap)
+        else:  # allreduce: reversed reduce then forward broadcast, one n
+            red = _lower_reduce(group, bundle, n, root, op, step, overlap,
+                                drain=False)
+            bcast = _lower_broadcast(group, bundle, n, root, step, overlap)
+            ex = lambda leaves: bcast(red(leaves))  # noqa: E731
+            rounds = bundle.allreduce_rounds(n)
+        return CollectivePlan(
+            kind=kind, spec=spec, p=p, root=root, op=op, n_blocks=n,
+            rounds=rounds, backend=self.backend, group=group,
+            overlap=overlap, statics=_plan_statics(kind, bundle, n, overlap),
+            _execute=ex)
+
+    # ------------------------------------------------ collective shorthands
+    #
+    # Thin plan-cache lookups: spec from the payload, cached plan, call.
+
+    def broadcast(self, x: Any, *, n_blocks: Optional[int] = None,
+                  root: int = 0, overlap: bool = False) -> Any:
+        """Root's slices reach every rank in ``n-1+ceil(log2 p)`` rounds."""
+        return self.plan("broadcast", payload_spec(x), n_blocks=n_blocks,
+                         root=root, overlap=overlap)(x)
+
+    def allgather(self, x: Any, *, n_blocks: Optional[int] = None,
+                  overlap: bool = False) -> Any:
+        """All-to-all broadcast of equal contributions; replicated out."""
+        return self.plan("allgather", payload_spec(x), n_blocks=n_blocks,
+                         overlap=overlap)(x)
+
+    def allgatherv(self, x: Any, sizes: Any, *,
+                   n_blocks: Optional[int] = None) -> Any:
+        """Irregular allgather; ``sizes`` is one per-rank list (shared by
+        all leaves) or a pytree of per-rank lists matching ``x``."""
+        return self.plan("allgatherv", payload_spec(x), n_blocks=n_blocks,
+                         sizes=sizes)(x)
+
+    def reduce_scatter(self, x: Any, *, n_blocks: Optional[int] = None,
+                       overlap: bool = False) -> Any:
+        """Time-reversed all-to-all broadcast: summed shards, scattered."""
+        return self.plan("reduce_scatter", payload_spec(x),
+                         n_blocks=n_blocks, overlap=overlap)(x)
+
+    def reduce(self, x: Any, *, n_blocks: Optional[int] = None, root: int = 0,
+               op: str = "sum", overlap: bool = False) -> Any:
+        """Op-reduction to ``root`` on the reversed schedule."""
+        return self.plan("reduce", payload_spec(x), n_blocks=n_blocks,
+                         root=root, op=op, overlap=overlap)(x)
+
+    def allreduce(self, x: Any, *, n_blocks: Optional[int] = None,
+                  root: int = 0, op: str = "sum",
+                  overlap: bool = False) -> Any:
+        """Reduce + broadcast composition, ``2(n-1)+2*ceil(log2 p)``."""
+        return self.plan("allreduce", payload_spec(x), n_blocks=n_blocks,
+                         root=root, op=op, overlap=overlap)(x)
+
+    def allbroadcast(self, x: Any, *, n_blocks: Optional[int] = None,
+                     overlap: bool = False) -> Any:
+        """Family name for the all-to-all broadcast (same plan)."""
+        return self.plan("allbroadcast", payload_spec(x),
+                         n_blocks=n_blocks, overlap=overlap)(x)
+
+
+def get_comm(group: Any, *, backend: str = "cuda",
+             model: CommModel = DEFAULT_MODEL) -> CirculantComm:
+    """The process-cached :class:`CirculantComm` for this context
+    (``get_comm(...) is get_comm(...)`` for equal arguments), so the
+    ``circulant_*`` shims share the plan cache with communicator users."""
+    return cached_plan(
+        ("comm", group, backend, model),
+        lambda: CirculantComm(group=group, backend=backend, model=model))

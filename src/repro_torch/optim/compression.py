@@ -13,24 +13,21 @@ it generated, so ``exact_sum == lossy_sum + sum_over_ranks(err)`` holds
 to f32 rounding, and feeding ``g + err`` into the next allreduce
 restores the lost mass.
 
-Pytrees are ``torch.utils._pytree`` trees, flattened in the reference's
-order: ``jax.tree`` takes a plain dict's keys sorted, where torch's
-pytree keeps insertion order, and bucket assignment follows the
-flatten order, so plain dicts are flattened with sorted keys here.
-``None`` is an empty node, as in JAX, not a leaf.
+Pytrees are flattened in the reference's order
+(:mod:`repro_torch.core.tree`): bucket assignment follows the flatten
+order, which sorts a plain dict's keys as ``jax.tree`` does.
 """
 
 from __future__ import annotations
 
-from collections import OrderedDict, defaultdict
 from dataclasses import dataclass
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
-import torch.utils._pytree as pytree
 
 from ..core.comm import resolve_device
+from ..core.tree import tree_flatten, tree_unflatten
 from ..kernels.quant_ops import (
     QBLOCK,
     block_nonfinite,
@@ -53,39 +50,6 @@ __all__ = [
     "unbucketize",
     "init_grad_sync_state",
 ]
-
-
-def _key_sorted(tree):
-    """A copy of the tree's containers with every plain dict's (and
-    defaultdict's) keys in sorted order, as ``jax.tree`` flattens them;
-    an OrderedDict keeps its order, as in JAX."""
-    if isinstance(tree, OrderedDict):
-        return OrderedDict((k, _key_sorted(v)) for k, v in tree.items())
-    if isinstance(tree, defaultdict):
-        return defaultdict(tree.default_factory,
-                           ((k, _key_sorted(tree[k])) for k in sorted(tree)))
-    if type(tree) is dict:
-        return {k: _key_sorted(tree[k]) for k in sorted(tree)}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_key_sorted(v) for v in tree))
-    if type(tree) in (list, tuple):
-        return type(tree)(_key_sorted(v) for v in tree)
-    return tree
-
-
-def tree_flatten(tree):
-    """``(leaves, treedef)`` in ``jax.tree.flatten``'s order."""
-    flat, spec = pytree.tree_flatten(_key_sorted(tree))
-    return [x for x in flat if x is not None], (spec, [x is None for x in flat])
-
-
-def tree_unflatten(treedef, leaves):
-    """Inverse of :func:`tree_flatten` (dicts come back key-sorted, as
-    JAX rebuilds them)."""
-    spec, nones = treedef
-    it = iter(leaves)
-    return pytree.tree_unflatten([None if none else next(it) for none in nones],
-                                 spec)
 
 
 def _numel(leaf) -> int:

@@ -35,6 +35,8 @@ from repro_torch.configs import get_config
 from repro_torch.models import init_params, layer_pattern, prefill
 from repro_torch.serve.engine import Request, ServeLoop
 from repro_torch.core import (
+    StackedGroup,
+    get_comm,
     hier_host_plan,
     host_plan,
     simulate_allgather,
@@ -49,6 +51,8 @@ from repro_torch.kernels import block_pack as bp
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import quant_ops, ref
 from repro_torch.kernels import ssd_scan as ss
+from repro_torch.core.tree import tree_flatten
+from repro_torch.train.restore_broadcast import broadcast_state
 
 pytestmark = pytest.mark.cuda
 
@@ -686,3 +690,131 @@ def test_serve_loop_on_the_card(gen):
         loop.submit(r)
     loop.run()
     assert all(r.done and len(r.out) == 5 for r in reqs)
+
+
+# ------------------------------------------------- the communicator
+
+
+def comm_launches(plan, buffers):
+    """The launches one call of a communicator plan makes: ``buffers``
+    round-step buffers (one a leaf; allgatherv: one a leaf and block
+    size) each take a forward phase of R rounds (pack once, shuffle R - 1
+    times, unpack once; overlapped: the pack once a round, the staged
+    shuffle) or a reversed phase (R + 1 acc_shuffles; overlapped: one
+    acc_shuffle, then a pack and a staged acc_shuffle a round)."""
+    R = plan.statics[0].ks.shape[0]
+    out = {}
+
+    def add(name, k):
+        out[name] = out.get(name, 0) + k * buffers
+
+    for phase in plan.statics:
+        if phase.direction == "fwd":
+            add("block_pack", R if plan.overlap else 1)
+            add("block_shuffle_staged" if plan.overlap else "block_shuffle", R - 1)
+            add("block_unpack", 1)
+        elif plan.overlap:
+            add("block_acc_shuffle", 1)
+            add("block_pack", R)
+            add("block_acc_shuffle_staged", R)
+        else:
+            add("block_acc_shuffle", R + 1)
+    return {k: v for k, v in out.items() if v}
+
+
+def _comm_case(gen, kind, p, elems):
+    """A seeded payload for ``kind`` at p with about ``elems`` elements a
+    rank, mixed dtypes where the kind takes them -> (payload, plan kwargs,
+    round-step buffers a call)."""
+    def f32(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    def i32(*shape):
+        return torch.randint(-2 ** 31, 2 ** 31, shape, generator=gen,
+                             device="cuda", dtype=torch.int32)
+
+    if kind in ("broadcast", "reduce", "allreduce"):
+        x = {"w": f32(p, elems), "b": i32(p, elems // 3 + 1),
+             "t": (f32(p, 5).to(torch.bfloat16),)}
+        return x, {"root": p // 3}, 3
+    if kind in ("allgather", "allbroadcast"):
+        return {"x": f32(p * elems), "y": i32(p, 4)}, {}, 2
+    if kind == "allgatherv":
+        sizes = torch.randint(1, elems + 1, (p,), generator=gen,
+                              device="cuda").tolist()
+        x = {"v": i32(p, elems), "u": f32(p, elems)}
+        n = get_comm(StackedGroup(p)).plan("allgatherv", x, sizes=sizes).n_blocks
+        return x, {"sizes": sizes}, 2 * len({max(1, -(-s // n)) for s in sizes})
+    shard = -(-elems // p)
+    return {"m": f32(p, p * shard), "h": f32(p, p * 3).to(torch.bfloat16)}, {}, 2
+
+
+COMM_KINDS = ["broadcast", "allgather", "allbroadcast", "allgatherv",
+              "reduce_scatter", "reduce", "allreduce"]
+
+
+@pytest.mark.parametrize("kind,overlap", [(k, ov) for k in COMM_KINDS
+                                          for ov in (False, True)
+                                          if not (ov and k == "allgatherv")])
+@pytest.mark.parametrize("p", [2, 5, 37])
+def test_comm_cuda_matches_torch(gen, kind, p, overlap):
+    x, kw, buffers = _comm_case(gen, kind, p, 300)
+    group = StackedGroup(p)
+    plan = get_comm(group).plan(kind, x, overlap=overlap, **kw)
+    plain = get_comm(group, backend="torch").plan(kind, x, overlap=overlap, **kw)
+    before = dict(bp.LAUNCHES)
+    got = plan(x)
+    assert _launched(before) == comm_launches(plan, buffers)
+    want = plain(x)
+    for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        assert g.is_cuda and _same_bits(g.contiguous(), w.contiguous())
+    if plan.kind in ("allgather", "allgatherv"):     # every rank's copy
+        for g, w in zip(tree_flatten(plan.per_rank(x))[0],
+                        tree_flatten(plain.per_rank(x))[0]):
+            assert g.shape[0] == p and _same_bits(g.contiguous(), w.contiguous())
+    if kind == "reduce":
+        y = {"w": x["w"], "b": x["b"]}
+        mx = get_comm(group).reduce(y, op="max", overlap=overlap, **kw)
+        assert torch.equal(mx["w"][kw["root"]], x["w"].amax(0))
+        assert torch.equal(mx["b"][kw["root"]], x["b"].amax(0))
+
+
+def test_comm_cuda_matches_torch_at_1152(gen):
+    """p = 1152: broadcast, reduce (sum and max) and allreduce at 1 MiB a
+    rank, reduce_scatter with 1 MiB rows, the allgathers at 2 KiB a rank
+    (their stacked buffer holds p * p rows), each rank's copy of their
+    result held against the first."""
+    p = 1152
+    group = StackedGroup(p)
+    for kind, elems in (("broadcast", 1 << 18), ("reduce", 1 << 18),
+                        ("allreduce", 1 << 18), ("reduce_scatter", 1 << 18),
+                        ("allgather", 512), ("allgatherv", 512)):
+        x, kw, buffers = _comm_case(gen, kind, p, elems)
+        plan = get_comm(group).plan(kind, x, **kw)
+        before = dict(bp.LAUNCHES)
+        got = tree_flatten(plan(x))[0]
+        assert _launched(before) == comm_launches(plan, buffers), kind
+        want = tree_flatten(get_comm(group, backend="torch").plan(kind, x, **kw)(x))[0]
+        assert all(_same_bits(g.contiguous(), w.contiguous())
+                   for g, w in zip(got, want)), kind
+        if plan.kind in ("allgather", "allgatherv"):
+            # every rank's copy equals the first, bit for bit
+            for c, g in zip(tree_flatten(plan.per_rank(x))[0], got):
+                assert c.shape == (p,) + g.shape, kind
+                assert _same_bits(c.contiguous(),
+                                  g.expand_as(c).contiguous()), kind
+                del c
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def test_broadcast_state_on_the_card(gen):
+    p = 37
+    state = {"w": torch.randn((p, 64, 3), generator=gen, device="cuda").to(torch.bfloat16),
+             "b": torch.randn((p, 64), generator=gen, device="cuda"),
+             "step": torch.arange(p, dtype=torch.int32, device="cuda")}
+    before = dict(bp.LAUNCHES)
+    out = broadcast_state(StackedGroup(p), state, root=5)
+    assert _launched(before)["block_unpack"] == 3      # one message a dtype
+    for k, v in state.items():
+        assert torch.equal(out[k], v[5].expand_as(v))

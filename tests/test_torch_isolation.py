@@ -83,7 +83,8 @@ def test_cuda_path_holds_no_library_indexing():
         r"scatter_reduce_?|scatter_add_?)\b|\btorch\.(add|maximum|where)\b|"
         r"(?<!\bnp)\.(add_?|maximum|where)\s*\(")
     for name in ("kernels/block_pack.py", "core/comm.py", "core/hier.py",
-                 "core/roundstep.py", "core/simulator.py"):
+                 "core/roundstep.py", "core/simulator.py", "core/tree.py",
+                 "core/collectives.py", "train/restore_broadcast.py"):
         src = (PKG / name).read_text()
         assert not pattern.search(src), (name, pattern.search(src))
 
