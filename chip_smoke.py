@@ -57,12 +57,14 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     pytree (an f32 sum of normal values and a wrapping int32 sum, then
     max) and comm_allreduce (2 x 68 rounds); comm_allgather of 8 KiB f32
     a rank (n = 43, 53 rounds); comm_reduce_scatter of [1152, 1152 x 2048]
-    f32 integer values; comm_allgatherv of int32 rows of capacity 2048
-    with seeded sizes in [64, 2048].  Each is held exactly against the
-    expected values, per leaf bit for bit against the port's host_plan
-    where one exists, "cuda" against "torch" (at 1 MiB a rank for the
-    16 MiB payloads), overlapped against sequential, and by its launches,
-    and prints its time beside the flat host plan's.
+    f32 integer values (block_acc_shuffle and block_acc_shuffle_staged are
+    also held bit for bit against their plain versions and timed alone at
+    its 192-byte rows, their short-row grid); comm_allgatherv of int32
+    rows of capacity 2048 with seeded sizes in [64, 2048].  Each is held
+    exactly against the expected values, per leaf bit for bit against the
+    port's host_plan where one exists, "cuda" against "torch" (at 1 MiB a
+    rank for the 16 MiB payloads), overlapped against sequential, and by
+    its launches, and prints its time beside the flat host plan's.
 
 Then the serving path of zamba2-2.7b at its full published configuration
 (54 Mamba2 layers and one shared attention block applied after every 6,
@@ -1147,44 +1149,67 @@ def gatherv_bytes(P_, n, R, groups, cap, itemsize) -> dict:
     return out
 
 
-def acc_kernel_at(torch, bp, ref, g, fwd_rows, acc_rows, nslots, bs) -> dict:
-    """block_acc_shuffle (op sum) alone on a [rows, nslots, bs] float32
-    buffer over a plan's own row tables (fwd [R+1, rows] with the garbage
-    row last, acc [R, rows]): held bit for bit against its plain version
-    at the round with the most coincident rows, then timed over every
-    round (kernel and plain time a launch).  Bound: six rows a row, four
+def acc_kernels_at(torch, bp, ref, g, fwd_rows, acc_rows, nslots, bs) -> dict:
+    """block_acc_shuffle and block_acc_shuffle_staged (op sum) alone on a
+    [rows, nslots, bs] float32 buffer over a plan's own row tables (fwd
+    [R+1, rows] with the garbage row last, acc [R, rows]): each held bit
+    for bit against its plain version at the rounds with the most and the
+    fewest coincident rows, each time on a buffer of fresh normal values
+    (the staged one with pre packed from it by that round's fwd row),
+    then timed over every round (kernel and plain time a launch; the
+    staged one with the last checked pre).  Bound: six rows a row, four
     where acc == fwd, plus the two int32 slot vectors, averaged over the
-    rounds.  Returns the kernel's record."""
+    rounds.  Returns {kernel: record}."""
     R, rows = len(acc_rows), acc_rows.shape[1]
     row, idx = bs * 4, rows * 4
-    work = torch.randn((rows, nslots, bs), generator=g, device="cuda")
+    work = torch.empty((rows, nslots, bs), device="cuda")
     msg = torch.randn((rows, bs), generator=g, device="cuda")
     same = [coincident(acc_rows[t], fwd_rows[t + 1]) for t in range(R)]
-    t = max(range(R), key=same.__getitem__)
+    checked = sorted({max(range(R), key=same.__getitem__),
+                      min(range(R), key=same.__getitem__)})
     chunk = max(1, (512 << 20) // (nslots * row))
-    snap = work.clone()
-    _, k = bp.block_acc_shuffle(work, msg, acc_rows[t], fwd_rows[t + 1])
-    _, r = ref.block_acc_shuffle_ref(snap, msg, acc_rows[t], fwd_rows[t + 1])
-    check(same_bits(torch, work, snap, rows=chunk) and same_bits(torch, k, r, rows=chunk),
-          f"block_acc_shuffle != plain at the reduce_scatter's rows, round {t}")
-    rec = {"max_abs_err": max(max_abs_err(torch, work, snap, rows=chunk),
-                              max_abs_err(torch, k, r, rows=chunk)),
-           "round_checked": t, "its_coincident_rows": same[t]}
-    del snap, k, r
+    eq = lambda a, b: same_bits(torch, a, b, rows=chunk)  # noqa: E731
+    err = lambda a, b: max_abs_err(torch, a, b, rows=chunk)  # noqa: E731
+    names = ("block_acc_shuffle", "block_acc_shuffle_staged")
+    out = {name: {"max_abs_err": 0.0, "rounds_checked": checked,
+                  "their_coincident_rows": [same[t] for t in checked]}
+           for name in names}
+    for t in checked:
+        acc, fwd = acc_rows[t], fwd_rows[t + 1]
+        for name in names:
+            work.normal_(generator=g)
+            snap = work.clone()
+            if name == "block_acc_shuffle":
+                _, k = bp.block_acc_shuffle(work, msg, acc, fwd)
+                _, r = ref.block_acc_shuffle_ref(snap, msg, acc, fwd)
+            else:
+                pre = ref.block_pack_ref(work, fwd)
+                _, k = bp.block_acc_shuffle_staged(work, msg, pre, acc, fwd)
+                _, r = ref.block_acc_shuffle_staged_ref(snap, msg, pre, acc, fwd)
+            check(eq(work, snap) and eq(k, r),
+                  f"{name} != plain at the reduce_scatter's rows, round {t}")
+            out[name]["max_abs_err"] = max(out[name]["max_abs_err"],
+                                           err(work, snap), err(k, r))
+            del snap, k, r
     torch.cuda.synchronize()
 
     def per_launch(fn):
         return cuda_ms(torch, lambda: [fn(i) for i in range(R)], 1) / R
 
-    rec.update(
+    bound = ms_of_bytes(sum((6 * rows - 2 * c) * row + 2 * idx for c in same) / R)
+    out["block_acc_shuffle"].update(
         ms=per_launch(lambda i: bp.block_acc_shuffle(work, msg, acc_rows[i],
                                                      fwd_rows[i + 1])),
         plain_ms=per_launch(lambda i: ref.block_acc_shuffle_ref(
             work, msg, acc_rows[i], fwd_rows[i + 1])),
-        library_ms=None, timed_launches=R,
-        bound_ms=ms_of_bytes(sum((6 * rows - 2 * c) * row + 2 * idx
-                                 for c in same) / R))
-    return rec
+        library_ms=None, timed_launches=R, bound_ms=bound)
+    out["block_acc_shuffle_staged"].update(
+        ms=per_launch(lambda i: bp.block_acc_shuffle_staged(
+            work, msg, pre, acc_rows[i], fwd_rows[i + 1])),
+        plain_ms=per_launch(lambda i: ref.block_acc_shuffle_staged_ref(
+            work, msg, pre, acc_rows[i], fwd_rows[i + 1])),
+        library_ms=None, timed_launches=R, bound_ms=bound)
+    return out
 
 
 def comm_phases(torch, np, card, kmods, g, flat):
@@ -1198,7 +1223,8 @@ def comm_phases(torch, np, card, kmods, g, flat):
     16 MiB payloads, at full size for the rest), overlapped against
     sequential, and by its launch counts.  ``flat``: the flat host plans'
     times of this run at the same bytes.  Returns ({phase: launches}, the
-    record of block_acc_shuffle alone at the reduce_scatter's rows)."""
+    records of block_acc_shuffle and block_acc_shuffle_staged alone at the
+    reduce_scatter's rows)."""
     from repro_torch.core import StackedGroup, get_bundle, get_comm, host_plan
     from repro_torch.core.comm import _rotated_rows, _with_garbage
     from repro_torch.core.roundstep import broadcast_slot_plan, scatter_slot_plan
@@ -1531,10 +1557,11 @@ def comm_phases(torch, np, card, kmods, g, flat):
     bound = sum(by.values())
     del x, m, keep
     torch.cuda.empty_cache()
-    # the kernel alone at these 192-byte rows, over the plan's own rows
-    acc_rec = acc_kernel_at(torch, bp, ref, g, fwd_rows, acc_rows, n + 1, bs)
-    acc_rec.update(kernel="block_acc_shuffle", path="comm_reduce_scatter",
-                   rows=P * P, row_bytes=bs * 4)
+    # the two kernels alone at these 192-byte rows, over the plan's own rows
+    acc_recs = acc_kernels_at(torch, bp, ref, g, fwd_rows, acc_rows, n + 1, bs)
+    for name, path in (("block_acc_shuffle", "comm_reduce_scatter"),
+                       ("block_acc_shuffle_staged", "comm_reduce_scatter_overlap")):
+        acc_recs[name].update(kernel=name, path=path, rows=P * P, row_bytes=bs * 4)
     del fwd_rows, acc_rows
     torch.cuda.empty_cache()
     emit({"phase": "comm_reduce_scatter", "p": P, "n": n, "rounds": R,
@@ -1547,7 +1574,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           "bytes_moved": bound, "bytes_by_step": by,
           "acc_rows_acc_eq_fwd": rs_coincide,
           "bytes_bound_ms": ms_of_bytes(bound),
-          "block_acc_shuffle_at_these_rows": acc_rec, "card": card})
+          "kernels_at_these_rows": acc_recs, "card": card})
 
     # comm_allgatherv: int32 capacity 2048, sizes in [64, 2048]
     fresh()
@@ -1595,7 +1622,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           **t, "flat_ms": None, "allgather_flat_ms": flat["allgather"],
           "bytes_moved": bound, "bytes_by_step": by,
           "bytes_bound_ms": ms_of_bytes(bound), "card": card})
-    return counts, acc_rec
+    return counts, acc_recs
 
 
 def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
@@ -2421,10 +2448,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 9. the plan/execute communicator over the 1152 ranks, pytree payloads
-    comm, acc_rec = comm_phases(torch, np, card, kmods, g, flat_ms)
-    launches["block_acc_shuffle@reduce_scatter"] = \
-        comm["comm_reduce_scatter"]["block_acc_shuffle"]
-    kern["block_acc_shuffle@reduce_scatter"] = acc_rec
+    comm, acc_recs = comm_phases(torch, np, card, kmods, g, flat_ms)
+    for name, rec in acc_recs.items():
+        launches[f"{name}@reduce_scatter"] = comm[rec["path"]][name]
+        kern[f"{name}@reduce_scatter"] = rec
     torch.cuda.empty_cache()
 
     # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop

@@ -15,8 +15,9 @@
 // the row; the chunks of a row stride through it together.  Each thread block
 // reads its row's slot index itself (no scalar prefetch as on the TPU), and
 // traps on an index outside [0, nslots) rather than touch another row.
-// All four copy kernels take another grid for rows of fewer than 32 units
-// (see "short rows" below); the launcher chooses by the units alone.
+// All six data-plane kernels (the four copies and the two accumulating
+// steps) take another grid for rows of fewer than 32 units (see "short
+// rows" below); the launcher chooses by the units alone.
 //
 // What bounds them on an H100: bytes.  They do no arithmetic, so the least
 // time is the bytes they must move over the 3.35 TB/s of device memory:
@@ -26,9 +27,10 @@
 // The simple design answers that with wide, coalesced, aligned accesses and
 // enough thread blocks (R x chunks) to keep every SM's loads in flight; it
 // does not stage through shared memory, since each byte is touched once.
-// At short rows most of such a block idles, so pack, unpack, shuffle and
-// shuffle_staged each have a short-row kernel that packs many rows into each
-// warp instead.  TMA bulk copies and warp specialisation are later work.
+// At short rows most of such a block idles, so pack, unpack, shuffle,
+// shuffle_staged and the two accumulating kernels each have a short-row
+// kernel that packs many rows into each warp instead.  TMA bulk copies and
+// warp specialisation are later work.
 //
 // C interface (bound with ctypes): each entry point makes the given device
 // current, launches on the given stream (the caller's PyTorch stream), does
@@ -160,12 +162,14 @@ shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
 // ------------------------------------------------------------ short rows
 //
 // A row of fewer than kShortUnits units cannot fill a thread block of its
-// own: the allgather's 192-byte rows are 12 units of 16 bytes, so the
-// row x chunk grid above ran 1.33 M blocks of 12 busy threads each, and
-// scheduling blocks, not bytes, set the pace of all four copy kernels
-// (15 % of their bytes bound on an H100).  Their bound is still bytes; the
-// short-row kernels (pack, unpack, shuffle, shuffle_staged) give no row a
-// block.  Thread i of the flat range [0, rows * units) takes unit
+// own: the allgather's and the reduce_scatter's 192-byte rows are 12 units
+// of 16 bytes, so the row x chunk grid above ran 1.33 M blocks of 12 (the
+// accumulating kernels, with units of one element: 48) busy threads each,
+// and scheduling blocks, not bytes, set the pace of all six data-plane
+// kernels (15 % of their bytes bound on an H100).  Their bound is still
+// bytes; the short-row kernels (pack, unpack, shuffle, shuffle_staged, and
+// acc_shuffle_short_kernel below for the two accumulating steps) give no
+// row a block.  Thread i of the flat range [0, rows * units) takes unit
 // j = i mod units of row r = i / units (one 32-bit division), so a warp
 // covers 32 consecutive units of consecutive rows, with no idle lane; its
 // accesses of msg, pre and out, which are [rows, units] contiguous,
@@ -491,8 +495,8 @@ __device__ __forceinline__ T identity() {
 // apart) and loads all of them before it stores any: the stores of one
 // element may alias the loads of the next as far as the compiler knows, so
 // one element per step would leave a single 4-byte load per operand in
-// flight and the kernel latency-bound.  Wider (128-bit) typed loads and
-// TMA are later work.
+// flight and the kernel latency-bound.  Rows of 32 units or more; shorter
+// rows take acc_shuffle_short_kernel, with the same ownership.
 template <typename T, int OP, bool STAGED>
 __global__ void __launch_bounds__(kThreads)
 acc_shuffle_kernel(T* buf, const T* __restrict__ msg,
@@ -531,6 +535,72 @@ acc_shuffle_kernel(T* buf, const T* __restrict__ msg,
         if (!same) adst[j] = c;
         fdst[j] = ident;
         o[j] = same ? c : f[u];
+      }
+    }
+  }
+}
+
+// The accumulating step at short rows, with acc_shuffle_kernel's semantics,
+// on the flat grid of the copy kernels' short rows.  A unit is a Pack of N
+// elements of T: 16 bytes (4 f32, 2 f64, 8 f16 or bf16, 16 int8) when the
+// row's bytes and every pointer allow it, else N = 1.  combine is applied
+// element by element inside the unit, so every result is the one
+// acc_shuffle_kernel computes.  Ownership: the thread that owns unit
+// (r, j) reads buf[r, a, j], msg[r, j] and (when a != f) buf[r, f, j] or
+// pre[r, j] before it writes anything, then writes buf[r, a, j] (only when
+// a != f), buf[r, f, j] and out[r, j]; no other thread touches those
+// addresses, so there is no barrier.  Rows of one warp may disagree on
+// a == f: a branch on a loaded predicate, not a race.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Pack {
+  T e[N];
+};
+
+template <typename T, int OP, bool STAGED, int N>
+__global__ void __launch_bounds__(kThreads)
+acc_shuffle_short_kernel(Pack<T, N>* buf, const Pack<T, N>* __restrict__ msg,
+                         const Pack<T, N>* __restrict__ pre,
+                         const int32_t* __restrict__ acc,
+                         const int32_t* __restrict__ fwd,
+                         Pack<T, N>* __restrict__ out, int64_t nslots,
+                         uint32_t units, uint32_t total) {
+  using V = Pack<T, N>;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t i0 = blockIdx.x * blockDim.x + threadIdx.x; i0 < total;
+       i0 += stride * kShortK) {
+    V a[kShortK], v[kShortK], f[kShortK];
+    int64_t adst[kShortK], fdst[kShortK];
+    bool same[kShortK];
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        const uint32_t r = i / units;
+        const int64_t j = i - r * units;
+        const int64_t row = (int64_t)r * nslots;
+        const int64_t as = load_slot(acc, r, nslots);
+        const int64_t fs = load_slot(fwd, r, nslots);
+        same[k] = as == fs;
+        adst[k] = (row + as) * units + j;
+        fdst[k] = (row + fs) * units + j;
+        a[k] = buf[adst[k]];
+        v[k] = msg[i];
+        if (!same[k]) f[k] = STAGED ? pre[i] : buf[fdst[k]];
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kShortK; ++k) {
+      const uint32_t i = i0 + k * stride;
+      if (i < total) {
+        V c, z;
+#pragma unroll
+        for (int e = 0; e < N; ++e) {
+          c.e[e] = combine<T, OP>(a[k].e[e], v[k].e[e]);
+          z.e[e] = identity<T, OP>();
+        }
+        if (!same[k]) buf[adst[k]] = c;
+        buf[fdst[k]] = z;
+        out[i] = same[k] ? c : f[k];
       }
     }
   }
@@ -859,17 +929,52 @@ int shuffle_staged_typed(void* buf, const void* msg, const void* pre,
   return (int)cudaGetLastError();
 }
 
+// The short-row accumulating step in units of N elements: rows r0 on of
+// each slab start at r0 * nslots * units units into buf, r0 * units into
+// msg, pre and out.
+template <typename T, int OP, bool STAGED, int N>
+int acc_short(void* buf, const void* msg, const void* pre, const int32_t* a,
+              const int32_t* f, void* out, int64_t R, int64_t nslots,
+              int64_t units, cudaStream_t stream) {
+  using V = Pack<T, N>;
+  V* b = static_cast<V*>(buf);
+  const V* m = static_cast<const V*>(msg);
+  const V* p = static_cast<const V*>(pre);
+  V* o = static_cast<V*>(out);
+  static std::atomic<int> per_sm{0};
+  return by_slabs(acc_shuffle_short_kernel<T, OP, STAGED, N>, per_sm, R, units,
+                  [&](int64_t r0, uint32_t total, unsigned grid) {
+    acc_shuffle_short_kernel<T, OP, STAGED, N><<<grid, kThreads, 0, stream>>>(
+        b + r0 * nslots * units, m + r0 * units, STAGED ? p + r0 * units : p,
+        a + r0, f + r0, o + r0 * units, nslots, (uint32_t)units, total);
+  });
+}
+
 template <typename T, bool STAGED>
 int acc_typed(void* buf, const void* msg, const void* pre, const void* acc,
               const void* fwd, void* out, int op, int64_t R, int64_t nslots,
               int64_t row_bytes, cudaStream_t stream) {
   const int64_t bs = row_bytes / (int64_t)sizeof(T);
+  const int32_t* a = static_cast<const int32_t*>(acc);
+  const int32_t* f = static_cast<const int32_t*>(fwd);
+  constexpr int N = 16 / (int)sizeof(T);
+  const uintptr_t ptrs =
+      (uintptr_t)buf | (uintptr_t)msg | (uintptr_t)pre | (uintptr_t)out;
+  const bool wide = row_bytes % 16 == 0 && ptrs % 16 == 0;
+  const int64_t units = wide ? bs / N : bs;
+  if (units < kShortUnits) {
+    if (wide)
+      return op == 0
+          ? acc_short<T, 0, STAGED, N>(buf, msg, pre, a, f, out, R, nslots, units, stream)
+          : acc_short<T, 1, STAGED, N>(buf, msg, pre, a, f, out, R, nslots, units, stream);
+    return op == 0
+        ? acc_short<T, 0, STAGED, 1>(buf, msg, pre, a, f, out, R, nslots, units, stream)
+        : acc_short<T, 1, STAGED, 1>(buf, msg, pre, a, f, out, R, nslots, units, stream);
+  }
   const dim3 grid = grid_for(R, bs);
   T* b = static_cast<T*>(buf);
   const T* m = static_cast<const T*>(msg);
   const T* p = static_cast<const T*>(pre);
-  const int32_t* a = static_cast<const int32_t*>(acc);
-  const int32_t* f = static_cast<const int32_t*>(fwd);
   T* o = static_cast<T*>(out);
   if (op == 0)
     acc_shuffle_kernel<T, 0, STAGED><<<grid, kThreads, 0, stream>>>(

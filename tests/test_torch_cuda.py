@@ -61,13 +61,14 @@ DTYPES = [torch.float32, torch.bfloat16, torch.float64, torch.int64,
 ACC_DTYPES = DTYPES + [torch.float16, torch.int16]
 _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 SHAPES = [(1, 4, 8), (37, 6, 131), (64, 9, 4096)]
-#: Short rows, which the copy kernels' short-row path takes (fewer than 32
-#: units): in float32, rows of 1, 3, 12, 15, 16, 17, 31, 32 and 33
-#: 16-byte units (32 and 33 take the long path); the allgather's 192-byte
-#: rows (p = 1152: 8 KiB a rank in 44 blocks of 48) at 70,000 rows, past
-#: any 65,535 grid limit; rows of 5 elements (5 bytes in int8: 1-byte
-#: units).  A fourth entry offsets every operand by that many elements,
-#: so the unit width falls to the element's (4, 2 or 1 bytes).
+#: Short rows, which the short-row path of the copy and accumulating
+#: kernels takes (fewer than 32 units): in float32, rows of 1, 3, 12, 15,
+#: 16, 17, 31, 32 and 33 16-byte units (32 and 33 take the long path); the
+#: allgather's and the reduce_scatter's 192-byte rows (p = 1152: 8 KiB a
+#: rank in 44 blocks of 48) at 70,000 rows, past any 65,535 grid limit;
+#: rows of 5 elements (5 bytes in int8: 1-byte units).  A fourth entry
+#: offsets every operand by that many elements, so the unit width falls to
+#: the element's (the accumulating kernels: one element a unit).
 SHORT_SHAPES = [(300, 5, 4 * u) for u in (1, 3, 12, 15, 16, 17, 31, 32, 33)] + [
     (70_000, 9, 48), (600, 6, 5), (600, 6, 5, 1), (600, 6, 12, 1),
     (600, 6, 48, 1)]
@@ -191,7 +192,7 @@ def _specials(dtype, shape, gen):
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
 @pytest.mark.parametrize("dtype", ACC_DTYPES, ids=str)
 def test_acc_shuffles_match_plain(gen, dtype, shape, op):
     buf, msg, acc, fwd = _specials(dtype, shape, gen)
@@ -211,6 +212,30 @@ def test_acc_shuffles_match_plain(gen, dtype, shape, op):
     assert {k: bp.LAUNCHES[k] - before[k] for k in
             ("block_acc_shuffle", "block_acc_shuffle_staged")} == {
         "block_acc_shuffle": 1, "block_acc_shuffle_staged": 1}
+
+
+def test_acc_shuffles_cross_a_slab(gen):
+    """The accumulating kernels' counterpart of
+    test_copy_kernels_cross_a_slab: rows of one int8 element, 2^26 + 5 of
+    them, so the short-row launcher takes a second slab of 5 rows.  Both
+    kernels against their plain versions, bit for bit, one launch each."""
+    R = (1 << 26) + 5
+    buf, msg, acc, fwd = _operands(gen, (R, 2, 1), torch.int8)
+    pre = ref.block_pack_ref(buf, fwd)
+    before = dict(bp.LAUNCHES)
+    a, b = buf.clone(), buf.clone()
+    _, ko = bp.block_acc_shuffle(a, msg, acc, fwd)
+    _, ro = ref.block_acc_shuffle_ref(b, msg, acc, fwd, "sum")
+    assert torch.equal(a, b) and torch.equal(ko, ro)
+
+    a, b = buf.clone(), buf.clone()
+    _, ko = bp.block_acc_shuffle_staged(a, msg, pre, acc, fwd)
+    _, ro = ref.block_acc_shuffle_staged_ref(b, msg, pre, acc, fwd, "sum")
+    assert torch.equal(a, b) and torch.equal(ko, ro)
+    torch.cuda.synchronize()
+    assert {k: bp.LAUNCHES[k] - before[k] for k in before} == {
+        **dict.fromkeys(before, 0), "block_acc_shuffle": 1,
+        "block_acc_shuffle_staged": 1}
 
 
 def test_acc_shuffle_keeps_denormals(gen):

@@ -32,9 +32,10 @@ from repro_torch.kernels import ref
 DTYPES = ["float32", "int32", "bfloat16", "float64", "int64"]
 SHAPES = [(1, 4, 8), (8, 6, 16), (17, 9, 131)]
 #: Short rows, as the CUDA kernels' short-row path takes them: the
-#: allgather's (8 KiB a rank, p = 1152: 44 slots of 48 float32, 192-byte
-#: rows) at 40 rows, and rows of 5 elements (5 bytes in int8, copied a
-#: byte at a time on the card).
+#: allgather's and the reduce_scatter's (8 KiB a rank, p = 1152: 44 slots
+#: of 48 float32, 192-byte rows) at 40 rows, and rows of 5 elements (5
+#: bytes in int8, copied a byte at a time on the card; accumulated an
+#: element at a time in every dtype).
 SHORT_SHAPES = [(40, 44, 48), (24, 6, 5)]
 _BITS = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
 
@@ -177,11 +178,12 @@ def _check_acc_shuffles(op, dtype, buf, msg, pre, acc, fwd, pallas):
 
 
 @pytest.mark.parametrize("op", ["sum", "max"])
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + SHORT_SHAPES)
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_acc_shuffles_match_jax(dtype, shape, op):
     case = _acc_cases(op, dtype, shape, 7)
-    _check_acc_shuffles(op, dtype, *case, pallas=shape == SHAPES[1])
+    _check_acc_shuffles(op, dtype, *case,
+                        pallas=shape == SHAPES[1] or shape in SHORT_SHAPES)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
