@@ -64,7 +64,34 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     exactly against the expected values, per leaf bit for bit against the
     port's host_plan where one exists, "cuda" against "torch" (at 1 MiB a
     rank for the 16 MiB payloads), overlapped against sequential, and by
-    its launches, and prints its time beside the flat host plan's.
+    its launches, and prints its time beside the flat host plan's;
+  * comm_quantized_allreduce: the communicator's int8-wire allreduce of
+    the same 4 MiB bucket at p = 1152, root 100, as a one-leaf payload
+    (its sums and errors equal to the host plan's bit for bit) and as the
+    6-leaf q/k/v pytree, two error-feedback steps each: every rank's sums
+    identical, "cuda" equal to "torch", sums plus errors the exact sum,
+    and the launches of its rounds (a leaf: R + 1 qacc_shuffles, 2 packs,
+    2(R - 1) shuffles, 2 unpacks), timed beside the host plan.
+
+Then the training path of Qwen2-0.5B at its published width (24 layers,
+d_model 896, vocab 151,936, 494,032,768 parameters in bf16, random
+weights from the seed) over ``StackedGroup(4)``:
+
+  * compressed_grad_sync of its full gradient in the reference's layout
+    (14 leaves in 10 buckets of 4 MiB, n = 99), two error-feedback steps,
+    with the same checks and launches;
+  * train: ``make_train_step`` with ``grad_sync="compressed"``, 2
+    microbatches and ``remat="full"`` takes 3 steps of ``SyntheticLM``
+    batches (global batch 8 of 1024 tokens); the same steps with
+    ``grad_sync="auto"`` start from the same weights, and one step with
+    ``stream_grad_sync=True``.  Every loss finite, the compressed ones
+    within 0.05 x max(1, loss_0) of the auto ones (the reference's
+    ``mp_worker.check_gradsync`` bound), the streamed step within it of
+    the post-backward one (its loss, and the loss on the next batch after
+    it); per step its time, tokens/s, loss, grad_norm, the sync's share
+    and the peak memory.  Training runs attention through its plain
+    version, as the reference trains through jnp: an auto step launches
+    no kernel.
 
 Then the serving path of zamba2-2.7b at its full published configuration
 (54 Mamba2 layers and one shared attention block applied after every 6,
@@ -190,6 +217,11 @@ PREFILL_RTOL = 0.1
 #: order of f32 sums differs, so max |logits - plain| <= 1e-3 * max |plain|.
 PREFILL_RTOL_F32 = 1e-3
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 128, 8, 16
+#: The training path: Qwen2-0.5B at full width over 4 stacked ranks, global
+#: batch 8 of 1024 tokens, 3 steps.  By the shapes, the sync holds about 4
+#: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
+#: 32 GB at 4 ranks, twice that at 8, beside the model.
+TRAIN_ARCH, TRAIN_P, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 4, 8, 1024, 3
 
 
 def emit(obj) -> None:
@@ -559,6 +591,55 @@ def qacc_row_bytes(bs, nb, coincide, rows):
     two int8 rows and two scale rows; a coincident row four float32 rows."""
     row, wire = bs * 4, 2 * (bs + nb * 4)
     return (6 * rows - 2 * coincide) * row + rows * wire
+
+
+def quantized_bytes(P_, n, R, bs, nb, slots, in_elems) -> tuple:
+    """Bytes one quantized allreduce of a leaf must move, from the plan's
+    own tables (``slots``: fwd, acc, recv, send, over all ``P_`` ranks):
+    its ``in_elems`` float32 a rank copied into the [n+2, bs] buffer, the
+    qacc_shuffles, the rolls of the int8 payload and the scales, the
+    root's requantization, the broadcast of both and the dequantize."""
+    row, qrow, srow = bs * 4, bs, nb * 4
+    _, coincide = reduce_bytes(P_, n, R, row, *slots[:2])
+    bq, _ = bcast_bytes(P_, n, R, qrow, *slots[2:], upload_rows=2)
+    bsc, _ = bcast_bytes(P_, n, R, srow, *slots[2:], upload_rows=2)
+    return {
+        "setup": P_ * in_elems * 4 + P_ * n * row + 2 * P_ * row
+        + P_ * (n + 2) * row,
+        "zero_messages": P_ * (qrow + srow),
+        "qacc_shuffle": qacc_row_bytes(bs, nb, coincide, (R + 1) * P_),
+        "reduce_rolls": R * 2 * P_ * (qrow + srow),
+        "root_requantize": 3 * n * row + n * (qrow + srow),
+        "broadcast_rounds": sum(bq.values()) + sum(bsc.values()),
+        "dequantize": P_ * n * (qrow + srow + row),
+    }, coincide
+
+
+def quantized_launches(plan, leaves: int) -> dict:
+    """The launches of one call of a quantized_allreduce plan: each leaf
+    takes R + 1 qacc_shuffles, then the broadcast of its int8 payload and
+    its scales (two buffers: a pack, R - 1 shuffles and an unpack each)."""
+    R = len(plan.statics[0].ks)
+    out = {"block_qacc_shuffle": (R + 1) * leaves, "block_pack": 2 * leaves,
+           "block_shuffle": 2 * (R - 1) * leaves, "block_unpack": 2 * leaves}
+    return {k: v for k, v in out.items() if v}
+
+
+def completeness(torch, src, out, err, p, chunk=1 << 16):
+    """max |sum_r src - (p * out_row + sum_r err)| over a [p, m] f32 pair
+    of a quantized sum (``out``: the rows' common result in sum units,
+    [m]), and whether it is within the reference test's tolerance
+    (f64 sums, chunks of ``chunk`` elements)."""
+    worst, within = 0.0, True
+    for i in range(0, src.shape[1], chunk):
+        s = src[:, i:i + chunk].double()
+        exact = s.sum(0)
+        resid = (out[i:i + chunk].double() + err[:, i:i + chunk].double().sum(0)
+                 - exact).abs()
+        tol = 1e-4 * torch.maximum(exact.abs(), s.abs().amax(0) * p) + 1e-6
+        worst = max(worst, float(resid.max()))
+        within = within and bool((resid <= tol).all())
+    return worst, within
 
 
 def compare_qacc(torch, bp, ref, qops, g, R, nslots, qb, nbk, timed: bool):
@@ -1625,6 +1706,363 @@ def comm_phases(torch, np, card, kmods, g, flat):
     return counts, acc_recs
 
 
+def comm_quantized_phase(torch, np, card, kmods, g, host) -> dict:
+    """The communicator's quantized_allreduce over StackedGroup(1152), root
+    100, of the 4 MiB bucket as a one-leaf payload and of the same q/k/v
+    weights and biases as a 6-leaf pytree, two error-feedback steps each.
+    The one-leaf sums and errors must equal the host plan's (``host``:
+    this run's plan, its inputs maker, time and bound) bit for bit; both
+    payloads: every rank's sums the same, "cuda" equal to "torch" (NaN by
+    position), sums plus errors the exact sum within the reference test's
+    tolerance, the launches of the rounds.  Returns {payload: launches}."""
+    from repro_torch.core.comm import StackedGroup, get_comm
+    from repro_torch.optim.compression import tree_flatten, tree_unflatten
+
+    group = StackedGroup(P)
+    comm, plain = get_comm(group), get_comm(group, backend="torch")
+    n, bs, elems = host["n"], host["bs"], host["elems"]
+    lines, out_launches = {}, {}
+
+    def payloads():
+        """Each rank's q/k/v gradients: the bucket as one [P, 1033344]
+        leaf, the host plan's padded [P, n, bs] blocks, and the tree."""
+        vals, _ = host["make"]()
+        leaves, treedef = tree_flatten({k: {n_: torch.empty(sh, device="meta")
+                                            for n_, sh in d.items()}
+                                        for k, d in QKV_SHAPES.items()})
+        flat = vals.view(P, -1)[:, :elems]
+        parts, off = [], 0
+        for x in leaves:
+            size = math.prod(x.shape)
+            parts.append(flat[:, off:off + size].reshape((P,) + tuple(x.shape)))
+            off += size
+        return vals, tree_unflatten(treedef, parts)
+
+    vals, tree = payloads()
+    for name in ("one_leaf", "pytree"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if name == "one_leaf":
+            x = [vals.view(P, -1)[:, :elems].contiguous()]
+        else:
+            x = {k: {n_: v.contiguous() for n_, v in d.items()} for k, d in tree.items()}
+        L = len(tree_flatten(x)[0])
+        plan = comm.plan("quantized_allreduce", x, root=BCAST_ROOT, qblock=QBLOCK)
+        pplan = plain.plan("quantized_allreduce", x, root=BCAST_ROOT, qblock=QBLOCK)
+        expect = quantized_launches(plan, L)
+        steps, hvals = [], vals
+        for step_no in (1, 2):
+            (sums, errs), got = counted_run(torch, kmods, lambda: plan(x))
+            check(got == expect, f"comm quantized {name} step {step_no} launches "
+                                 f"{got} != {expect}")
+            out_launches[name] = got
+            s_l, e_l = tree_flatten(sums)[0], tree_flatten(errs)[0]
+            x_l = tree_flatten(x)[0]
+            resid_max, same_rows = 0.0, True
+            for xs, ss_, es in zip(x_l, s_l, e_l):
+                check(bool(torch.isfinite(ss_).all()) and bool(torch.isfinite(es).all()),
+                      f"comm quantized {name}: non-finite sums or errors")
+                xs2, ss2, es2 = xs.reshape(P, -1), ss_.reshape(P, -1), es.reshape(P, -1)
+                same_rows = same_rows and all(
+                    same_bits(torch, ss2[i:i + 64], ss2[0].expand(min(64, P - i), -1))
+                    for i in range(0, P, 64))
+                resid, within = completeness(torch, xs2, ss2[0], es2, P)
+                check(within, f"comm quantized {name} step {step_no}: sums + errors "
+                              f"miss the exact sum by {resid}")
+                resid_max = max(resid_max, resid)
+            check(same_rows, f"comm quantized {name} step {step_no}: ranks differ")
+            if name == "one_leaf":
+                hout, herr = host["plan"].run(hvals)
+                check(same_bits(torch, hout.reshape(P, -1)[:, :elems], s_l[0])
+                      and same_bits(torch, herr.reshape(P, -1)[:, :elems], e_l[0]),
+                      f"comm quantized one leaf step {step_no} != host plan")
+                del hout, herr
+            psums, perrs = pplan(x)
+            check(all(same_or_nan(torch, a.reshape(P, -1), b.reshape(P, -1))
+                      for a, b in zip(s_l + e_l, tree_flatten(psums)[0]
+                                      + tree_flatten(perrs)[0])),
+                  f"comm quantized {name} step {step_no}: cuda != torch")
+            del psums, perrs
+            steps.append({"step": step_no, "completeness_max_abs": resid_max})
+            if step_no == 1:
+                # error feedback: the next gradients plus this step's errors
+                vals2, tree2 = payloads()
+                if name == "one_leaf":
+                    x = [vals2.view(P, -1)[:, :elems] + e_l[0]]
+                    hvals = torch.zeros_like(vals2)
+                    hvals.view(P, -1)[:, :elems] = x[0]
+                else:
+                    x = tree_unflatten(tree_flatten(x)[1], [
+                        (a + b).contiguous() for a, b in zip(tree_flatten(tree2)[0], e_l)])
+                del vals2, tree2, sums, errs, s_l, e_l
+                torch.cuda.empty_cache()
+        del sums, errs
+        torch.cuda.empty_cache()
+        ms, runs = median_ms(torch, lambda: plan(x), 5)
+        peak = torch.cuda.max_memory_allocated()
+        host_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan(x)
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        plain_ms, plain_runs = median_ms(torch, lambda: pplan(x), 3)
+        R = len(plan.statics[0].ks)
+        slots = plan.statics[0].slots + plan.statics[1].slots
+        by = {}
+        for leaf in tree_flatten(x)[0]:
+            size = math.prod(leaf.shape[1:])
+            lbs = -(-(-(-size // plan.n_blocks)) // QBLOCK) * QBLOCK
+            b, _ = quantized_bytes(P, plan.n_blocks, R, lbs, lbs // QBLOCK, slots, size)
+            for k, v in b.items():
+                by[k] = by.get(k, 0) + v
+        lines[name] = {"leaves": L, "n": plan.n_blocks, "rounds": plan.rounds,
+                       "launches": expect, "steps": steps,
+                       "every_rank_identical": True, "equal_to_torch_backend": True,
+                       "sums_plus_errors_complete": True,
+                       **({"equal_to_host_plan": True} if name == "one_leaf" else {}),
+                       "ms": ms, "ms_runs": runs, "plain_ms": plain_ms,
+                       "plain_ms_runs": plain_runs, "host_call_ms": sorted(host_ms)[2],
+                       "bytes_moved": sum(by.values()), "bytes_by_step": by,
+                       "bytes_bound_ms": ms_of_bytes(sum(by.values())),
+                       "max_memory_allocated": peak}
+        del x, plan, pplan
+    del vals, tree
+    torch.cuda.empty_cache()
+    emit({"phase": "comm_quantized_allreduce", "p": P, "root": BCAST_ROOT,
+          "qblock": QBLOCK, "bucket_elems": elems, **lines,
+          "host_plan_ms": host["ms"], "host_plan_bytes_bound_ms": host["bound_ms"],
+          "card": card})
+    return {f"comm_quantized_allreduce/{k}": v for k, v in out_launches.items()}
+
+
+def train_phases(torch, np, card, kmods, g) -> dict:
+    """Qwen2-0.5B at its published width (24 layers, d_model 896, vocab
+    151,936; 494,032,768 parameters, random bf16 weights from the seed):
+    compressed_grad_sync of its full gradient at p = 4 stacked ranks, then
+    the trainer's steps.  Returns {path: launches} for the kernels line."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.collectives import circulant_qallreduce
+    from repro_torch.core.comm import StackedGroup, get_comm
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.models import init_params
+    from repro_torch.models.convert import stack_layers
+    from repro_torch.optim import compression as comp
+    from repro_torch.train import (
+        TrainConfig,
+        grad_bucket_spec,
+        init_train_state,
+        make_eval_step,
+        make_train_step,
+    )
+    from repro_torch.train import trainer as trainer_mod
+
+    cfg = get_config(TRAIN_ARCH)
+    group = StackedGroup(TRAIN_P)
+    spec = grad_bucket_spec(cfg, TrainConfig())
+    check((spec.num_buckets, len(spec.leaf_sizes), sum(spec.leaf_sizes))
+          == (10, 14, 494_032_768), f"qwen2-0.5b buckets {spec.num_buckets}")
+    model = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    tree0 = stack_layers(model, cfg)
+    del model
+    leaves0, treedef = tree_flatten(tree0)
+    launches = {}
+
+    # --- compressed_grad_sync of the full gradient, two feedback steps
+    def grads():
+        return tree_unflatten(treedef, [
+            (torch.randn((TRAIN_P,) + tuple(x.shape), generator=g, device="cuda")
+             * 1e-3).to(x.dtype) for x in leaves0])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    errs = comp.init_grad_sync_state(spec, TRAIN_P)
+    plan = None
+    steps = []
+    for step_no in (1, 2):
+        gr = grads()
+        (mean, new), got = counted_run(torch, kmods, lambda: comp.compressed_grad_sync(
+            gr, errs, group, spec))
+        if plan is None:
+            plan = get_comm(group).plan("quantized_allreduce", [
+                torch.empty((TRAIN_P, s), device="meta") for s in spec.bucket_sizes])
+            expect = quantized_launches(plan, spec.num_buckets)
+        check(got == expect, f"compressed_grad_sync launches {got} != {expect}")
+        launches["compressed_grad_sync"] = got
+        m_l = tree_flatten(mean)[0]
+        check(all(bool(torch.isfinite(m.float()).all()) for m in m_l)
+              and all(bool(torch.isfinite(e).all()) for e in new),
+              f"compressed_grad_sync step {step_no}: non-finite mean or errors")
+        check(all(same_bits(torch, m[r], m[0]) for m in m_l for r in range(1, TRAIN_P)),
+              f"compressed_grad_sync step {step_no}: ranks differ")
+        # completeness, a bucket at a time: sum_r (g + e) == p * mean + sum_r new
+        targets = comp._bucket_rows(tree_flatten(gr)[0], spec)
+        means = comp._bucket_rows([m[:1] for m in m_l], spec)
+        worst = 0.0
+        for b, (t, e_in, mb, e_out) in enumerate(zip(targets, errs, means, new)):
+            resid, within = completeness(torch, t + e_in, mb[0] * TRAIN_P, e_out,
+                                         TRAIN_P, chunk=1 << 22)
+            check(within, f"compressed_grad_sync step {step_no} bucket {b}: "
+                          f"mean + errors miss the exact sum by {resid}")
+            worst = max(worst, resid)
+        del targets, means
+        torch.cuda.empty_cache()
+        pmean, pnew = comp.compressed_grad_sync(gr, errs, group, spec, backend="torch")
+        check(all(same_or_nan(torch, a, b) for a, b in
+                  zip(m_l + list(new), tree_flatten(pmean)[0] + list(pnew))),
+              f"compressed_grad_sync step {step_no}: cuda != torch")
+        del pmean, pnew, m_l, mean
+        steps.append({"step": step_no, "launches": got, "completeness_max_abs": worst})
+        errs = new
+        del new
+        torch.cuda.empty_cache()
+    sync_ms, sync_runs = median_ms(torch, lambda: comp.compressed_grad_sync(
+        gr, errs, group, spec), 3)
+    # one call alone: its peak above what the caller holds, and the
+    # allreduce of the ten buckets alone (the rest is bucketing and the
+    # downcast of the mean)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    comp.compressed_grad_sync(gr, errs, group, spec)
+    torch.cuda.synchronize()
+    sync_peak = torch.cuda.max_memory_allocated() - held
+    targets = [t + e for t, e in zip(comp._bucket_rows(tree_flatten(gr)[0], spec), errs)]
+    ar_ms, ar_runs = median_ms(torch, lambda: circulant_qallreduce(group, targets), 3)
+    del targets
+    R = len(plan.statics[0].ks)
+    slots = plan.statics[0].slots + plan.statics[1].slots
+    by = {"bucketize": 0}
+    for size in spec.bucket_sizes:
+        bs = -(-(-(-size // plan.n_blocks)) // QBLOCK) * QBLOCK
+        b, _ = quantized_bytes(TRAIN_P, plan.n_blocks, R, bs, bs // QBLOCK, slots, size)
+        for k, v in b.items():
+            by[k] = by.get(k, 0) + v
+    for x, size in zip(leaves0, spec.leaf_sizes):
+        # read the gradient, write the f32 target after reading the error;
+        # then read the sum, write the mean, read and write the error
+        by["bucketize"] += TRAIN_P * size * (x.element_size() + 4 + 4
+                                             + 4 + x.element_size() + 8)
+    del gr, errs
+    torch.cuda.empty_cache()
+    ar_bytes = sum(v for k, v in by.items() if k != "bucketize")
+    emit({"phase": "compressed_grad_sync", "arch": TRAIN_ARCH, "p": TRAIN_P,
+          "buckets": spec.num_buckets, "leaves": len(spec.leaf_sizes),
+          "elems_per_rank": sum(spec.leaf_sizes), "n": plan.n_blocks,
+          "rounds": plan.rounds, "launches": expect, "steps": steps,
+          "every_rank_identical": True, "equal_to_torch_backend": True,
+          "sums_plus_errors_complete": True, "ms": sync_ms, "ms_runs": sync_runs,
+          "allreduce_ms": ar_ms, "allreduce_ms_runs": ar_runs,
+          "allreduce_bytes_bound_ms": ms_of_bytes(ar_bytes),
+          "bytes_moved": sum(by.values()), "bytes_by_step": by,
+          "bytes_bound_ms": ms_of_bytes(sum(by.values())),
+          "peak_above_held_bytes": sync_peak,
+          "max_memory_allocated": sync_peak + held, "card": card})
+
+    # --- the trainer: compressed against auto from the same weights
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B, seed=SEED))
+    batches = [data.batch_at(i) for i in range(TRAIN_STEPS)]
+    tokens = TRAIN_B * TRAIN_S
+    evaluate = make_eval_step(cfg)
+    sync_times, update_times = [], []
+    real_sync, real_update = trainer_mod.compressed_grad_sync, trainer_mod.apply_updates
+
+    def timer(fn, times):
+        """``fn`` timed on the host clock, the card synchronised around it."""
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed
+
+    def run(tcfg, n_steps, eval_after_first=False):
+        state = init_train_state(cfg, tcfg, params=tree0, group=group)
+        step = make_train_step(cfg, tcfg, group=group)
+        recs, evals = [], None
+        for i in range(n_steps):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            sync_times.clear()
+            update_times.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (state, m), got = counted_run(torch, kmods, lambda: step(state, batches[i]))
+            ms = (time.perf_counter() - t0) * 1e3
+            rec = {"step": i + 1, "ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+                   "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "launches": got}
+            if sync_times:
+                rec.update(sync_ms=sum(sync_times), sync_share=sum(sync_times) / ms)
+            rec.update(update_ms=sum(update_times),
+                       grads_ms=ms - sum(sync_times) - sum(update_times))
+            recs.append(rec)
+            if eval_after_first and i == 0:
+                evals = float(evaluate(state["params"], batches[1]))
+        del state
+        torch.cuda.empty_cache()
+        return recs, evals
+
+    trainer_mod.compressed_grad_sync = timer(real_sync, sync_times)
+    trainer_mod.apply_updates = timer(real_update, update_times)
+    try:
+        comp_cfg = TrainConfig(grad_sync="compressed", microbatches=2, remat="full")
+        comp_steps, comp_eval = run(comp_cfg, TRAIN_STEPS, eval_after_first=True)
+        stream_steps, stream_eval = run(replace(comp_cfg, stream_grad_sync=True), 1,
+                                        eval_after_first=True)
+        auto_steps, auto_eval = run(TrainConfig(grad_sync="auto", microbatches=2,
+                                                remat="full"), TRAIN_STEPS,
+                                    eval_after_first=True)
+    finally:
+        trainer_mod.compressed_grad_sync = real_sync
+        trainer_mod.apply_updates = real_update
+    del tree0, leaves0
+    torch.cuda.empty_cache()
+    bound = 0.05 * max(1.0, auto_steps[0]["loss"])
+    losses = [r["loss"] for r in comp_steps + auto_steps + stream_steps]
+    check(all(math.isfinite(x) for x in losses + [comp_eval, auto_eval, stream_eval]),
+          f"train: non-finite loss {losses}")
+    gap = max(abs(c["loss"] - a["loss"]) for c, a in zip(comp_steps, auto_steps))
+    check(gap <= bound, f"train: compressed losses {[r['loss'] for r in comp_steps]} "
+                        f"leave the auto ones {[r['loss'] for r in auto_steps]} by {gap}")
+    check(abs(comp_eval - auto_eval) <= bound,
+          f"train: eval after a compressed step {comp_eval}, after auto {auto_eval}")
+    stream_gap = max(abs(stream_steps[0]["loss"] - comp_steps[0]["loss"]),
+                     abs(stream_eval - comp_eval))
+    check(stream_gap <= bound, f"train: the streamed step leaves the post-backward "
+                               f"one by {stream_gap}")
+    # streamed: each bucket's marker runs a one-leaf allreduce of its own
+    expect_stream = {}
+    for size in spec.bucket_sizes:
+        b_plan = get_comm(group).plan("quantized_allreduce", [
+            torch.empty((TRAIN_P, size), device="meta")])
+        for k, v in quantized_launches(b_plan, 1).items():
+            expect_stream[k] = expect_stream.get(k, 0) + v
+    for rec in comp_steps:
+        check(rec["launches"] == expect, f"train step launches {rec['launches']} "
+                                         f"!= {expect}")
+    check(stream_steps[0]["launches"] == expect_stream,
+          f"streamed step launches {stream_steps[0]['launches']} != {expect_stream}")
+    for rec in auto_steps:
+        check(not rec["launches"], f"auto step launched {rec['launches']}")
+    launches["train_step"] = comp_steps[0]["launches"]
+    launches["train_step_streamed"] = stream_steps[0]["launches"]
+    emit({"phase": "train", "arch": TRAIN_ARCH, "p": TRAIN_P, "global_batch": TRAIN_B,
+          "seq": TRAIN_S, "tokens_per_step": tokens, "microbatches": 2, "remat": "full",
+          "compressed": comp_steps, "auto": auto_steps, "streamed": stream_steps,
+          "eval_after_step_1": {"compressed": comp_eval, "auto": auto_eval,
+                                "streamed": stream_eval},
+          "max_loss_gap": gap, "streamed_gap": stream_gap, "bound": bound,
+          "card": card})
+    return launches
+
+
 def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     """The model kernels against their plain versions, then zamba2-2.7b's
     prefill and a continuous-batching serve loop at full width, and the
@@ -2407,20 +2845,9 @@ def main() -> None:
     del work, werr, qbuf, sbuf, vals
     torch.cuda.empty_cache()
 
-    row_q, qrow, srow = bs_q * 4, bs_q, nb_q * 4
-    _, q_coincide = reduce_bytes(P, n_q, R_q, row_q, *plan_q.slots[:2])
-    q_rows = (R_q + 1) * P
-    bq, _ = bcast_bytes(P, n_q, R_q, qrow, *plan_q.slots[2:], upload_rows=2)
-    bsc, _ = bcast_bytes(P, n_q, R_q, srow, *plan_q.slots[2:], upload_rows=2)
-    q_bytes = {
-        "setup": 2 * P * n_q * row_q + 2 * P * row_q + P * (n_q + 2) * row_q,
-        "zero_messages": P * (qrow + srow),
-        "qacc_shuffle": qacc_row_bytes(bs_q, nb_q, q_coincide, q_rows),
-        "reduce_rolls": R_q * 2 * P * (qrow + srow),
-        "root_requantize": 3 * n_q * row_q + n_q * (qrow + srow),
-        "broadcast_rounds": sum(bq.values()) + sum(bsc.values()),
-        "dequantize": P * n_q * (qrow + srow + row_q),
-    }
+    row_q = bs_q * 4
+    q_bytes, q_coincide = quantized_bytes(P, n_q, R_q, bs_q, nb_q, plan_q.slots,
+                                          n_q * bs_q)
     q_bound = sum(q_bytes.values())
     emit({"phase": "quantized_allreduce", "p": P, "n": n_q, "bs": bs_q,
           "qblock": QBLOCK, "rounds": 2 * R_q, "root": BCAST_ROOT,
@@ -2439,8 +2866,16 @@ def main() -> None:
           "breakdown_ms": q_steps,
           "max_memory_allocated": q_peak, "card": card})
 
+    # 7b. the communicator's quantized_allreduce of the same bucket, one
+    #     leaf and the 6-leaf q/k/v pytree
+    del qmsg, smsg
+    torch.cuda.empty_cache()
+    qcomm = comm_quantized_phase(torch, np, card, kmods, g, {
+        "plan": plan_q, "make": grads_as_bucket, "n": n_q, "bs": bs_q,
+        "elems": q_elems, "ms": q_ms, "bound_ms": ms_of_bytes(q_bound)})
+
     # 8. the two-level host plans at 36 x 32
-    del qmsg, smsg, plan_q, plain_q
+    del plan_q, plain_q
     torch.cuda.empty_cache()
     flat_ms = {"broadcast": bcast_ms, "reduce": red_ms, "allreduce": allred_ms,
                "allgather": ag_ms}
@@ -2452,6 +2887,11 @@ def main() -> None:
     for name, rec in acc_recs.items():
         launches[f"{name}@reduce_scatter"] = comm[rec["path"]][name]
         kern[f"{name}@reduce_scatter"] = rec
+    comm.update(qcomm)
+    torch.cuda.empty_cache()
+
+    # 9b. Qwen2-0.5B: the compressed sync of its gradient, the trainer
+    train = train_phases(torch, np, card, kmods, g)
     torch.cuda.empty_cache()
 
     # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop
@@ -2471,7 +2911,9 @@ def main() -> None:
          **({"hier_launches": {ph: c[name] for ph, c in hier.items() if name in c}}
             if any(name in c for c in hier.values()) else {}),
          **({"comm_launches": {ph: c[name] for ph, c in comm.items() if name in c}}
-            if any(name in c for c in comm.values()) else {})}
+            if any(name in c for c in comm.values()) else {}),
+         **({"train_launches": {ph: c[name] for ph, c in train.items() if name in c}}
+            if any(name in c for c in train.values()) else {})}
         for name, rec in kern.items()]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -12,12 +12,15 @@ reduce_scatter of pytree payloads, with the checkpoint-restore fan-out
 planes of the same collectives, of the int8 quantized allreduce of
 gradient compression and of the two-level hierarchical collectives of
 the paper's 36 x 32 cluster, whose round steps run in hand-written CUDA
-kernels on an H100 (:mod:`repro_torch.kernels`), and the
-collective-free half of gradient compression with error feedback
-(:mod:`repro_torch.optim.compression`).  It also serves the
-dense, ssm and hybrid model families (:mod:`repro_torch.models`,
-:mod:`repro_torch.serve`, configs in :mod:`repro_torch.configs`), whose
-prefill runs attention and the Mamba2 SSD scan in hand-written CUDA.
+kernels on an H100 (:mod:`repro_torch.kernels`), and gradient
+compression with error feedback over a rank group, the communicator's
+int8 quantized allreduce among it (:mod:`repro_torch.optim.compression`).
+It serves the dense, ssm and hybrid model families
+(:mod:`repro_torch.models`, :mod:`repro_torch.serve`, configs in
+:mod:`repro_torch.configs`), whose prefill runs attention and the Mamba2
+SSD scan in hand-written CUDA, and trains them data-parallel
+(:mod:`repro_torch.train`: AdamW, microbatching, remat and the compressed
+circulant gradient sync; synthetic data in :mod:`repro_torch.data`).
 Importing the package builds no kernel.
 """
 
@@ -53,16 +56,28 @@ from .core import (
     verify_bundle,
 )
 from .train.restore_broadcast import broadcast_state
+from .train.trainer import (
+    TrainConfig,
+    grad_bucket_spec,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+from .optim.adamw import AdamWConfig
 from .optim.compression import (
     BucketSpec,
     bucketize,
+    compressed_allreduce_tree,
+    compressed_grad_sync,
     init_error_state,
     init_grad_sync_state,
     make_bucket_spec,
+    streamed_sync_params,
     unbucketize,
 )
 
 __all__ = [
+    "AdamWConfig",
     "BucketSpec",
     "CirculantComm",
     "CollectivePlan",
@@ -75,16 +90,23 @@ __all__ = [
     "ScheduleBundle",
     "SimResult",
     "StackedGroup",
+    "TrainConfig",
     "broadcast_state",
     "bucketize",
+    "compressed_allreduce_tree",
+    "compressed_grad_sync",
     "get_bundle",
     "get_comm",
     "get_round_step",
+    "grad_bucket_spec",
     "hier_host_plan",
     "host_plan",
     "init_error_state",
     "init_grad_sync_state",
+    "init_train_state",
     "make_bucket_spec",
+    "make_eval_step",
+    "make_train_step",
     "optimal_num_blocks_allgather",
     "optimal_num_blocks_allreduce",
     "optimal_num_blocks_bcast",
@@ -97,6 +119,7 @@ __all__ = [
     "simulate_hier_broadcast",
     "simulate_hier_reduce",
     "simulate_reduce",
+    "streamed_sync_params",
     "unbucketize",
     "verify_bundle",
 ]

@@ -12,7 +12,8 @@ which keeps plan construction out of the hot path.  Each shim resolves
 the process-cached communicator and plan on every call, so it shares
 the plans of first-class communicator users but pays a plan-cache
 lookup a call.  ``group`` is a :class:`~repro_torch.core.comm.StackedGroup`
-or a :class:`~repro_torch.core.comm.DistGroup`.  ``ring_allgather`` is
+or a :class:`~repro_torch.core.comm.DistGroup`; ``circulant_qallreduce``
+is the int8-wire allreduce the gradient sync runs.  ``ring_allgather`` is
 the classic p-1 round ring, the baseline of the circulant allgather.
 """
 
@@ -33,6 +34,7 @@ __all__ = [
     "circulant_reduce",
     "circulant_reduce_scatter",
     "circulant_allreduce",
+    "circulant_qallreduce",
     "ring_allgather",
 ]
 
@@ -112,6 +114,24 @@ def circulant_allbroadcast(group: Any, x: torch.Tensor, *,
     :func:`circulant_allgather`: the same plan."""
     return get_comm(group, backend=backend, model=model).allbroadcast(
         x, n_blocks=n_blocks)
+
+
+def circulant_qallreduce(group: Any, flats: Sequence[torch.Tensor], *,
+                         n_blocks: Optional[int] = None, root: int = 0,
+                         backend: str = "cuda", qblock: Optional[int] = None,
+                         model: CommModel = DEFAULT_MODEL):
+    """The quantized circulant allreduce of a list of float32 vectors,
+    each ``[len(group.ranks), size]`` (one row a held rank) ->
+    ``(sums, errs)`` lists: the lossy sums (every rank's row the same)
+    and each rank's own quantization error in sum units, so that
+    ``exact_sum == sums + sum_over_ranks(errs)`` to f32 rounding; divide
+    by ``group.p`` for a mean.  One plan of the communicator serves every
+    call of the same shapes (the trainer's one frozen plan a bucket
+    spec); at p = 1 nothing moves and the errors are zero."""
+    sums, errs = get_comm(group, backend=backend, model=model).plan(
+        "quantized_allreduce", list(flats), n_blocks=n_blocks, root=root,
+        qblock=qblock)(list(flats))
+    return list(sums), list(errs)
 
 
 # ----------------------------------------------------------- ring baseline

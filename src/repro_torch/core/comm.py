@@ -16,12 +16,13 @@ has the same shape:
 
 ``KINDS`` are the reference's: ``broadcast``, ``allgather`` (alias
 ``allbroadcast``), ``allgatherv``, ``reduce_scatter``, ``reduce``,
-``allreduce`` and ``quantized_allreduce`` (not in the communicator yet:
-the host plan below runs it on one device).  Payloads are pytrees
-(:mod:`repro_torch.core.tree`): every leaf is split into the same n
-blocks (``ceil(leaf_elems / n)`` elements a block, the last padded) and
-all leaves ride one schedule, each round one exchange of every leaf's
-message on the same rotation, every leaf in its own dtype.
+``allreduce`` and ``quantized_allreduce`` (int8 blocks and f32 scales
+on the wire, float32 leaves only; its plan returns ``(sums, errors)``).
+Payloads are pytrees (:mod:`repro_torch.core.tree`): every leaf is split
+into the same n blocks (``ceil(leaf_elems / n)`` elements a block, the
+last padded; for the quantized kind rounded up to a multiple of
+``qblock``) and all leaves ride one schedule, each round one exchange of
+every leaf's message on the same rotation, every leaf in its own dtype.
 
 A group is where the ranks are; the round bodies are written once over
 its ``exchange(msgs, shift)``, which returns for every rank r it holds
@@ -960,6 +961,89 @@ def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
     return execute
 
 
+def _lower_quantized_allreduce(group, bundle, n: int, root: int,
+                               step: RoundStep, qblock: int) -> Callable:
+    """The int8-wire sum allreduce: the reduce's rounds with qacc_shuffle
+    (each round two exchanges of every leaf, its int8 payload and its
+    scales, by -skip), the root's requantization of its sums (its error
+    is the root's), then the broadcast's rounds over the int8 and scale
+    buffers of every leaf and a dequantize.  A leaf of ``size`` elements a
+    rank is split into n blocks of ``bs`` elements, ``bs`` the multiple of
+    ``qblock`` at or above ``ceil(size / n)``.  ``execute(leaves) ->
+    (sums, errs)``: the lossy sums (every rank's the same) and each rank's
+    own quantization error, the pad tail's error folded into the last
+    real element."""
+    p = bundle.p
+    fwd, acc, ks_r = reduce_slot_plan(bundle, n)
+    recv, send, ks_b = broadcast_slot_plan(bundle, n)
+    red_shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks_r]
+    bc_shifts = [int(bundle.skip[int(k)]) for k in ks_b]
+    ranks, dev = group.ranks, group.device
+    cols = slice(ranks.start, ranks.stop)
+    fwd_d = _upload(_with_garbage(fwd, n)[:, cols], dev)
+    acc_d = _upload(acc[:, cols], dev)
+    bc_tables = (_upload(recv[:, cols], dev), _upload(send[:, cols], dev))
+    R = len(red_shifts)
+    lr = len(ranks)
+    at_root = root - ranks.start if root in ranks else None
+
+    def execute(leaves):
+        bufs, errs, qms, sms, metas = [], [], [], [], []
+        for x in leaves:
+            x = torch.as_tensor(x, device=dev)
+            size = _leaf_elems(x.shape[1:])
+            bs = -(-(-(-size // n)) // qblock) * qblock
+            nb = bs // qblock
+            buf = torch.empty((lr, n + 2, bs), dtype=torch.float32, device=dev)
+            data = buf.view(lr, (n + 2) * bs)
+            data[:, :size] = x.reshape(lr, size)
+            data[:, size:].zero_()                   # pad, n: garbage, n+1: zero
+            err = torch.zeros_like(buf)
+            # initial capture and drain of round 0's forwarded partials
+            buf, err, qm, sm = step.qacc_shuffle(
+                buf, err, torch.zeros((lr, bs), dtype=torch.int8, device=dev),
+                torch.zeros((lr, nb), dtype=torch.float32, device=dev),
+                fwd_d[R], fwd_d[0])
+            bufs.append(buf)
+            errs.append(err)
+            qms.append(qm)
+            sms.append(sm)
+            metas.append((x.shape, size, bs, nb))
+        L = len(bufs)
+        for t in range(R):
+            got = group.exchange(qms + sms, red_shifts[t])
+            for i in range(L):
+                bufs[i], errs[i], qms[i], sms[i] = step.qacc_shuffle(
+                    bufs[i], errs[i], got[i], got[L + i], acc_d[t], fwd_d[t + 1])
+        qbufs, sbufs = [], []
+        for i, (_, _, bs, nb) in enumerate(metas):
+            # non-root rows are drained; only the root's quantized sums go out
+            qbuf = torch.zeros((lr, n + 1, bs), dtype=torch.int8, device=dev)
+            sbuf = torch.zeros((lr, n + 1, nb), dtype=torch.float32, device=dev)
+            if at_root is not None:
+                droot = bufs[i][at_root, :n].reshape(n * nb, qblock)
+                q, sc = quant_blocks(droot)
+                errs[i][at_root, :n] += quant_error(droot, q, sc).view(n, bs)
+                qbuf[at_root, :n] = q.view(n, bs)
+                sbuf[at_root, :n] = sc.view(n, nb)
+            bufs[i] = None
+            qbufs.append(qbuf)
+            sbufs.append(sbuf)
+        outs = _forward_rounds(step, False, qbufs + sbufs, [bc_tables] * (2 * L),
+                               bc_shifts, group.exchange)
+        sums, out_errs = [], []
+        for i, (shape, size, bs, nb) in enumerate(metas):
+            out = outs[i][:, :n].float().view(lr, n, nb, qblock)
+            out.mul_(outs[L + i][:, :n, :, None])
+            sums.append(out.view(lr, n * bs)[:, :size].reshape(shape))
+            e = errs[i][:, :n].reshape(lr, n * bs)
+            e[:, size - 1] += e[:, size:].sum(1)     # the pad tail's error
+            out_errs.append(e[:, :size].reshape(shape))
+        return sums, out_errs
+
+    return execute
+
+
 # ------------------------------------------------------------ plan objects
 
 
@@ -984,6 +1068,8 @@ class CollectivePlan:
     rounds: int
     backend: str
     group: Any
+    #: Elements per quantization block (quantized_allreduce only).
+    qblock: Optional[int] = None
     #: True when the executor runs the overlapped round loop (bit-exact
     #: with the sequential one).
     overlap: bool = False
@@ -993,11 +1079,20 @@ class CollectivePlan:
     _execute: Optional[Callable] = field(repr=False, default=None)
 
     def __call__(self, payload: Any) -> Any:
-        """Execute the collective -> one payload-shaped tree."""
+        """Execute the collective -> one payload-shaped tree;
+        ``quantized_allreduce`` returns a ``(sums, errors)`` pair of
+        payload-shaped trees."""
         leaves = self._leaves(payload)
+        treedef = self.spec.treedef
+        if self.kind == "quantized_allreduce":
+            if self._execute is None:  # p == 1: nothing moves, no error
+                return payload, tree_unflatten(
+                    treedef, [torch.zeros_like(torch.as_tensor(x)) for x in leaves])
+            sums, errs = self._execute(leaves)
+            return tree_unflatten(treedef, sums), tree_unflatten(treedef, errs)
         if self._execute is None:  # p == 1 fast path: nothing moves
             return payload
-        return tree_unflatten(self.spec.treedef, self._execute(leaves))
+        return tree_unflatten(treedef, self._execute(leaves))
 
     def per_rank(self, payload: Any) -> Any:
         """Execute an allgather or allgatherv and return every held rank's
@@ -1026,6 +1121,8 @@ class CollectivePlan:
     def describe(self) -> str:
         """One-line human summary of the plan."""
         extra = f" op={self.op}" if self.op else ""
+        if self.qblock is not None:
+            extra += f" qblock={self.qblock}"
         if self.overlap:
             extra += " overlap"
         return (f"{self.kind} p={self.p} root={self.root} "
@@ -1115,6 +1212,27 @@ def _resolve_reduce_scatter(spec: PayloadSpec, p: int,
     return min(n, max(1, max(shards)))
 
 
+def _resolve_quantized(spec: PayloadSpec, p: int, n_blocks: Optional[int],
+                       model: CommModel, qblock: int) -> int:
+    elems = []
+    total = 0
+    for shape, dtype in spec.leaves:
+        _require(len(shape) >= 1 and shape[0] == p,
+                 "payload leaves must have leading axis == axis size "
+                 f"(one slice/rank); got {shape} for p={p}")
+        _require(dtype == torch.float32,
+                 "quantized_allreduce requires float32 leaves (cast, or "
+                 "use optim.compression.compressed_allreduce_tree for "
+                 f"bf16/f16 gradients); got {_dtype_name(dtype)}")
+        e = _leaf_elems(shape[1:])
+        elems.append(e)
+        total += e  # ~1 wire byte per element (int8 + amortized scales)
+    n = n_blocks or max(
+        1, optimal_num_blocks_reduce(p, max(total, 1), model))
+    # More blocks than ceil(elems/qblock) would be pure padding.
+    return min(n, max(1, -(-max(elems) // qblock)))
+
+
 def _is_sizes_leaf(x: Any) -> bool:
     """A per-rank size vector: a flat int sequence or a NumPy array."""
     if isinstance(x, np.ndarray):
@@ -1180,55 +1298,63 @@ class CirculantComm:
         :class:`PayloadSpec`).  Cached process-wide: equal arguments
         return the identical plan object.
 
+        ``kind="quantized_allreduce"`` plans the int8-on-the-wire sum
+        allreduce (float32 leaves only; ``qblock`` elements share one
+        scale, default ``QBLOCK``); calling it returns a ``(sums,
+        errors)`` pair of payload-shaped trees.
+
         ``overlap=True`` plans the overlapped round loop (bit-exact with
         the sequential one) for broadcast / allgather / allbroadcast /
-        reduce / allreduce / reduce_scatter; ``allgatherv`` stays
-        sequential.  ``kind="quantized_allreduce"`` raises
-        ``NotImplementedError``: it runs on one device through
-        ``host_plan("quantized_allreduce", ...)``.
+        reduce / allreduce / reduce_scatter; ``allgatherv`` and the
+        quantized wire stay sequential.
         """
         if kind not in KINDS:
             raise ValueError(f"unknown collective kind {kind!r} "
                              f"(use one of {KINDS})")
         kind = _CANONICAL_KIND.get(kind, kind)
-        if kind == "quantized_allreduce":
-            raise NotImplementedError(
-                "quantized_allreduce is not in the communicator yet "
-                "(ROADMAP.md Queue 1 item 6b); host_plan('quantized_allreduce',"
-                " ...) runs it on one device")
-        _require(not overlap or kind != "allgatherv",
+        _require(not overlap or kind not in ("allgatherv",
+                                             "quantized_allreduce"),
                  f"overlap= is not supported for kind {kind!r}")
         spec = payload_spec(spec)
         _require(spec.num_leaves > 0, "payload has no array leaves")
         # Arguments that don't apply to the kind are rejected (a silently
         # dropped op= or root= would return wrong results with no
         # diagnostic), then normalized out of the cache key.
-        rooted = kind in ("broadcast", "reduce", "allreduce")
+        rooted = kind in ("broadcast", "reduce", "allreduce",
+                          "quantized_allreduce")
         reducing = kind in ("reduce", "allreduce")
         _require(rooted or int(root) == 0,
                  f"root= does not apply to kind {kind!r}")
         _require(reducing or op == "sum",
                  f"op= does not apply to kind {kind!r}"
                  + (" (reduce_scatter always sums)"
-                    if kind == "reduce_scatter" else ""))
+                    if kind == "reduce_scatter" else "")
+                 + (" (quantized_allreduce always sums)"
+                    if kind == "quantized_allreduce" else ""))
         _require(kind == "allgatherv" or sizes is None,
                  f"sizes= only applies to allgatherv, not {kind!r}")
-        _require(qblock is None,
+        _require(kind == "quantized_allreduce" or qblock is None,
                  f"qblock= only applies to quantized_allreduce, not {kind!r}")
         root_key = int(root) if rooted else 0
         op_key = op if reducing else None
         sizes_key = _canon_sizes(spec, sizes) if kind == "allgatherv" else None
+        qblock_key = None
+        if kind == "quantized_allreduce":
+            qblock_key = QBLOCK if qblock is None else int(qblock)
+            _require(qblock_key >= 1, f"qblock must be >= 1, got {qblock_key}")
         # Resolve the block count up front (host work, and the payload-shape
         # validation) so n_blocks=None and an explicit n_blocks equal to the
         # cost-model optimum key the same entry.
-        n = self._resolve_n(kind, spec, n_blocks, sizes_key)
+        n = self._resolve_n(kind, spec, n_blocks, sizes_key, qblock_key)
         key = ("commplan", self.group, self.backend, self.model, kind, spec,
-               n, root_key, op_key, sizes_key, bool(overlap))
+               n, root_key, op_key, sizes_key, qblock_key, bool(overlap))
         return cached_plan(key, lambda: self._build(
-            kind, spec, n, root_key, op_key, sizes_key, overlap=bool(overlap)))
+            kind, spec, n, root_key, op_key, sizes_key, qblock_key,
+            overlap=bool(overlap)))
 
     def _resolve_n(self, kind: str, spec: PayloadSpec,
-                   n_blocks: Optional[int], sizes_canon) -> int:
+                   n_blocks: Optional[int], sizes_canon,
+                   qblock: Optional[int] = None) -> int:
         p = self.p
         if p == 1:
             # The fast path skips payload-shape validation; sizes lengths
@@ -1252,22 +1378,25 @@ class CirculantComm:
                                        sizes_canon)
         if kind == "reduce_scatter":
             return _resolve_reduce_scatter(gspec, p, n_blocks, self.model)
+        if kind == "quantized_allreduce":
+            return _resolve_quantized(gspec, p, n_blocks, self.model, qblock)
         # reduce / allreduce
         return _resolve_broadcast(gspec, p, n_blocks, self.model,
                                   optimal_num_blocks_reduce)
 
     def _build(self, kind: str, spec: PayloadSpec, n: int, root: int,
-               op: Optional[str], sizes_canon,
+               op: Optional[str], sizes_canon, qblock: Optional[int] = None,
                overlap: bool = False) -> CollectivePlan:
         p, group = self.p, self.group
         if op is not None:
             _validate(op)
         if p == 1:
             # Fast path: nothing moves on a one-rank group; the plan is
-            # the identity and returns the payload object itself.
+            # the identity and returns the payload object itself (the
+            # quantized kind with zero errors).
             return CollectivePlan(
                 kind=kind, spec=spec, p=p, root=0, op=op, n_blocks=n,
-                rounds=0, backend=self.backend, group=group,
+                rounds=0, backend=self.backend, group=group, qblock=qblock,
                 overlap=overlap)
         bundle = get_bundle(p, root)
         step = get_round_step(self.backend)
@@ -1282,6 +1411,9 @@ class CirculantComm:
             ex = _lower_reduce_scatter(group, bundle, n, step, overlap)
         elif kind == "reduce":
             ex = _lower_reduce(group, bundle, n, root, op, step, overlap)
+        elif kind == "quantized_allreduce":
+            ex = _lower_quantized_allreduce(group, bundle, n, root, step, qblock)
+            rounds = bundle.allreduce_rounds(n)
         else:  # allreduce: reversed reduce then forward broadcast, one n
             red = _lower_reduce(group, bundle, n, root, op, step, overlap,
                                 drain=False)
@@ -1290,7 +1422,7 @@ class CirculantComm:
             rounds = bundle.allreduce_rounds(n)
         return CollectivePlan(
             kind=kind, spec=spec, p=p, root=root, op=op, n_blocks=n,
-            rounds=rounds, backend=self.backend, group=group,
+            rounds=rounds, backend=self.backend, group=group, qblock=qblock,
             overlap=overlap, statics=_plan_statics(kind, bundle, n, overlap),
             _execute=ex)
 
@@ -1341,6 +1473,15 @@ class CirculantComm:
         """Family name for the all-to-all broadcast (same plan)."""
         return self.plan("allbroadcast", payload_spec(x),
                          n_blocks=n_blocks, overlap=overlap)(x)
+
+    def quantized_allreduce(self, x: Any, *,
+                            n_blocks: Optional[int] = None, root: int = 0,
+                            qblock: Optional[int] = None) -> Any:
+        """int8-on-the-wire sum allreduce -> ``(sums, errors)`` trees
+        (float32 leaves; errors are each rank's own quantization error in
+        sum units)."""
+        return self.plan("quantized_allreduce", payload_spec(x),
+                         n_blocks=n_blocks, root=root, qblock=qblock)(x)
 
 
 def get_comm(group: Any, *, backend: str = "cuda",

@@ -13,7 +13,9 @@ query head h reading kv head ``h // (H // Hkv)``.  On CPU tensors it runs
 ``repro.models.attention.blocked_attention``: the same online softmax in
 f32 over key chunks); on CUDA tensors it launches the kernel, adds one to
 :data:`LAUNCHES`, and raises if the launch failed.  There is no fallback
-from a CUDA tensor to the plain version.
+from a CUDA tensor to the plain version.  The kernel has no backward: on
+the card an operand that requires grad under grad mode raises
+``ValueError`` (the plain version on a CPU tensor keeps autograd).
 """
 
 from __future__ import annotations
@@ -69,14 +71,16 @@ def _pad_seq(t: torch.Tensor, length: int) -> torch.Tensor:
 
 
 def blocked_attention(q, k, v, causal, window=None, q_offset=0,
-                      q_chunk=1024, kv_chunk=1024):
+                      q_chunk=1024, kv_chunk=1024, with_lse=False):
     """Plain blocked attention, forward only.
 
     q: [B, Sq, H, hd]; k/v: [B, Skv, Hkv, hd(_v)]; GQA head h attends kv
     head h // (H // Hkv).  Causal: q position i sees kv j iff
     j <= i + q_offset (and i + q_offset - j < window with a window).
     Online softmax in f32 over kv chunks (masked scores -1e30, ``l``
-    clamped at 1e-30), never the whole S x S; returns q's dtype.
+    clamped at 1e-30), never the whole S x S; returns q's dtype, and with
+    ``with_lse`` also the f32 log-sum-exp of each q chunk's scores,
+    ``[n_q, B, Hkv, rep, q_chunk]`` (what the backward recomputes from).
     """
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
@@ -91,7 +95,7 @@ def blocked_attention(q, k, v, causal, window=None, q_offset=0,
     kc = _pad_seq(k.float(), n_kv * kv_chunk).view(B, n_kv, kv_chunk, Hkv, hd)
     vc = _pad_seq(v.float(), n_kv * kv_chunk).view(B, n_kv, kv_chunk, Hkv, hd_v)
     dev = q.device
-    outs = []
+    outs, lses = [], []
     for qi in range(n_q):
         qb = qp[:, qi * q_chunk:(qi + 1) * q_chunk].reshape(B, q_chunk, Hkv, rep, hd)
         q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
@@ -109,9 +113,12 @@ def blocked_attention(q, k, v, causal, window=None, q_offset=0,
             l = l * alpha + pz.sum(dim=-1)
             acc = acc * alpha[..., None] + torch.einsum("bhrqk,bkhd->bhrqd", pz, vc[:, j])
             m = m_new
-        ob = (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
+        safe_l = l.clamp_min(1e-30)
+        ob = (acc / safe_l[..., None]).to(q.dtype)
         outs.append(ob.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, hd_v))
-    return torch.cat(outs, dim=1)[:, :Sq]
+        lses.append(m + torch.log(safe_l))
+    out = torch.cat(outs, dim=1)[:, :Sq]
+    return (out, torch.stack(lses)) if with_lse else out
 
 
 def _check(q, k, v, window) -> bool:
@@ -142,6 +149,17 @@ def _check(q, k, v, window) -> bool:
     return q.device.type == "cuda"
 
 
+def refuse_grad(name: str, *operands) -> None:
+    """The kernels compute a forward only: an operand that needs a
+    gradient under grad mode is refused, not given a result without one
+    (the kernel writes its output outside autograd)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        raise ValueError(
+            f"{name} has no backward: call it under torch.no_grad() or on "
+            "tensors that need no gradient, and train through the plain "
+            "version (backend='torch')")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True,
                     window: Optional[int] = None) -> torch.Tensor:
@@ -150,6 +168,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``causal``) limits query i to keys i - window < j <= i."""
     if not _check(q, k, v, window):
         return blocked_attention(q, k, v, causal, window)
+    refuse_grad("flash_attention", q, k, v)
     for t in (q, k, v):
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")

@@ -12,7 +12,9 @@ wrapper ``repro.kernels.ops.mamba2_ssd``; the kernel is
 On CPU tensors it runs :func:`ssd_chunked`, the plain version (a port of
 ``repro.models.ssm.ssd_chunked``); on CUDA tensors it launches the kernel,
 adds one to :data:`LAUNCHES`, and raises if the launch failed.  There is
-no fallback from a CUDA tensor to the plain version.
+no fallback from a CUDA tensor to the plain version.  The kernel has no
+backward: on the card an operand that requires grad under grad mode
+raises ``ValueError`` (the plain version on a CPU tensor keeps autograd).
 
 The plain scan is three phases, each the counterpart of the kernel's
 phase of the same name: :func:`ssd_chunk_states`, :func:`ssd_state_pass`
@@ -26,6 +28,8 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from .flash_attention import refuse_grad
 
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = {"ssd_scan": 0}
@@ -201,6 +205,7 @@ def ssd_scan(x, B_, C_, dt, A_log, D, *, chunk: int = 64) -> torch.Tensor:
     its group's heads share), with their scratch from ``torch.empty``."""
     if not _check(x, B_, C_, dt, A_log, D, chunk):
         return ssd_chunked(x, B_, C_, dt, A_log, D, chunk)
+    refuse_grad("ssd_scan", x, B_, C_, dt, A_log, D)
     from . import _build
 
     _contiguous(x, B_, C_, dt, A_log, D)

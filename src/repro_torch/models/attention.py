@@ -2,9 +2,12 @@
 
 Port of the GQA half of ``repro.models.attention``.  The full-sequence
 path (:func:`gqa_full`, train and prefill) runs the hand-written CUDA
-flash attention on a CUDA tensor (``backend="cuda"``) and the plain
-blocked online softmax otherwise (:func:`blocked_attention`, also what
-the kernel's wrapper runs on a CPU tensor).  Decode (:func:`gqa_decode`)
+flash attention on a CUDA tensor (``backend="cuda"``, forward only: it
+refuses operands that need a gradient) and otherwise
+:func:`blocked_attention`: the plain blocked online softmax (also what
+the kernel's wrapper runs on a CPU tensor) with the reference's
+O(S)-memory backward, an ``autograd.Function`` in place of its
+``custom_vjp``.  Decode (:func:`gqa_decode`)
 attends a fixed-size cache with position masks, in plain torch as in the
 reference.  Cross-attention (vlm, encdec) and MLA (moe) wait for a later
 slice (``ROADMAP.md``).
@@ -15,9 +18,16 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
-from ..kernels.flash_attention import NEG_INF, blocked_attention, flash_attention
+from ..kernels.flash_attention import (
+    NEG_INF,
+    chunk_bounds,
+    flash_attention,
+    mask_for,
+)
+from ..kernels.flash_attention import blocked_attention as blocked_forward
 from .common import ModelConfig
 from .layers import apply_rope, dense_init, param
 
@@ -33,19 +43,99 @@ class GQA(nn.Module):
     """``wq`` [d, H*hd], ``wk``/``wv`` [d, Hkv*hd], ``wo`` [H*hd, d], and
     with ``cfg.qkv_bias`` the biases ``bq``, ``bk``, ``bv`` (zeros)."""
 
-    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype):
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype, device=None):
         super().__init__()
         hd, d = cfg.hd, cfg.d_model
-        self.wq = dense_init(gen, d, cfg.n_heads * hd, dtype)
-        self.wk = dense_init(gen, d, cfg.n_kv_heads * hd, dtype)
-        self.wv = dense_init(gen, d, cfg.n_kv_heads * hd, dtype)
-        self.wo = dense_init(gen, cfg.n_heads * hd, d, dtype)
+        dev = device or gen.device
+        self.wq = dense_init(gen, d, cfg.n_heads * hd, dtype, device=dev)
+        self.wk = dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device=dev)
+        self.wv = dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device=dev)
+        self.wo = dense_init(gen, cfg.n_heads * hd, d, dtype, device=dev)
         self.bq = self.bk = self.bv = None
         if cfg.qkv_bias:
-            dev = gen.device
             self.bq = param(torch.zeros((cfg.n_heads * hd,), dtype=dtype, device=dev))
             self.bk = param(torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=dev))
             self.bv = param(torch.zeros((cfg.n_kv_heads * hd,), dtype=dtype, device=dev))
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """Blocked attention with the flash-attention backward: the forward is
+    the plain blocked online softmax, which saves only (q, k, v, o, lse);
+    the backward recomputes the scores chunk by chunk from them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, q_chunk, kv_chunk):
+        q_chunk, kv_chunk = min(q_chunk, q.shape[1]), min(kv_chunk, k.shape[1])
+        out, lse = blocked_forward(q, k, v, causal, window, q_offset, q_chunk,
+                                   kv_chunk, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, window, q_offset, q_chunk, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, window, q_offset, q_chunk, kv_chunk = ctx.args
+        B, Sq, H, hd = q.shape
+        Skv, Hkv = k.shape[1], k.shape[2]
+        hd_v = v.shape[-1]
+        rep = H // Hkv
+        scale = 1.0 / math.sqrt(hd)
+        n_q, n_kv = -(-Sq // q_chunk), -(-Skv // kv_chunk)
+        dev = q.device
+
+        def pad(t, chunks, size):
+            return F.pad(t, (0, 0, 0, 0, 0, chunks * size - t.shape[1]))
+
+        qp = pad(q, n_q, q_chunk).float()
+        dop = pad(do, n_q, q_chunk).float()
+        op = pad(o, n_q, q_chunk).float()
+        kc = pad(k, n_kv, kv_chunk).float().view(B, n_kv, kv_chunk, Hkv, hd)
+        vc = pad(v, n_kv, kv_chunk).float().view(B, n_kv, kv_chunk, Hkv, hd_v)
+        dq = torch.zeros((B, n_q * q_chunk, Hkv, rep, hd), device=dev)
+        dk = torch.zeros((B, n_kv, kv_chunk, Hkv, hd), device=dev)
+        dv = torch.zeros((B, n_kv, kv_chunk, Hkv, hd_v), device=dev)
+        for qi in range(n_q):
+            sl = slice(qi * q_chunk, (qi + 1) * q_chunk)
+            qb = qp[:, sl].reshape(B, q_chunk, Hkv, rep, hd)
+            dob = dop[:, sl].reshape(B, q_chunk, Hkv, rep, hd_v)
+            ob = op[:, sl].reshape(B, q_chunk, Hkv, rep, hd_v)
+            lse_i = lse[qi]                                   # [B,Hkv,rep,qc]
+            Dc = torch.einsum("bqhrd,bqhrd->bhrq", dob, ob)   # rowsum(do * o)
+            q_pos = q_offset + qi * q_chunk + torch.arange(q_chunk, device=dev)
+            lo, hi = chunk_bounds(qi, q_chunk, kv_chunk, n_kv, causal, window,
+                                  q_offset)
+            dq_i = torch.zeros((B, q_chunk, Hkv, rep, hd), device=dev)
+            for j in range(lo, hi):
+                kb, vb = kc[:, j], vc[:, j]
+                kv_pos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
+                s = torch.einsum("bqhrd,bkhd->bhrqk", qb, kb) * scale
+                s = torch.where(mask_for(q_pos, kv_pos, causal, window, Skv), s,
+                                NEG_INF)
+                pr = torch.exp(s - lse_i[..., None])          # [B,Hkv,rep,qc,kc]
+                dpv = torch.einsum("bqhrd,bkhd->bhrqk", dob, vb)
+                ds = pr * (dpv - Dc[..., None]) * scale
+                dq_i = dq_i + torch.einsum("bhrqk,bkhd->bqhrd", ds, kb)
+                dk[:, j] += torch.einsum("bhrqk,bqhrd->bkhd", ds, qb)
+                dv[:, j] += torch.einsum("bhrqk,bqhrd->bkhd", pr, dob)
+            dq[:, sl] = dq_i
+        dq = dq.reshape(B, n_q * q_chunk, H, hd)[:, :Sq].to(q.dtype)
+        dk = dk.reshape(B, n_kv * kv_chunk, Hkv, hd)[:, :Skv].to(k.dtype)
+        dv = dv.reshape(B, n_kv * kv_chunk, Hkv, hd_v)[:, :Skv].to(v.dtype)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def blocked_attention(q, k, v, causal, window=None, q_offset=0,
+                      q_chunk=1024, kv_chunk=1024):
+    """Flash-style blocked attention with an O(S)-memory backward.
+
+    q: [B, Sq, H, hd]; k/v: [B, Skv, Hkv, hd(_v)]; GQA head h attends kv
+    head h // (H // Hkv).  Causal: q position i sees kv j iff
+    j <= i + q_offset (and i + q_offset - j < window with a window).
+    The backward recomputes the scores chunk by chunk from the saved
+    (q, k, v, o, lse), the flash-attention recipe."""
+    return _BlockedAttention.apply(q, k, v, causal, window, q_offset,
+                                   q_chunk, kv_chunk)
 
 
 def _project_qkv(p: GQA, x, cfg: ModelConfig, positions, rope: bool = True):
@@ -67,7 +157,8 @@ def gqa_full(p: GQA, x, cfg: ModelConfig, positions, *, causal=True,
              backend: str = "cuda"):
     """Train/prefill self-attention; returns ([B,S,d], (k, v) for caching).
     ``backend="cuda"`` runs the flash attention kernel on a CUDA tensor
-    (its plain version on a CPU one); ``"torch"`` the plain version."""
+    (its plain version on a CPU one; no backward); ``"torch"`` runs
+    :func:`blocked_attention`, which trains."""
     check_backend(backend)
     B, S, _ = x.shape
     q, k, v = _project_qkv(p, x, cfg, positions)

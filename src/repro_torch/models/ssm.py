@@ -32,13 +32,14 @@ class Mamba2(nn.Module):
     [d_conv, channels] and ``conv_b``, ``A_log``/``D``/``dt_bias`` [H] in
     f32, ``out_norm`` [d_in] in f32 and ``out_proj`` [d_in, d]."""
 
-    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype):
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype, device=None):
         super().__init__()
-        s, d, dev = cfg.ssm, cfg.d_model, gen.device
+        s, d, dev = cfg.ssm, cfg.d_model, device or gen.device
         d_in = s.expand * d
         nh = d_in // s.head_dim
         conv_ch = d_in + 2 * s.n_groups * s.d_state
-        self.in_proj = dense_init(gen, d, 2 * d_in + 2 * s.n_groups * s.d_state + nh, dtype)
+        self.in_proj = dense_init(gen, d, 2 * d_in + 2 * s.n_groups * s.d_state + nh,
+                                  dtype, device=dev)
         self.conv_w = param((torch.randn((s.d_conv, conv_ch), generator=gen, device=dev)
                              * 0.1).to(dtype))
         self.conv_b = param(torch.zeros((conv_ch,), dtype=dtype, device=dev))
@@ -46,7 +47,7 @@ class Mamba2(nn.Module):
         self.D = param(torch.ones((nh,), device=dev))
         self.dt_bias = param(torch.zeros((nh,), device=dev))
         self.out_norm = init_rms_norm(d_in, dev)
-        self.out_proj = dense_init(gen, d_in, d, dtype)
+        self.out_proj = dense_init(gen, d_in, d, dtype, device=dev)
 
 
 def _split_proj(proj, cfg: ModelConfig):

@@ -1,7 +1,8 @@
 """LM assembly for the dense, ssm and hybrid families.
 
-Port of the serving half of ``repro.models.transformer``.  A model is a
-repeated *super-block pattern* over R repeats:
+Port of ``repro.models.transformer`` (serving, and the training loss
+with remat).  A model is a repeated *super-block pattern* over R
+repeats:
 
   dense        ['attn']            x n_layers
   ssm          ['ssm']             x n_layers     (mamba2)
@@ -13,23 +14,33 @@ them; here they are ``R * len(pattern)`` layer modules in execution order
 (:attr:`Model.layers`, layer ``r * len(pattern) + i`` is position i of
 repeat r), and the shared block is :attr:`Model.shared_attn`.  Decode
 caches stay stacked ``[R, B, ...]`` per pattern position, as in the
-reference, and :func:`decode_step` updates them in place.  The moe, vlm
-and encdec families, the training loss and remat wait for later slices
-(``ROADMAP.md``).
+reference, and :func:`decode_step` updates them in place.  The trainer
+keeps the parameters in the reference's stacked layout and binds views
+of them into a model (:mod:`repro_torch.models.convert`); :func:`loss_fn`
+differentiates through them, with each super-block checkpointed
+(``remat="full"``) or its matrix products saved (``"dots"``).  The moe,
+vlm and encdec families and MTP wait for later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ..core.comm import resolve_device
 from .attention import GQA, check_backend, gqa_decode, gqa_full
 from .common import ModelConfig
 from .layers import (
     SwiGLU,
+    chunked_softmax_xent,
     embed_apply,
     embed_init,
     init_rms_norm,
@@ -66,17 +77,18 @@ class Block(nn.Module):
     """One layer: ``attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``) or ``ssm``
     (``ln1``, ``ssm``), the reference's parameter names."""
 
-    def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype):
+    def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype,
+                 device=None):
         super().__init__()
         self.typ = typ
-        d, dev = cfg.d_model, gen.device
+        d, dev = cfg.d_model, device or gen.device
         self.ln1 = init_rms_norm(d, dev)
         if typ == "attn":
-            self.attn = GQA(gen, cfg, dtype)
+            self.attn = GQA(gen, cfg, dtype, dev)
             self.ln2 = init_rms_norm(d, dev)
-            self.mlp = SwiGLU(gen, d, cfg.d_ff, dtype)
+            self.mlp = SwiGLU(gen, d, cfg.d_ff, dtype, dev)
         elif typ == "ssm":
-            self.ssm = Mamba2(gen, cfg, dtype)
+            self.ssm = Mamba2(gen, cfg, dtype, dev)
         else:
             raise ValueError(typ)
 
@@ -85,17 +97,18 @@ class Model(nn.Module):
     """``embed`` [V, d], ``ln_f``, ``unembed`` [V, d] (None when tied), the
     layers in execution order and the hybrid family's ``shared_attn``."""
 
-    def __init__(self, cfg: ModelConfig, gen: torch.Generator):
+    def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
         dtype = cfg.torch_dtype
+        dev = device or gen.device
         pattern, R, shared = layer_pattern(cfg)
-        self.embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype)
-        self.ln_f = init_rms_norm(cfg.d_model, gen.device)
+        self.embed = embed_init(gen, cfg.vocab, cfg.d_model, dtype, dev)
+        self.ln_f = init_rms_norm(cfg.d_model, dev)
         self.unembed = None if cfg.tie_embeddings else embed_init(
-            gen, cfg.vocab, cfg.d_model, dtype)
+            gen, cfg.vocab, cfg.d_model, dtype, dev)
         self.layers = nn.ModuleList(
-            Block(gen, typ, cfg, dtype) for _ in range(R) for typ in pattern)
-        self.shared_attn = Block(gen, "attn", cfg, dtype) if shared else None
+            Block(gen, typ, cfg, dtype, dev) for _ in range(R) for typ in pattern)
+        self.shared_attn = Block(gen, "attn", cfg, dtype, dev) if shared else None
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -104,8 +117,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *
     ``generator`` (default: seed 0 on that device), as the reference's
     ``init_params`` lays them out.  Same shapes and dtypes as the
     reference's (norms and ``A_log``/``D``/``dt_bias`` in f32, the rest in
-    the config's dtype); the numbers differ (another generator)."""
+    the config's dtype); the numbers differ (another generator).
+    ``device="meta"`` builds the structure with no storage."""
     dev = resolve_device(device)
+    if dev.type == "meta":
+        return Model(cfg, torch.Generator(), dev)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     elif generator.device.type != dev.type:
@@ -130,22 +146,50 @@ def _apply_layer(p: Block, x, cfg: ModelConfig, positions, backend: str):
                          backend=backend)
 
 
+#: The matrix products ``remat="dots"`` keeps (the reference's
+#: ``checkpoint_dots_with_no_batch_dims``: a product with no batch
+#: dimensions; attention's batched einsums are recomputed).
+_SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+REMATS = ("none", "full", "dots")
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _SAVED_PRODUCTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
-                   backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
+                   backend: str = "cuda",
+                   remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss 0).
     ``backend="cuda"`` runs attention and the SSD scan in the CUDA kernels
-    on a CUDA tensor; ``"torch"`` runs their plain versions."""
+    on a CUDA tensor; ``"torch"`` runs their plain versions (the training
+    path).  ``remat``: ``"none"``; ``"full"`` checkpoints each super-block
+    (its backward recomputes it from its input); ``"dots"`` keeps the
+    matrix products' outputs and recomputes the rest."""
     check_backend(backend)
+    if remat not in REMATS:
+        raise ValueError(f"unknown remat {remat!r} (use one of {REMATS})")
     pattern, R, shared = layer_pattern(cfg)
     B, S = tokens.shape
     x = embed_apply(params.embed, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
     k = len(pattern)
-    for r in range(R):
+
+    def super_block(x, r):
         for i in range(k):
             x = _apply_layer(params.layers[r * k + i], x, cfg, positions, backend)
         if shared:
             x = _apply_layer(params.shared_attn, x, cfg, positions, backend)
+        return x
+
+    for r in range(R):
+        if remat == "none":
+            x = super_block(x, r)
+            continue
+        kw = {} if remat == "full" else {"context_fn": partial(
+            create_selective_checkpoint_contexts, _save_products)}
+        x = checkpoint(super_block, x, r, use_reentrant=False, **kw)
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     return x, torch.zeros((), device=x.device)
 
@@ -155,6 +199,22 @@ def forward(params: Model, cfg: ModelConfig, tokens, *,
     """Full forward: tokens [B, S] -> (logits [B, S, V], aux_loss)."""
     x, aux = forward_hidden(params, cfg, tokens, backend=backend)
     return unembed_apply(_table(params), x), aux
+
+
+def loss_fn(params: Model, cfg: ModelConfig, batch, *, remat: str = "none",
+            backend: str = "torch"):
+    """The training loss of ``batch`` ({"tokens", "labels"}, [B, S] each;
+    label -100 is ignored): ``(ce + 0.01 * aux, {"ce", "aux"})``, the
+    cross entropy through the chunked LM head.  ``backend="torch"`` (the
+    default) differentiates; the CUDA kernels have no backward."""
+    if cfg.mtp:
+        raise NotImplementedError(
+            "multi-token prediction (deepseek-v3) is not ported yet "
+            "(ROADMAP.md Queue 1 item 9)")
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"], backend=backend,
+                                 remat=remat)
+    loss = chunked_softmax_xent(hidden, _table(params), batch["labels"])
+    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
 def prefill(params: Model, cfg: ModelConfig, tokens, *,

@@ -1,2 +1,14 @@
-"""Training-side consumers of the port's collectives: the checkpoint
-restore fan-out (:mod:`repro_torch.train.restore_broadcast`)."""
+"""The training path: the train step with its data-parallel gradient sync
+(:mod:`repro_torch.train.trainer`) and the checkpoint restore fan-out
+(:mod:`repro_torch.train.restore_broadcast`)."""
+
+from .trainer import (
+    TrainConfig,
+    grad_bucket_spec,
+    init_train_state,
+    make_eval_step,
+    make_train_step,
+)
+
+__all__ = ["TrainConfig", "grad_bucket_spec", "init_train_state",
+           "make_eval_step", "make_train_step"]

@@ -28,10 +28,13 @@ raise.  Nothing here clears the reference's plan cache or sets JAX's
 global config.
 """
 
+import contextlib
+import fcntl
 import os
 import pickle
 import subprocess
 import sys
+import tempfile
 from collections import OrderedDict, defaultdict, namedtuple
 
 import jax
@@ -275,42 +278,57 @@ def _same_bits(got, want):
 # --------------------------------------------------------------- reference
 
 
+@contextlib.contextmanager
+def _reference_slot():
+    """Hold the lock the port's reference-run fixtures share (a file in
+    the temporary directory), so that one set of JAX reference processes
+    loads the cores at a time when the test files run in parallel."""
+    path = os.path.join(tempfile.gettempdir(), "repro_torch_reference_runs.lock")
+    with open(path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's outputs for every case at every p: three
     subprocesses, started together -> {p: {name: (leaves, meta)}}."""
-    work = tmp_path_factory.mktemp("comm_reference")
-    procs = {}
-    for p in PS:
-        cases = []
-        for case in _cases(p).values():
-            leaves, treedef = tree_flatten(case["payload"])
-            bf16 = [i for i, x in enumerate(leaves) if x.dtype == BF16]
-            cases.append(dict(case, bf16=bf16, payload=tree_unflatten(
-                treedef, [x.view(np.uint16) if x.dtype == BF16 else x
-                          for x in leaves])))
-        src, dst = work / f"in{p}.pkl", work / f"out{p}.pkl"
-        with open(src, "wb") as f:
-            pickle.dump({"p": p, "cases": cases}, f)
-        env = dict(os.environ)
-        env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={p}"
-        env["JAX_PLATFORMS"] = "cpu"
-        env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-        procs[p] = (subprocess.Popen(
-            [sys.executable, "-c", RUNNER, str(src), str(dst)], env=env,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), dst)
-    out = {}
-    for p, (proc, dst) in procs.items():
-        try:
-            _, err = proc.communicate(timeout=110)
-        except subprocess.TimeoutExpired:
-            for q, _ in procs.values():
-                q.kill()
-            raise
-        assert proc.returncode == 0, f"reference run at p={p} failed:\n{err}"
-        with open(dst, "rb") as f:
-            out[p] = pickle.load(f)
-    return out
+    with _reference_slot():
+        work = tmp_path_factory.mktemp("comm_reference")
+        procs = {}
+        for p in PS:
+            cases = []
+            for case in _cases(p).values():
+                leaves, treedef = tree_flatten(case["payload"])
+                bf16 = [i for i, x in enumerate(leaves) if x.dtype == BF16]
+                cases.append(dict(case, bf16=bf16, payload=tree_unflatten(
+                    treedef, [x.view(np.uint16) if x.dtype == BF16 else x
+                              for x in leaves])))
+            src, dst = work / f"in{p}.pkl", work / f"out{p}.pkl"
+            with open(src, "wb") as f:
+                pickle.dump({"p": p, "cases": cases}, f)
+            env = dict(os.environ)
+            env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={p}"
+            env["JAX_PLATFORMS"] = "cpu"
+            env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+            procs[p] = (subprocess.Popen(
+                [sys.executable, "-c", RUNNER, str(src), str(dst)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), dst)
+        out = {}
+        for p, (proc, dst) in procs.items():
+            try:
+                _, err = proc.communicate(timeout=110)
+            except subprocess.TimeoutExpired:
+                for q, _ in procs.values():
+                    q.kill()
+                raise
+            assert proc.returncode == 0, f"reference run at p={p} failed:\n{err}"
+            with open(dst, "rb") as f:
+                out[p] = pickle.load(f)
+        return out
 
 
 def _run_port(case, p, backend):
@@ -601,11 +619,21 @@ def test_leaf_order_and_treedef_text_match_jax(tree):
     assert str(jax.tree.structure(back)) == str(jdef)
 
 
-def test_quantized_allreduce_is_not_in_the_communicator_yet():
+def test_quantized_allreduce_argument_errors():
+    """The quantized kind takes the reference's argument errors: no
+    overlapped loop, always a sum, float32 leaves only (its texts)."""
     comm = get_comm(StackedGroup(5, device="cpu"), backend="torch")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        comm.plan("quantized_allreduce", {"g": torch.zeros((5, 512))})
+    g = {"g": torch.zeros((5, 512))}
+    with pytest.raises(ValueError, match="overlap= is not supported for kind "
+                                         "'quantized_allreduce'"):
+        comm.plan("quantized_allreduce", g, overlap=True)
+    with pytest.raises(ValueError, match="quantized_allreduce always sums"):
+        comm.plan("quantized_allreduce", g, op="max")
+    with pytest.raises(ValueError, match="requires float32 leaves .* got bfloat16"):
+        comm.plan("quantized_allreduce", {"g": torch.zeros((5, 512), dtype=torch.bfloat16)})
     assert "quantized_allreduce" in tcomm.KINDS
+    sums, errs = comm.plan("quantized_allreduce", g)(g)
+    assert not sums["g"].any() and not errs["g"].any()
 
 
 def test_groups_raise_without_a_card_or_a_process_group(monkeypatch):

@@ -843,3 +843,121 @@ def test_broadcast_state_on_the_card(gen):
     assert _launched(before)["block_unpack"] == 3      # one message a dtype
     for k, v in state.items():
         assert torch.equal(out[k], v[5].expand_as(v))
+
+
+# ------------------------------------ the quantized wire and the trainer
+
+
+def quantized_launches(plan, leaves):
+    """One call of a quantized_allreduce plan: a leaf takes R + 1
+    qacc_shuffles, then the broadcast of its int8 payload and its scales
+    (two buffers: a pack, R - 1 shuffles and an unpack each)."""
+    R = plan.statics[0].ks.shape[0]
+    out = {"block_qacc_shuffle": (R + 1) * leaves, "block_pack": 2 * leaves,
+           "block_shuffle": 2 * (R - 1) * leaves, "block_unpack": 2 * leaves}
+    return {k: v for k, v in out.items() if v}
+
+
+@pytest.mark.parametrize("p,root", [(2, 1), (5, 0), (37, 11)])
+def test_comm_quantized_cuda_matches_torch(gen, p, root):
+    """The communicator's quantized_allreduce of a 3-leaf pytree (a NaN
+    lane, ragged leaves, 12 decades of magnitude), two error-feedback
+    steps: "cuda" equals "torch" (NaN lanes by position), every rank's
+    sums the same, the kernels launched as the rounds say."""
+    def leaves():
+        x = {"w": torch.randn((p, 300), generator=gen, device="cuda")
+             * 10.0 ** torch.randint(-6, 6, (p, 1), generator=gen, device="cuda").float(),
+             "b": torch.randn((p, 7, 3), generator=gen, device="cuda"),
+             "z": torch.zeros((p, 40), device="cuda")}
+        x["w"][p - 1, 17] = float("nan")
+        return x
+
+    x = leaves()
+    plan = get_comm(StackedGroup(p)).plan("quantized_allreduce", x, root=root, qblock=8)
+    plain = get_comm(StackedGroup(p), backend="torch").plan(
+        "quantized_allreduce", x, root=root, qblock=8)
+    for _ in range(2):
+        before = dict(bp.LAUNCHES)
+        sums, errs = plan(x)
+        assert _launched(before) == quantized_launches(plan, 3)
+        psums, perrs = plain(x)
+        for k in x:
+            assert sums[k].is_cuda and _same_or_nan(sums[k], psums[k])
+            assert _same_or_nan(errs[k], perrs[k]) and torch.isfinite(errs[k]).all()
+            assert all(_same_or_nan(sums[k][r], sums[k][0]) for r in range(p))
+        x = {k: v + errs[k] for k, v in leaves().items()}
+
+
+def test_compressed_grad_sync_cuda_matches_torch(gen):
+    """compressed_grad_sync of a bf16/f32 gradient tree in several buckets
+    at p = 4, two error-feedback steps: "cuda" equals "torch" bit for bit."""
+    from repro_torch.optim import compression as comp
+
+    p = 4
+    like = {"emb": torch.zeros(64, 24, dtype=torch.bfloat16), "ln": torch.zeros(24),
+            "pos0": {"w": torch.zeros(3, 24, 24), "b": torch.zeros(3, 24)}}
+    spec = comp.make_bucket_spec(like, 4 * 1200)
+    errs = {be: comp.init_grad_sync_state(spec, p) for be in ("cuda", "torch")}
+    for _ in range(2):
+        g = {"emb": torch.randn((p, 64, 24), generator=gen, device="cuda").to(torch.bfloat16),
+             "ln": torch.randn((p, 24), generator=gen, device="cuda"),
+             "pos0": {"w": torch.randn((p, 3, 24, 24), generator=gen, device="cuda"),
+                      "b": torch.randn((p, 3, 24), generator=gen, device="cuda")}}
+        out = {}
+        for be in ("cuda", "torch"):
+            out[be], errs[be] = comp.compressed_grad_sync(g, errs[be], StackedGroup(p),
+                                                          spec, backend=be)
+        for a, b in zip(tree_flatten(out["cuda"])[0], tree_flatten(out["torch"])[0]):
+            assert a.is_cuda and _same_bits(a, b)
+        for a, b in zip(errs["cuda"], errs["torch"]):
+            assert _same_bits(a, b)
+
+
+def test_model_kernels_refuse_grad_on_the_card(gen):
+    """The kernels have no backward: under grad mode an operand that
+    requires grad is refused before any launch; under no_grad they run."""
+    q = torch.randn((1, 64, 4, 32), generator=gen, device="cuda", requires_grad=True)
+    k = torch.randn((1, 64, 2, 32), generator=gen, device="cuda")
+    x = torch.randn((1, 64, 4, 16), generator=gen, device="cuda", requires_grad=True)
+    B_ = torch.randn((1, 64, 1, 8), generator=gen, device="cuda")
+    dt = torch.rand((1, 64, 4), generator=gen, device="cuda")
+    A, D = torch.zeros(4, device="cuda"), torch.ones(4, device="cuda")
+    before = dict(fa.LAUNCHES), dict(ss.LAUNCHES)
+    with pytest.raises(ValueError, match="flash_attention has no backward"):
+        fa.flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="ssd_scan has no backward"):
+        ss.ssd_scan(x, B_, B_, dt, A, D, chunk=32)
+    assert (dict(fa.LAUNCHES), dict(ss.LAUNCHES)) == before
+    with torch.no_grad():
+        fa.flash_attention(q, k, k)
+        ss.ssd_scan(x, B_, B_, dt, A, D, chunk=32)
+    assert fa.LAUNCHES["flash_attention"] == before[0]["flash_attention"] + 1
+    assert ss.LAUNCHES["ssd_scan"] == before[1]["ssd_scan"] + 1
+
+
+def test_train_step_sync_backends_agree_on_the_card(gen):
+    """Two compressed steps of qwen2-smoke over StackedGroup(2), streamed
+    and not: the "cuda" sync (the round-step kernels) leaves the same
+    parameters and errors as the "torch" one, bit for bit."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    for stream in (False, True):
+        states = {}
+        for be in ("cuda", "torch"):
+            tcfg = TrainConfig(grad_sync="compressed", grad_sync_backend=be,
+                               stream_grad_sync=stream, microbatches=2)
+            state = init_train_state(cfg, tcfg, torch.Generator("cuda").manual_seed(0),
+                                     group=StackedGroup(2))
+            step = make_train_step(cfg, tcfg, group=StackedGroup(2))
+            before = dict(bp.LAUNCHES)
+            for i in range(2):
+                state, m = step(state, data.batch_at(i))
+                assert torch.isfinite(m["loss"])
+            launched = _launched(before)
+            assert (launched.get("block_qacc_shuffle", 0) > 0) == (be == "cuda")
+            states[be] = state
+        for a, b in zip(tree_flatten(states["cuda"])[0], tree_flatten(states["torch"])[0]):
+            assert _same_bits(a, b)
