@@ -39,7 +39,8 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     identical, "cuda" must equal "torch" bit for bit, and sums plus
     errors must give back the exact sum;
   * the two-level host plans of the same 1152 ranks as 36 nodes x 32
-    cores (``hier_host_plan``, block counts from ``optimal_hier_blocks``):
+    cores (``hier_host_plan``, block counts from the port's
+    ``_resolve_hier_blocks``, the levels' ``optimal_hier_blocks`` capped):
     hier_broadcast of the broadcast's 16 MiB from root 100, n = (41, 37);
     hier_reduce (sum and max of the reduce's contributions, 19.3 GB, and
     a sum of int32 contributions that wraps) and hier_allreduce to and
@@ -49,6 +50,18 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     as often as its levels' rounds say, and the port's
     ``simulate_hier_*(backend="cuda")`` must certify the plans at 36 x 32.
     Each line gives the flat path's time of this run beside its own;
+  * the two-level communicator, ``get_hier_comm(StackedGrid(36, 32))``,
+    whose levels each run once over all 1152 rows (the exchange a roll
+    of ``view(36, 32, ...)`` along dim 0 or 1): hiercomm_broadcast,
+    hiercomm_reduce (f32 sum, f32 max, an int32 sum that wraps),
+    hiercomm_allreduce and hiercomm_allgather at the hier_* payloads,
+    block counts from the port's ``_resolve_hier_blocks``.  Each is exact
+    at full size, launches its kernels once a round of each level (the
+    reduce 89 acc_shuffles, the allgather 2 packs, 42 shuffles and 2
+    unpacks), and equals ``hier_host_plan`` and the "torch" backend bit
+    for bit at 1 MiB a rank (the allgather at its full size, every
+    rank's copy too); each line gives its time, host call, bytes-bound
+    and peak beside the host plan's time of this run;
   * the plan/execute communicator, ``get_comm(StackedGroup(1152))`` with
     pytree payloads: comm_broadcast of {"w": 12 MiB f32, "b": 4 MiB int32}
     a rank from root 100 (n = 58, 68 rounds), with ``broadcast_state`` of
@@ -896,18 +909,30 @@ def compare_scan(torch, ss, g, B, S, H, P, G, N, chunk, timed: bool):
     return rec
 
 
-def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
+def hier_blocks(torch, kind, shape):
+    """The port's block counts of a hier plan (``_resolve_hier_blocks``:
+    the levels' optima under DEFAULT_MODEL, capped at the elements a
+    level splits) for one float32 leaf of this global shape."""
+    from repro_torch.core.comm import payload_spec
+    from repro_torch.core.costmodel import DEFAULT_MODEL
+    from repro_torch.core.hier import _resolve_hier_blocks
+
+    spec = payload_spec({"x": torch.empty(shape, device="meta")})
+    return _resolve_hier_blocks(kind, spec, NODES, HIER_CORES, None, None,
+                                DEFAULT_MODEL, DEFAULT_MODEL)
+
+
+def hier_phases(torch, np, card, kmods, g, flat_ms) -> tuple:
     """The two-level host plans at the paper's 36 x 32 topology: the
     broadcast of the flat broadcast's payload, reduce (sum, max, int32
     sum) and allreduce of the flat reduce's contributions, and the
     allgather of the flat allgather's, each "cuda" bit for bit against
     "torch" and the exact result, and each certified by the port's
     message-passing simulator.  ``flat_ms``: the flat paths' times of
-    this run, printed beside.  Returns {phase: launches}."""
+    this run, printed beside.  Returns ({phase: launches}, {kind: ms})."""
     from repro_torch.core import (
         hier_host_plan,
         hier_rounds,
-        optimal_hier_blocks,
         simulate_hier_allreduce,
         simulate_hier_broadcast,
         simulate_hier_reduce,
@@ -916,13 +941,6 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
 
     elems = PAYLOAD_BYTES // 4
     counts = {}
-
-    def blocks(kind, m_inter, m_intra, cap_inter, cap_intra):
-        """The reference's _resolve_hier_blocks: the per-level optima
-        under DEFAULT_MODEL, capped at the elements a level splits."""
-        n_inter, n_intra = optimal_hier_blocks(NODES, HIER_CORES, m_inter,
-                                               m_intra, kind=kind)
-        return min(n_inter, cap_inter), min(n_intra, cap_intra)
 
     def launches_of(plan):
         """Rounds of each level and the launches one run makes: a forward
@@ -991,7 +1009,7 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
                 "inter_run": inter}
 
     # 8a. hier_broadcast: 16 MiB f32 from root 100 (node 3, core 4)
-    nN, nC = blocks("broadcast", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
+    nN, nC = hier_blocks(torch, "broadcast", (P, elems))
     payload = np.random.default_rng(SEED).standard_normal(elems, dtype=np.float32)
     want_row = torch.from_numpy(payload).cuda()
     plan = hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC, root=BCAST_ROOT)
@@ -1030,8 +1048,8 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
 
     # 8b. hier_reduce (sum, max) and hier_allreduce: 16 MiB f32 a rank,
     #     integer-valued first (exact sums), then standard normal
-    nN, nC = blocks("reduce", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
-    nNa, nCa = blocks("allreduce", PAYLOAD_BYTES, PAYLOAD_BYTES, elems, elems)
+    nN, nC = hier_blocks(torch, "reduce", (P, elems))
+    nNa, nCa = hier_blocks(torch, "allreduce", (P, elems))
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
     contrib = torch.randint(-8, 9, (NODES, HIER_CORES, elems), generator=g,
@@ -1122,8 +1140,7 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
 
     # 8c. hier_allgather: 8 KiB f32 a rank
     e = GATHER_BYTES // 4
-    nN, nC = blocks("allgather", P * GATHER_BYTES, HIER_CORES * GATHER_BYTES,
-                    HIER_CORES * e, e)
+    nN, nC = hier_blocks(torch, "allgather", (P * e,))
     vals = torch.randn((NODES, HIER_CORES, e), generator=g, device="cuda")
     plan_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC)
     plain_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC,
@@ -1151,26 +1168,237 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> dict:
           "breakdown_ms": loop_g, "flat_ms": flat_ms["allgather"], "card": card})
     del vals
     torch.cuda.empty_cache()
+    return counts, {"broadcast": t["ms"], "reduce": t_r["ms"],
+                    "allreduce": t_a["ms"], "allgather": t_g["ms"]}
+
+
+#: The launches of the hiercomm paths at 36 x 32 with n = (41, 37) (46 +
+#: 41 rounds) and, for the allgather, (30, 5) (35 + 9 rounds): one plan
+#: over all 1152 rows launches each level's kernels once a round.
+HIERCOMM_LAUNCHES = {
+    "broadcast": {"block_pack": 2, "block_shuffle": 85, "block_unpack": 2},
+    "reduce": {"block_acc_shuffle": 89},
+    "allreduce": {"block_acc_shuffle": 89, "block_pack": 2,
+                  "block_shuffle": 85, "block_unpack": 2},
+    "allgather": {"block_pack": 2, "block_shuffle": 42, "block_unpack": 2},
+}
+
+
+def hiercomm_phases(torch, np, card, kmods, g, host_ms) -> dict:
+    """The two-level communicator over ``StackedGrid(36, 32)``: every
+    level runs once over all 1152 rows of the card, the exchange a roll
+    of ``view(36, 32, ...)`` along dim 0 (inter) or dim 1 (intra).  At the
+    hier_* phases' payloads (16 MiB a rank, root 100; the allgather 8 KiB
+    a rank): broadcast; reduce (f32 sum of integer values, f32 max, a
+    wrapping int32 sum); allreduce; allgather, each exact at full size
+    and by its launches, and bit for bit against ``hier_host_plan`` and
+    the "torch" backend at 1 MiB a rank (the allgather at its full
+    size).  Each line gives its time (CUDA events, warm, median of 5),
+    the host time of the call, the bytes-bound of all 1152 rows from the
+    levels' flat plans, the peak since the phase began and the host
+    plan's time of this run (``host_ms``).  Returns {phase: launches}."""
+    from repro_torch.core import StackedGrid, get_hier_comm, hier_host_plan
+
+    grid = StackedGrid(NODES, HIER_CORES)
+    hc, plain = get_hier_comm(grid), get_hier_comm(grid, backend="torch")
+    elems, small = PAYLOAD_BYTES // 4, (1 << 20) // 4
+    rN, rC = divmod(BCAST_ROOT, HIER_CORES)
+    counts = {}
+
+    def fresh():
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def run_counted(name, kind, plan, x):
+        out, got = counted_run(torch, kmods, lambda: plan(x))
+        check(got == comm_launches(plan, 1) == HIERCOMM_LAUNCHES[kind],
+              f"{name} launches {got}, statics say {comm_launches(plan, 1)}")
+        counts[name] = got
+        return out
+
+    def timed(plan, x, before):
+        ms, runs = median_ms(torch, lambda: plan(x), 5)
+        host = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            plan(x)
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        return {"ms": ms, "ms_runs": runs, "host_call_ms": sorted(host)[2],
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "allocated_before_the_phase": before}
+
+    def every_row(t, row, rows=64):
+        return all(torch.equal(t[i:i + rows], row.expand(min(rows, t.shape[0] - i), -1))
+                   for i in range(0, t.shape[0], rows))
+
+    def level_plans(kind, plan):
+        """The flat host plans of each level, as (inter, intra) lists."""
+        hp = hier_host_plan(kind, NODES, HIER_CORES, plan.n_inter, plan.n_intra,
+                            root=plan.root, op=plan.op or "sum")
+        return [(hp.inter if isinstance(hp.inter, tuple) else (hp.inter,)),
+                (hp.intra if isinstance(hp.intra, tuple) else (hp.intra,))]
+
+    def bound_of(kind, plan, m_inter, m_intra):
+        """Bytes of all 1152 rows of f32: each level's flat plan once a
+        core (inter) or a node (intra), at the elements a rank holds at
+        that level; a broadcast level's source rows (the root's, then the
+        leaders') read and written once; the reduce's root mask."""
+        inter, intra = level_plans(kind, plan)
+        total = 0
+        for flat in inter:
+            total += (level_bytes(flat, m_inter, 4, upload_rows=2)
+                      + (HIER_CORES - 1) * level_bytes(flat, m_inter, 4, upload_rows=0))
+        for flat in intra:
+            total += NODES * level_bytes(flat, m_intra, 4, upload_rows=2)
+        if kind == "reduce":
+            total += (P - 1) * m_inter * 4
+        return total
+
+    def small_checks(kind, x, **kw):
+        """At 1 MiB a rank: "cuda" bit for bit against hier_host_plan and
+        against the "torch" backend; the launches of the call."""
+        plan = hc.plan(kind, x, **kw)
+        out, got = counted_run(torch, kmods, lambda: plan(x))
+        check(got == comm_launches(plan, 1), f"hiercomm {kind} at 1 MiB: {got}")
+        check(same_bits(torch, out, plain.plan(kind, x, **kw)(x)),
+              f"hiercomm {kind} at 1 MiB: cuda backend != torch backend")
+        hp = hier_host_plan(kind, NODES, HIER_CORES, plan.n_inter, plan.n_intra,
+                            root=plan.root, op=kw.get("op", "sum"))
+        if kind == "broadcast":
+            want = hp.run(x[BCAST_ROOT]).reshape(P, -1)
+        elif kind == "reduce":
+            want = torch.zeros_like(out)
+            want[BCAST_ROOT] = hp.run(x)
+        else:
+            want = hp.run(x).reshape(P, -1)
+        check(same_bits(torch, out, want),
+              f"hiercomm {kind} at 1 MiB: != hier_host_plan {kind}")
+        return {"n": [plan.n_inter, plan.n_intra], "launches": got}
+
+    def emit_phase(name, kind, plan, t, m_inter, m_intra, **extra):
+        bound = bound_of(kind, plan, m_inter, m_intra)
+        emit({"phase": name, "grid": [NODES, HIER_CORES],
+              "n": [plan.n_inter, plan.n_intra],
+              "rounds": {"inter": plan.rounds_inter, "intra": plan.rounds_intra},
+              **extra, **t, "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound),
+              "host_plan_ms": host_ms[kind], "card": card})
+
+    # hiercomm_broadcast: 16 MiB f32 a rank from root 100 (node 3, core 4)
+    before = fresh()
+    x = torch.randn((P, elems), generator=g, device="cuda")
+    plan = hc.plan("broadcast", x, root=BCAST_ROOT)
+    out = run_counted("hiercomm_broadcast", "broadcast", plan, x)
+    check(every_row(out, x[BCAST_ROOT]),
+          "hiercomm broadcast: a rank does not hold the root's slice")
+    del out
+    t = timed(plan, x, before)
+    at_1mib = small_checks("broadcast", x[:, :small], root=BCAST_ROOT)
+    emit_phase("hiercomm_broadcast", "broadcast", plan, t, elems, elems,
+               root=BCAST_ROOT, payload_bytes=PAYLOAD_BYTES,
+               launches=counts["hiercomm_broadcast"],
+               every_rank_holds_root_slice=True, at_1MiB_equal_to_host_plan_and_torch=at_1mib)
+    del x
+
+    # hiercomm_reduce (f32 sum of integer values, f32 max, int32 sum that
+    # wraps) and hiercomm_allreduce of the f32 integer values
+    before = fresh()
+    x = torch.randint(-8, 9, (P, elems), generator=g, device="cuda",
+                      dtype=torch.float32)
+    exact = x.sum(0)
+    plan = hc.plan("reduce", x, root=BCAST_ROOT)
+    out = run_counted("hiercomm_reduce", "reduce", plan, x)
+    check(torch.equal(out[BCAST_ROOT], exact)
+          and all_equal_to(torch, out[:BCAST_ROOT], 0)
+          and all_equal_to(torch, out[BCAST_ROOT + 1:], 0),
+          "hiercomm reduce: root != values.sum over ranks, or a rank not drained")
+    del out
+    t_r = timed(plan, x, before)
+    plan_a = hc.plan("allreduce", x, root=BCAST_ROOT)
+    torch.cuda.reset_peak_memory_stats()
+    out = run_counted("hiercomm_allreduce", "allreduce", plan_a, x)
+    check(every_row(out, exact), "hiercomm allreduce: a rank does not hold the sum")
+    del out
+    t_a = timed(plan_a, x, before)
+    x.normal_(generator=g)
+    plan_m = hc.plan("reduce", x, root=BCAST_ROOT, op="max")
+    out = run_counted("hiercomm_reduce_max", "reduce", plan_m, x)
+    check(torch.equal(out[BCAST_ROOT], x.amax(0)),
+          "hiercomm reduce max: root != values.amax over ranks")
+    del out
+    small_r = {op: small_checks("reduce", x[:, :small], root=BCAST_ROOT, op=op)
+               for op in ("sum", "max")}
+    small_a = small_checks("allreduce", x[:, :small], root=BCAST_ROOT)
+    del x, exact
+    torch.cuda.empty_cache()
+    xi = torch.randint(-2 ** 31, 2 ** 31, (P, elems), generator=g, device="cuda",
+                       dtype=torch.int32)
+    plan_i = hc.plan("reduce", xi, root=BCAST_ROOT)
+    out = run_counted("hiercomm_reduce_int32", "reduce", plan_i, xi)
+    check(out.dtype == torch.int32
+          and torch.equal(out[BCAST_ROOT], xi.sum(0, dtype=torch.int32)),
+          "hiercomm reduce int32: root != values.sum over ranks (wrapping)")
+    del out
+    small_r["sum int32"] = small_checks("reduce", xi[:, :small], root=BCAST_ROOT)
+    del xi
+    emit_phase("hiercomm_reduce", "reduce", plan, t_r, elems, elems, root=BCAST_ROOT,
+               ops=["sum", "max", "sum int32"], payload_bytes=PAYLOAD_BYTES,
+               launches=counts["hiercomm_reduce"], root_equals_exact_sum=True,
+               max_root_equals_amax=True, int32_root_equals_wrapped_sum=True,
+               at_1MiB_equal_to_host_plan_and_torch=small_r)
+    emit_phase("hiercomm_allreduce", "allreduce", plan_a, t_a, elems, elems,
+               root=BCAST_ROOT, op="sum", launches=counts["hiercomm_allreduce"],
+               every_rank_holds_exact_sum=True,
+               at_1MiB_equal_to_host_plan_and_torch=small_a)
+
+    # hiercomm_allgather: 8 KiB f32 a rank, checked at its full size
+    e = GATHER_BYTES // 4
+    before = fresh()
+    x = torch.randn((P, e), generator=g, device="cuda")
+    plan = hc.plan("allgather", x)
+    out = run_counted("hiercomm_allgather", "allgather", plan, x)
+    check(torch.equal(out, x), "hiercomm allgather: not every rank's values, rank-major")
+    check(same_bits(torch, out, plain.plan("allgather", x)(x)),
+          "hiercomm allgather: cuda backend != torch backend")
+    hp = hier_host_plan("allgather", NODES, HIER_CORES, plan.n_inter, plan.n_intra)
+    check(same_bits(torch, out, hp.run(x.view(NODES, HIER_CORES, e))),
+          "hiercomm allgather: != hier_host_plan allgather")
+    del out
+    copies = plan.per_rank(x)
+    check(tuple(copies.shape) == (P, P, e)
+          and all(torch.equal(copies[i], x) for i in range(P)),
+          "hiercomm allgather: a rank's copy is not every rank's values")
+    del copies
+    t_g = timed(plan, x, before)
+    emit_phase("hiercomm_allgather", "allgather", plan, t_g, HIER_CORES * e, e,
+               bytes_per_rank=GATHER_BYTES, launches=counts["hiercomm_allgather"],
+               every_rank_holds_every_block=True, equal_to_torch_backend=True,
+               equal_to_host_plan=True)
+    del x
+    torch.cuda.empty_cache()
     return counts
 
 
 def comm_launches(plan, buffers: int) -> dict:
-    """The launches one call of a communicator plan makes: each of its
-    ``buffers`` round-step buffers (one a leaf; allgatherv: one a leaf and
-    block size) takes each phase's rounds -- a forward phase of R rounds
-    packs once, shuffles R - 1 times and unpacks once (overlapped: a pack
-    every round and the staged shuffle), a reversed phase acc_shuffles
-    R + 1 times (overlapped: once, then a pack and a staged acc_shuffle a
-    round)."""
+    """The launches one call of a communicator plan (flat or hier) makes:
+    each of its ``buffers`` round-step buffers (one a leaf; allgatherv:
+    one a leaf and block size) takes each phase's rounds -- a forward
+    phase of R rounds packs once, shuffles R - 1 times and unpacks once
+    (overlapped: a pack every round and the staged shuffle), a reversed
+    phase acc_shuffles R + 1 times (overlapped: once, then a pack and a
+    staged acc_shuffle a round).  A hier plan has no overlapped loop."""
+    overlap = getattr(plan, "overlap", False)
     out = {}
     for phase in plan.statics:
         R = len(phase.ks)
         if phase.direction == "fwd":
-            steps = {"block_pack": R if plan.overlap else 1,
-                     ("block_shuffle_staged" if plan.overlap
+            steps = {"block_pack": R if overlap else 1,
+                     ("block_shuffle_staged" if overlap
                       else "block_shuffle"): R - 1,
                      "block_unpack": 1}
-        elif plan.overlap:
+        elif overlap:
             steps = {"block_acc_shuffle": 1, "block_pack": R,
                      "block_acc_shuffle_staged": R}
         else:
@@ -2879,8 +3107,11 @@ def main() -> None:
     torch.cuda.empty_cache()
     flat_ms = {"broadcast": bcast_ms, "reduce": red_ms, "allreduce": allred_ms,
                "allgather": ag_ms}
-    hier = hier_phases(torch, np, card, kmods, g, flat_ms)
+    hier, hier_ms = hier_phases(torch, np, card, kmods, g, flat_ms)
     torch.cuda.empty_cache()
+
+    # 8b. the two-level communicator over StackedGrid(36, 32)
+    hiercomm = hiercomm_phases(torch, np, card, kmods, g, hier_ms)
 
     # 9. the plan/execute communicator over the 1152 ranks, pytree payloads
     comm, acc_recs = comm_phases(torch, np, card, kmods, g, flat_ms)
@@ -2910,6 +3141,9 @@ def main() -> None:
          "library_ms": rec["library_ms"],
          **({"hier_launches": {ph: c[name] for ph, c in hier.items() if name in c}}
             if any(name in c for c in hier.values()) else {}),
+         **({"hiercomm_launches": {ph: c[name] for ph, c in hiercomm.items()
+                                   if name in c}}
+            if any(name in c for c in hiercomm.values()) else {}),
          **({"comm_launches": {ph: c[name] for ph, c in comm.items() if name in c}}
             if any(name in c for c in comm.values()) else {}),
          **({"train_launches": {ph: c[name] for ph, c in train.items() if name in c}}

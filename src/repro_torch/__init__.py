@@ -9,10 +9,12 @@ ranks on one device or a ``DistGroup`` of ``torch.distributed``
 processes: broadcast, reduce, allreduce, allgather, allgatherv and
 reduce_scatter of pytree payloads, with the checkpoint-restore fan-out
 ``broadcast_state`` as its first consumer), the single-device data
-planes of the same collectives, of the int8 quantized allreduce of
-gradient compression and of the two-level hierarchical collectives of
-the paper's 36 x 32 cluster, whose round steps run in hand-written CUDA
-kernels on an H100 (:mod:`repro_torch.kernels`), and gradient
+planes of the same collectives and of the int8 quantized allreduce of
+gradient compression, the two-level hierarchical collectives of the
+paper's 36 x 32 cluster (``get_hier_comm`` over a ``StackedGrid`` of
+nodes x cores ranks on one device or a ``DistGrid`` of processes, and
+their host plans), whose round steps run in hand-written CUDA kernels
+on an H100 (:mod:`repro_torch.kernels`), and gradient
 compression with error feedback over a rank group, the communicator's
 int8 quantized allreduce among it (:mod:`repro_torch.optim.compression`).
 It serves the dense, ssm and hybrid model families
@@ -29,17 +31,26 @@ from .core import (
     CirculantComm,
     CollectivePlan,
     CommModel,
+    DistGrid,
     DistGroup,
+    HierComm,
+    HierPlan,
     HostDataPlan,
     PhaseStatic,
     RoundStep,
     ScheduleBundle,
     SimResult,
+    StackedGrid,
     StackedGroup,
     get_bundle,
     get_comm,
+    get_hier_comm,
     get_round_step,
+    hier_allgather,
+    hier_allreduce,
+    hier_broadcast,
     hier_host_plan,
+    hier_reduce,
     host_plan,
     optimal_num_blocks_allgather,
     optimal_num_blocks_allreduce,
@@ -83,12 +94,16 @@ __all__ = [
     "CollectivePlan",
     "DEFAULT_MODEL",
     "CommModel",
+    "DistGrid",
     "DistGroup",
+    "HierComm",
+    "HierPlan",
     "HostDataPlan",
     "PhaseStatic",
     "RoundStep",
     "ScheduleBundle",
     "SimResult",
+    "StackedGrid",
     "StackedGroup",
     "TrainConfig",
     "broadcast_state",
@@ -97,9 +112,14 @@ __all__ = [
     "compressed_grad_sync",
     "get_bundle",
     "get_comm",
+    "get_hier_comm",
     "get_round_step",
     "grad_bucket_spec",
+    "hier_allgather",
+    "hier_allreduce",
+    "hier_broadcast",
     "hier_host_plan",
+    "hier_reduce",
     "host_plan",
     "init_error_state",
     "init_grad_sync_state",

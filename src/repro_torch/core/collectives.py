@@ -14,7 +14,9 @@ the plans of first-class communicator users but pays a plan-cache
 lookup a call.  ``group`` is a :class:`~repro_torch.core.comm.StackedGroup`
 or a :class:`~repro_torch.core.comm.DistGroup`; ``circulant_qallreduce``
 is the int8-wire allreduce the gradient sync runs.  ``ring_allgather`` is
-the classic p-1 round ring, the baseline of the circulant allgather.
+the classic p-1 round ring, the baseline of the circulant allgather.  The
+``hier_*`` two-level wrappers of :mod:`repro_torch.core.hier` are
+re-exported here.
 """
 
 from __future__ import annotations
@@ -25,6 +27,14 @@ import torch
 
 from .comm import check_devices, get_comm
 from .costmodel import DEFAULT_MODEL, CommModel
+# The two-level one-call entry points live in repro_torch.core.hier;
+# re-exported here so flat and hierarchical call sites share one import.
+from .hier import (  # noqa: F401  (re-exports)
+    hier_allgather,
+    hier_allreduce,
+    hier_broadcast,
+    hier_reduce,
+)
 
 __all__ = [
     "circulant_broadcast",
@@ -35,6 +45,10 @@ __all__ = [
     "circulant_reduce_scatter",
     "circulant_allreduce",
     "circulant_qallreduce",
+    "hier_broadcast",
+    "hier_reduce",
+    "hier_allreduce",
+    "hier_allgather",
     "ring_allgather",
 ]
 

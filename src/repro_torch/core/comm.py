@@ -151,7 +151,7 @@ def _as_tensor(values) -> torch.Tensor:
 
 
 def _upload(table: np.ndarray, device: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.array(table, np.int32)).to(device)
+    return torch.from_numpy(np.array(table, np.int32, order="C")).to(device)
 
 
 def _with_garbage(fwd: np.ndarray, n: int) -> np.ndarray:
@@ -160,7 +160,7 @@ def _with_garbage(fwd: np.ndarray, n: int) -> np.ndarray:
     return np.concatenate([fwd, np.full((1, fwd.shape[1]), n, np.int32)])
 
 
-def _rotated_rows(table: np.ndarray, p: int, ranks: range,
+def _rotated_rows(table: np.ndarray, p: int, ranks: Sequence[int],
                   roots: Sequence[int], shifts: Optional[Sequence[int]],
                   device: torch.device) -> torch.Tensor:
     """Rank-major row tables, built on the device: row ``(r, j)`` (rank r
@@ -169,7 +169,7 @@ def _rotated_rows(table: np.ndarray, p: int, ranks: range,
     shift 0 where ``shifts`` is None -> ``[R, len(ranks) * len(roots)]``
     int32."""
     tab = _upload(table, device)
-    r = torch.arange(ranks.start, ranks.stop, device=device)
+    r = torch.as_tensor(np.asarray(ranks, dtype=np.int64), device=device)
     j = torch.as_tensor(list(roots), device=device)
     base = (r[:, None] - j[None, :]).remainder(p).reshape(-1)
     if shifts is None:
@@ -179,6 +179,19 @@ def _rotated_rows(table: np.ndarray, p: int, ranks: range,
     for t, s in enumerate(shifts):
         out[t] = tab[t][(base + s) % p]
     return out
+
+
+def _row_of(ranks: range, rank: int) -> slice:
+    """The held row of ``rank`` among ``ranks``, as a one-row slice (an
+    empty one where the rank is not held)."""
+    i = rank - ranks.start
+    return slice(i, i + 1) if rank in ranks else slice(0, 0)
+
+
+def _drain(out: torch.Tensor, keep: slice) -> None:
+    """Zero every row of ``out`` outside the one-row (or empty) ``keep``."""
+    out[:keep.start].zero_()
+    out[keep.stop:].zero_()
 
 
 def _roll(msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
@@ -751,37 +764,139 @@ def check_devices(group, leaves) -> None:
                              f"group's ranks are on {group.device}")
 
 
+# ------------------------------------------------------------ level phases
+#
+# The counterparts of the reference's _bcast_phase, _reduce_phase and
+# _allgather_phase: the body of one collective over one *level* of ranks,
+# shared by the flat lowerings below (a group is a level) and by the
+# two-level lowering of core/hier.py (a grid has two).  A level has ``p``
+# ranks, an ``exchange(msgs, shift)`` over the rows it holds, a
+# ``device``, and ``ranks``: the level rank of each held row.  A phase is
+# built once a plan, with the level's slot tables gathered per held row
+# (``table[:, ranks]``) and uploaded, and returns ``run(flats, ...)``
+# over ``[rows, m]`` flats on the level's device.  ``run`` empties
+# ``flats`` as it copies each leaf into its buffer, so that an earlier
+# level's buffer goes before the whole of the next is allocated.
+
+
+def _rows2d(x: torch.Tensor) -> torch.Tensor:
+    return x if x.dim() == 2 else x.reshape(x.shape[0], _leaf_elems(x.shape[1:]))
+
+
+def _bcast_phase(level, bundle, n: int, step: RoundStep,
+                 overlap: bool = False) -> Callable:
+    """The forward broadcast rounds over ``level`` -> ``run(flats, src)``:
+    the rows of the slice ``src`` hold the level root's data (on a held
+    root there is one; on a grid's intra level one a node), every other
+    row starts at zero, as the reference's root-masked phase, and every
+    row ends holding the root's data -> ``[rows, m]`` views of the
+    ``[rows, n+1, bs]`` buffers."""
+    recv, send, ks = broadcast_slot_plan(bundle, n)
+    shifts = [int(bundle.skip[int(k)]) for k in ks]
+    cols, dev = np.asarray(level.ranks), level.device
+    tables = (_upload(recv[:, cols], dev), _upload(send[:, cols], dev))
+    rows = len(cols)
+
+    def run(flats: list, src: slice) -> List[torch.Tensor]:
+        bufs, sizes = [], []
+        for i, x in enumerate(flats):
+            x = _rows2d(x)
+            size = x.shape[1]
+            bs = -(-size // n)
+            buf = torch.zeros((rows, n + 1, bs), dtype=x.dtype, device=dev)
+            buf.view(rows, (n + 1) * bs)[src, :size] = x[src]
+            flats[i] = x = None
+            bufs.append(buf)
+            sizes.append(size)
+        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
+                               shifts, level.exchange)
+        return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
+
+    return run
+
+
+def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
+                  overlap: bool = False) -> Callable:
+    """The reversed (reduction) rounds over ``level`` -> ``run(flats)``:
+    every row contributes its flat; the level root's row ends with the
+    op-reduction, every other row drained -> ``[rows, m]`` views of the
+    ``[rows, n+2, bs]`` buffers (slot n garbage, slot n+1 the identity)."""
+    p = bundle.p
+    fwd, acc, ks = reduce_slot_plan(bundle, n)
+    shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
+    cols, dev = np.asarray(level.ranks), level.device
+    tables = (_upload(_with_garbage(fwd, n)[:, cols], dev),
+              _upload(acc[:, cols], dev))
+
+    def run(flats: list) -> List[torch.Tensor]:
+        bufs, sizes = [], []
+        for i, x in enumerate(flats):
+            x = _rows2d(x)
+            buf = _split_blocks(x, n, n + 2)
+            buf[:, n + 1].fill_(op_identity(op, x.dtype))
+            sizes.append(x.shape[1])
+            flats[i] = x = None
+            bufs.append(buf)
+        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
+                              shifts, level.exchange, op)
+        return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
+
+    return run
+
+
+def _allgather_phase(level, bundle, n: int, step: RoundStep,
+                     overlap: bool = False) -> Callable:
+    """The all-to-all broadcast rounds over ``level`` -> ``run(flats)``:
+    every row contributes its flat and ends holding the level's p flats
+    in level-rank order -> ``[rows, p, m]`` views of the ``[rows * p,
+    n+1, bs]`` buffers of rank-major rows (row ``(r, j)``: held row r's
+    copy of level rank j's blocks; the exchange moves a row's p messages
+    together)."""
+    p = bundle.p
+    recv, _, ks = broadcast_slot_plan(bundle, n)
+    shifts = [int(bundle.skip[int(k)]) for k in ks]
+    cols, dev = np.asarray(level.ranks), level.device
+    tables = (_rotated_rows(recv, p, cols, range(p), None, dev),
+              _rotated_rows(recv, p, cols, range(p), shifts, dev))
+    rows = len(cols)
+    own = torch.as_tensor(np.arange(rows) * p + cols, device=dev)  # row (r, rank r)
+    exchange = _by_rank(level.exchange, rows)
+
+    def run(flats: list) -> List[torch.Tensor]:
+        bufs, sizes = [], []
+        for i, x in enumerate(flats):
+            x = _rows2d(x)
+            size = x.shape[1]
+            bs = -(-size // n)
+            buf = torch.zeros((rows * p, n + 1, bs), dtype=x.dtype, device=dev)
+            buf.view(rows * p, (n + 1) * bs)[own, :size] = x
+            flats[i] = x = None
+            bufs.append(buf)
+            sizes.append(size)
+        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
+                               shifts, exchange)
+        return [b.view(rows, p, b.shape[1] * b.shape[2])[:, :, :size]
+                for b, size in zip(bufs, sizes)]
+
+    return run
+
+
 # ------------------------------------------------------------ lowerings
 #
-# One lowering per collective kind: it resolves the device slot rows of
-# the group's ranks once and returns ``execute(leaves) -> leaves``.
+# One lowering per collective kind: it builds its phases over the group
+# once and returns ``execute(leaves) -> leaves``.
 
 
 def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
                      overlap: bool) -> Callable:
-    recv, send, ks = broadcast_slot_plan(bundle, n)
-    shifts = [int(bundle.skip[int(k)]) for k in ks]
-    ranks, dev = group.ranks, group.device
-    tables = (_upload(recv[:, ranks.start:ranks.stop], dev),
-              _upload(send[:, ranks.start:ranks.stop], dev))
-    lr = len(ranks)
+    phase = _bcast_phase(group, bundle, n, step, overlap)
+    lr, src = len(group.ranks), _row_of(group.ranks, root)
 
     def execute(leaves):
-        bufs, metas = [], []
-        for x in leaves:
-            x = torch.as_tensor(x)
-            size = _leaf_elems(x.shape[1:])
-            buf = torch.zeros((lr, n + 1, -(-size // n)), dtype=x.dtype,
-                              device=dev)
-            if root in ranks:              # every other rank's slice is zero
-                buf[root - ranks.start].view(-1)[:size] = \
-                    x[root - ranks.start].reshape(-1)
-            bufs.append(buf)
-            metas.append((x.shape, size))
-        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
-                               shifts, group.exchange)
-        return [_unblock(b, n, size).reshape(shape)
-                for b, (shape, size) in zip(bufs, metas)]
+        # every rank's slice but the root's is zero: only src is read
+        xs = [torch.as_tensor(x) for x in leaves]
+        outs = phase([x.reshape(lr, _leaf_elems(x.shape[1:])) for x in xs], src)
+        return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
     return execute
 
@@ -791,36 +906,16 @@ def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
     """``drain``: every rank but the root returns zeros (the reference's
     result); the allreduce's broadcast reads only the root's rows, so it
     skips that."""
-    p = bundle.p
-    fwd, acc, ks = reduce_slot_plan(bundle, n)
-    shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
-    ranks, dev = group.ranks, group.device
-    tables = (_upload(_with_garbage(fwd, n)[:, ranks.start:ranks.stop], dev),
-              _upload(acc[:, ranks.start:ranks.stop], dev))
-    lr = len(ranks)
+    phase = _reduce_phase(group, bundle, n, op, step, overlap)
+    lr, keep, dev = len(group.ranks), _row_of(group.ranks, root), group.device
 
     def execute(leaves):
-        bufs, metas = [], []
-        for x in leaves:
-            x = torch.as_tensor(x, device=dev)
-            size = _leaf_elems(x.shape[1:])
-            buf = _split_blocks(x.reshape(lr, size), n, n + 2)
-            buf[:, n + 1].fill_(op_identity(op, x.dtype))
-            bufs.append(buf)
-            metas.append((x.shape, size))
-        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
-                              shifts, group.exchange, op)
-        outs = []
-        for b, (shape, size) in zip(bufs, metas):
-            out = _unblock(b, n, size)
-            if drain:
-                if root in ranks:
-                    out[:root - ranks.start].zero_()
-                    out[root - ranks.start + 1:].zero_()
-                else:
-                    out.zero_()
-            outs.append(out.reshape(shape))
-        return outs
+        xs = [torch.as_tensor(x, device=dev) for x in leaves]
+        outs = phase([x.reshape(lr, _leaf_elems(x.shape[1:])) for x in xs])
+        if drain:
+            for o in outs:
+                _drain(o, keep)
+        return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
     return execute
 
@@ -828,33 +923,17 @@ def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
 def _lower_allgather(group, bundle, n: int, step: RoundStep,
                      overlap: bool) -> Callable:
     p = bundle.p
-    recv, _, ks = broadcast_slot_plan(bundle, n)
-    shifts = [int(bundle.skip[int(k)]) for k in ks]
-    ranks, dev = group.ranks, group.device
-    tables = (_rotated_rows(recv, p, ranks, range(p), None, dev),
-              _rotated_rows(recv, p, ranks, range(p), shifts, dev))
-    lr = len(ranks)
-    exchange = _by_rank(group.exchange, lr)
+    phase = _allgather_phase(group, bundle, n, step, overlap)
+    lr, dev = len(group.ranks), group.device
 
     def execute(leaves, copies=False):
-        bufs, metas = [], []
-        for x in leaves:
-            x = torch.as_tensor(x, device=dev)
-            size, bs = x.numel() // lr, -(-x.numel() // (lr * n))
-            buf = torch.zeros((lr * p, n + 1, bs), dtype=x.dtype, device=dev)
-            # row r*p + r: rank r's own blocks
-            buf.view(lr * p, (n + 1) * bs)[ranks.start::p + 1][:lr, :size] = \
-                x.reshape(lr, size)
-            bufs.append(buf)
-            metas.append((x.shape, size))
-        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
-                               shifts, exchange)
+        xs = [torch.as_tensor(x, device=dev) for x in leaves]
+        outs = phase([x.reshape(lr, x.numel() // lr) for x in xs])
         # every rank holds the same p * size elements: return the first
         # rank's copy, or (copies) each held rank's
         held = lr if copies else 1
-        outs = [_unblock(b[:held * p], n, size).reshape(
-                    (held, p * (shape[0] // lr)) + tuple(shape[1:]))
-                for b, (shape, size) in zip(bufs, metas)]
+        outs = [o[:held].reshape((held, p * (x.shape[0] // lr)) + tuple(x.shape[1:]))
+                for o, x in zip(outs, xs)]
         return outs if copies else [o[0] for o in outs]
 
     return execute

@@ -1,61 +1,109 @@
-"""Two-level hierarchical collectives: the host data plans.
+"""Two-level hierarchical collectives over a nodes x cores grid of ranks.
 
-Port of the host half of ``repro.core.hier``: ``HIER_KINDS``,
-``hier_rounds``, the reduce and broadcast sweeps, ``HierHostPlan``,
-``_AllreduceHostPlan`` and ``hier_host_plan``.  The paper evaluates its
-broadcast on a 36-node x 32-core cluster; the two-level decomposition
-runs one flat circulant collective per level:
+Port of ``repro.core.hier``.  The paper evaluates its broadcast on a
+36-node x 32-core cluster; the two-level decomposition runs one flat
+circulant collective per level:
 
   * ``broadcast``: inter-node broadcast among the node leaders (the
-    root's core on every node), then the intra-node broadcast, which is
-    the same on every node and so runs once;
-  * ``reduce``: an intra-node reduction to each node's leader, node by
-    node, then the inter-node reduction of the leader partials to the
-    root;
-  * ``allreduce``: the reduce sweep, then the broadcast sweep;
+    root's core on every node), then the intra-node broadcast;
+  * ``reduce``: an intra-node reduction to each node's leader, then the
+    inter-node reduction of the leader partials to the root;
+  * ``allreduce``: the reduce, then the broadcast;
   * ``allgather``: an intra-node allgather of the cores' contributions,
-    node by node, then the inter-node allgather of the node blocks.
+    then the inter-node allgather of the node blocks.
 
-Flat ranks are node-major, ``r = node * cores + core``.  Each level is
-the port's own cached flat :func:`repro_torch.core.comm.host_plan` (a
-one-rank level is ``None`` and passes its data through), so the levels
-run the round-step kernels of :mod:`repro_torch.kernels` on a CUDA
-device.  Between the levels the flat ``[m]`` payload is re-blocked to
-``[n, ceil(m/n)]`` with zero padding, and the padding is sliced off
-again (``[:m]``) before the next level, exactly where the reference
-does.  Data stays on the plans' device from the first phase to the
-last: ``run`` takes a numpy array or a tensor and returns tensors.
+Flat ranks are node-major, ``r = node * cores + core``.  Between the
+levels each rank's flat ``[m]`` payload is re-blocked into the next
+level's n blocks of ``ceil(m/n)``, zero padded, exactly where the
+reference does.
 
-The reference checks with one ``np.array_equal`` per node (or per
-node and core) that the copies a level leaves on its ranks agree; here
-each such check is one batched comparison of the bits per level, so a
-run synchronises with the host once a level, and a failure raises the
-same ``AssertionError`` text, naming the first index that diverges.
+The device half is the plan/execute communicator over a grid:
+``get_hier_comm(grid)`` returns a cached :class:`HierComm`, its
+``plan(kind, payload, n_inter=, n_intra=, root=, op=)`` a cached
+:class:`HierPlan`, and ``plan(payload)`` runs it on pytree payloads,
+every leaf in its own dtype, all leaves on one schedule a level.  As in
+the reference's ``_lower_hier``, each level runs once over all the
+grid's ranks in lockstep: the inter level on every core row (only the
+leader row's data means anything), the intra level in every node.  A
+grid says where the ranks are:
+
+  * :class:`StackedGrid`: all ``nodes * cores`` ranks on one device as
+    the leading axis of every leaf; a level's exchange rolls
+    ``view(nodes, cores, ...)`` along dim 0 (inter) or dim 1 (intra);
+  * :class:`DistGrid`: one rank a process of a gloo group, its levels
+    the node and core-column subgroups
+    (:class:`~repro_torch.core.comm.DistGroup`).
+
+The level phases are :mod:`repro_torch.core.comm`'s, the ones the flat
+lowerings run, so a level launches each round-step kernel once a round
+over all its rows.  ``hier_broadcast`` and friends are the one-call
+wrappers.
+
+The module also holds the host data plans (``HierHostPlan``,
+``hier_host_plan``): single-device executions composing one cached flat
+:func:`~repro_torch.core.comm.host_plan` a level (a one-rank level is
+``None`` and passes its data through), the intra level node by node.
+``run`` takes a numpy array or a tensor and returns tensors.  The
+reference checks with one ``np.array_equal`` per node (or per node and
+core) that the copies a level leaves on its ranks agree; here each such
+check is one batched comparison of the bits per level, so a run
+synchronises with the host once a level, and a failure raises the same
+``AssertionError`` text, naming the first index that diverges.
 Comparing bits, a NaN payload agrees with itself, where
 ``np.array_equal`` would call it diverged.
-
-The device half of ``repro.core.hier`` (``HierComm``, ``HierPlan``,
-``_lower_hier`` and the ``hier_*`` wrappers) runs over a 2-D grid of
-processes; it waits for the port's plan/execute front end over
-``torch.distributed`` (``ROADMAP.md`` Queue 1 items 5 and 8b).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple, Union
+from typing import Any, Callable, List, Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from ..kernels.reduce_ops import _validate
-from .comm import _as_tensor, host_plan, resolve_device
-from .engine import cached_plan
-from .roundstep import BACKENDS, PhaseStatic
+from .comm import (
+    DistGroup,
+    PayloadSpec,
+    _allgather_phase,
+    _as_tensor,
+    _bcast_phase,
+    _drain,
+    _leaf_elems,
+    _reduce_phase,
+    _require,
+    _row_of,
+    check_devices,
+    host_plan,
+    payload_spec,
+    resolve_device,
+    validate_payload,
+)
+from .costmodel import DEFAULT_MODEL, CommModel, optimal_hier_blocks
+from .engine import cached_plan, get_bundle
+from .roundstep import (
+    BACKENDS,
+    PhaseStatic,
+    allgather_phase_static,
+    broadcast_phase_static,
+    get_round_step,
+    reduce_phase_static,
+)
 from .schedule import num_rounds
+from .tree import tree_flatten, tree_unflatten
 
 __all__ = [
     "HIER_KINDS",
     "hier_rounds",
+    "StackedGrid",
+    "DistGrid",
+    "HierPlan",
+    "HierComm",
+    "get_hier_comm",
+    "hier_broadcast",
+    "hier_reduce",
+    "hier_allreduce",
+    "hier_allgather",
     "HierHostPlan",
     "hier_host_plan",
 ]
@@ -84,6 +132,562 @@ def hier_rounds(kind: str, nodes: int, cores: int,
                          f"(use one of {HIER_KINDS})")
     per_level = num_rounds(nodes, n_inter) + num_rounds(cores, n_intra)
     return 2 * per_level if kind == "allreduce" else per_level
+
+
+# ------------------------------------------------------------ the grids
+
+
+def _grid_size(nodes, cores) -> Tuple[int, int]:
+    nodes, cores = int(nodes), int(cores)
+    if nodes < 1 or cores < 1:
+        raise ValueError(f"a grid needs nodes, cores >= 1, got {nodes}x{cores}")
+    return nodes, cores
+
+
+@dataclass(frozen=True, eq=False)
+class _StackedLevel:
+    """One level of a :class:`StackedGrid`: the inter level (``dim`` 0,
+    level rank ``row // cores``) or the intra level (``dim`` 1, level rank
+    ``row % cores``).  Its exchange rolls each ``[nodes * cores, ...]``
+    message, viewed ``[nodes, cores, ...]``, along ``dim``."""
+
+    nodes: int
+    cores: int
+    dim: int
+    device: torch.device
+
+    @property
+    def p(self) -> int:
+        return self.cores if self.dim else self.nodes
+
+    @property
+    def ranks(self) -> np.ndarray:
+        rows = np.arange(self.nodes * self.cores)
+        return rows % self.cores if self.dim else rows // self.cores
+
+    def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        grid = (self.nodes, self.cores)
+        return [torch.roll(m.view(grid + tuple(m.shape[1:])), shift,
+                           dims=self.dim).view(m.shape) for m in msgs]
+
+
+@dataclass(frozen=True)
+class StackedGrid:
+    """``nodes x cores`` ranks on one device: flat rank ``r = node * cores
+    + core``'s slice of a payload leaf is row r of its leading axis (the
+    reference's global array over the 2-D mesh, unsharded).  ``inter`` and
+    ``intra`` are its two levels.  ``inter_axis`` and ``intra_axis`` name
+    them, as the reference's mesh axes do.  ``device=None`` means
+    ``"cuda"`` (the current card) and raises with no card."""
+
+    nodes: int
+    cores: int
+    device: Union[str, torch.device, None] = None
+    inter_axis: str = "node"
+    intra_axis: str = "core"
+    inter: _StackedLevel = field(init=False, repr=False, compare=False)
+    intra: _StackedLevel = field(init=False, repr=False, compare=False)
+
+    def __post_init__(self):
+        nodes, cores = _grid_size(self.nodes, self.cores)
+        dev = resolve_device(self.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        for name, value in (("nodes", nodes), ("cores", cores), ("device", dev),
+                            ("inter", _StackedLevel(nodes, cores, 0, dev)),
+                            ("intra", _StackedLevel(nodes, cores, 1, dev))):
+            object.__setattr__(self, name, value)
+
+    @property
+    def p(self) -> int:
+        return self.nodes * self.cores
+
+    @property
+    def ranks(self) -> range:
+        """The flat ranks this process holds: all of them."""
+        return range(self.p)
+
+    def global_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return shape
+
+
+@dataclass(frozen=True)
+class DistGrid:
+    """One rank a process of the initialized default ``torch.distributed``
+    group of ``nodes * cores`` processes, flat rank = process rank.  Every
+    process makes the subgroups of every node and every core column, in
+    the same order; ``inter`` is a :class:`~repro_torch.core.comm.DistGroup`
+    of its core column (level rank: its node), ``intra`` one of its node
+    (level rank: its core), ``None`` on a one-rank level.  A leaf is the
+    rank's shard of the reference's global array.  Only gloo groups are
+    taken, so the tensors live on the CPU."""
+
+    nodes: int
+    cores: int
+    inter_axis: str = "node"
+    intra_axis: str = "core"
+    rank: int = field(init=False)
+    device: torch.device = field(init=False, repr=False)
+    inter: Optional[DistGroup] = field(init=False, repr=False)
+    intra: Optional[DistGroup] = field(init=False, repr=False)
+
+    def __post_init__(self):
+        import torch.distributed as dist
+
+        nodes, cores = _grid_size(self.nodes, self.cores)
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "DistGrid needs an initialized torch.distributed process "
+                "group: call torch.distributed.init_process_group first")
+        backend = dist.get_backend()
+        if backend != "gloo":
+            raise ValueError(f"DistGrid runs over gloo only, not {backend!r}")
+        world = dist.get_world_size()
+        if world != nodes * cores:
+            raise ValueError(f"a {nodes}x{cores} grid needs {nodes * cores} "
+                             f"processes, the group has {world}")
+        rank = dist.get_rank()
+        node, core = divmod(rank, cores)
+        # every process makes every subgroup, in one order
+        inter = intra = None
+        if cores > 1:
+            groups = [dist.new_group([j * cores + c for c in range(cores)])
+                      for j in range(nodes)]
+            intra = DistGroup(group=groups[node])
+        if nodes > 1:
+            groups = [dist.new_group([j * cores + c for j in range(nodes)])
+                      for c in range(cores)]
+            inter = DistGroup(group=groups[core])
+        for name, value in (("nodes", nodes), ("cores", cores), ("rank", rank),
+                            ("device", torch.device("cpu")), ("inter", inter),
+                            ("intra", intra)):
+            object.__setattr__(self, name, value)
+
+    @property
+    def p(self) -> int:
+        return self.nodes * self.cores
+
+    @property
+    def ranks(self) -> range:
+        """The flat ranks this process holds: its own."""
+        return range(self.rank, self.rank + 1)
+
+    def global_shape(self, shape: Tuple[int, ...]) -> Tuple[int, ...]:
+        return (shape[0] * self.p,) + tuple(shape[1:]) if shape else shape
+
+
+# ------------------------------------------------------------ the lowering
+
+
+def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
+                op: Optional[str], step) -> Callable:
+    """``execute(leaves, copies=False) -> leaves``: the levels' phases over
+    every rank of the grid, in the reference's order (one-rank levels
+    compose away), each leaf split into its own blocks at every level.
+
+      * broadcast: root mask, inter broadcast, intra broadcast.  The
+        root mask is the inter phase's source row (the others start at
+        zero); the intra phase's sources are the leaders, the rows of the
+        root's core;
+      * reduce: intra reduce, inter reduce, root mask;
+      * allreduce: both reduces, then both broadcasts;
+      * allgather: the intra phase, then the inter phase over each row's
+        ``[cores, m]`` node block; the first held rank's copy of the
+        replicated result, or (``copies``) every held rank's.
+
+    A level's phase empties its input list as it copies each leaf in, so
+    at most two levels' buffers are alive at once."""
+    N, C = bN.p, bC.p
+    held, dev = grid.ranks, grid.device
+    lr = len(held)
+    rootC = root % C
+    src_inter = _row_of(held, root)
+    # the leaders: held rows on the root's core (on a 1 x C grid, the root)
+    first = (rootC - held.start) % C
+    src_intra = slice(first, lr, C)
+
+    def level(p, make, lvl, b, n, *args):
+        return make(lvl, b, n, *args) if p > 1 else None
+
+    intra_g = inter_g = intra_r = inter_r = inter_b = intra_b = None
+    if kind == "allgather":
+        intra_g = level(C, _allgather_phase, grid.intra, bC, nC, step)
+        inter_g = level(N, _allgather_phase, grid.inter, bN, nN, step)
+    if kind in ("reduce", "allreduce"):
+        intra_r = level(C, _reduce_phase, grid.intra, bC, nC, op, step)
+        inter_r = level(N, _reduce_phase, grid.inter, bN, nN, op, step)
+    if kind in ("broadcast", "allreduce"):
+        inter_b = level(N, _bcast_phase, grid.inter, bN, nN, step)
+        intra_b = level(C, _bcast_phase, grid.intra, bC, nC, step)
+
+    def execute(leaves, copies=False):
+        xs = [torch.as_tensor(x, device=dev) for x in leaves]
+        flats = [x.reshape(lr, x.numel() // lr) for x in xs]
+        if kind == "allgather":
+            if intra_g is not None:
+                flats = intra_g(flats)                 # [lr, C, m]
+            if inter_g is not None:
+                flats = inter_g(flats)                 # [lr, N, C*m]
+            n_held = lr if copies else 1
+            outs = [f[:n_held].reshape((n_held, N * C * (x.shape[0] // lr))
+                                       + tuple(x.shape[1:]))
+                    for f, x in zip(flats, xs)]
+            return outs if copies else [o[0] for o in outs]
+        if intra_r is not None:                        # each node to its leader
+            flats = intra_r(flats)
+        if inter_r is not None:                        # the leaders to the root
+            flats = inter_r(flats)
+        if kind == "reduce":
+            for f in flats:
+                _drain(f, src_inter)
+        if inter_b is not None:                        # the root to the leaders
+            flats = inter_b(flats, src_inter)
+        if intra_b is not None:                        # the leaders to their nodes
+            flats = intra_b(flats, src_intra)
+        return [f.reshape(x.shape) for f, x in zip(flats, xs)]
+
+    return execute
+
+
+def _hier_statics(kind: str, bN, bC, nN: int, nC: int, inter_axis: str,
+                  intra_axis: str) -> Tuple[PhaseStatic, ...]:
+    """The per-phase audit records of a two-level collective, in
+    :func:`_lower_hier`'s order (one-rank levels compose away), from the
+    same process-cached slot plans the lowering runs."""
+    N, C = bN.p, bC.p
+    inter_b = ((broadcast_phase_static(bN, nN, axis=inter_axis),)
+               if N > 1 else ())
+    intra_b = ((broadcast_phase_static(bC, nC, axis=intra_axis),)
+               if C > 1 else ())
+    inter_r = ((reduce_phase_static(bN, nN, axis=inter_axis),)
+               if N > 1 else ())
+    intra_r = ((reduce_phase_static(bC, nC, axis=intra_axis),)
+               if C > 1 else ())
+    if kind == "broadcast":
+        return inter_b + intra_b
+    if kind == "reduce":
+        return intra_r + inter_r
+    if kind == "allreduce":
+        return intra_r + inter_r + inter_b + intra_b
+    inter_g = ((allgather_phase_static(bN, nN, axis=inter_axis),)
+               if N > 1 else ())
+    intra_g = ((allgather_phase_static(bC, nC, axis=intra_axis),)
+               if C > 1 else ())
+    return intra_g + inter_g
+
+
+# ------------------------------------------------------------ plan objects
+
+
+@dataclass(frozen=True, eq=False)
+class HierPlan:
+    """A fully precomputed two-level collective: call it with payloads.
+
+    Every static artifact (both level bundles, the levels' slot tables on
+    the device, the shifts, the round-step handle) was resolved at plan
+    time; ``plan(payload)`` validates the payload and runs the rounds.
+    Cached process-wide: equal specs return the identical object.
+    """
+
+    kind: str
+    spec: PayloadSpec
+    nodes: int
+    cores: int
+    root: int
+    op: Optional[str]
+    n_inter: int
+    n_intra: int
+    rounds: int
+    rounds_inter: int
+    rounds_intra: int
+    backend: str
+    inter_axis: str
+    intra_axis: str
+    grid: Any = field(repr=False, default=None)
+    #: Auditable per-phase schedule statics in execution order; () on the
+    #: p == 1 fast path.
+    statics: Tuple[PhaseStatic, ...] = field(repr=False, default=())
+    _execute: Optional[Callable] = field(repr=False, default=None)
+
+    @property
+    def p(self) -> int:
+        return self.nodes * self.cores
+
+    def __call__(self, payload: Any) -> Any:
+        leaves = self._leaves(payload)
+        if self._execute is None:  # p == 1 fast path: nothing moves
+            return payload
+        return tree_unflatten(self.spec.treedef, self._execute(leaves))
+
+    def per_rank(self, payload: Any) -> Any:
+        """Execute an allgather and return every held rank's copy of its
+        replicated result: each leaf gains a leading axis over
+        ``grid.ranks``.  ``plan(payload)`` returns the first copy."""
+        _require(self.kind == "allgather",
+                 f"per_rank applies to allgather, not {self.kind!r}")
+        leaves = self._leaves(payload)
+        if self._execute is None:
+            outs = [torch.as_tensor(x)[None] for x in leaves]
+        else:
+            outs = self._execute(leaves, copies=True)
+        return tree_unflatten(self.spec.treedef, outs)
+
+    def _leaves(self, payload: Any) -> list:
+        validate_payload(self.spec, payload)
+        leaves, _ = tree_flatten(payload)
+        if self.grid is not None:
+            check_devices(self.grid, leaves)
+        return leaves
+
+    def describe(self) -> str:
+        """One-line human summary of the plan."""
+        extra = f" op={self.op}" if self.op else ""
+        return (f"hier-{self.kind} mesh={self.nodes}x{self.cores} "
+                f"root={self.root} n=({self.n_inter},{self.n_intra}) "
+                f"rounds={self.rounds} (inter {self.rounds_inter} + intra "
+                f"{self.rounds_intra}) backend={self.backend}{extra} "
+                f"spec={self.spec.describe()}")
+
+
+# --------------------------------------------------------- n-block choice
+
+
+def _resolve_hier_blocks(kind: str, spec: PayloadSpec, nodes: int, cores: int,
+                         n_inter: Optional[int], n_intra: Optional[int],
+                         inter_model: CommModel,
+                         intra_model: CommModel) -> Tuple[int, int]:
+    """The levels' block counts for a spec of global shapes: each level's
+    cost-model optimum (or the caller's), capped at the elements the level
+    splits a leaf into."""
+    p = nodes * cores
+    elems, total = [], 0
+    for shape, dtype in spec.leaves:
+        if kind == "allgather":
+            _require(len(shape) >= 1 and shape[0] % p == 0,
+                     f"leading dim {shape[0] if shape else 0} not divisible "
+                     f"by mesh size {nodes}x{cores}={p}")
+            e = (shape[0] // p) * _leaf_elems(shape[1:])
+        else:
+            _require(len(shape) >= 1 and shape[0] == p,
+                     "payload leaves must have leading axis == nodes*cores "
+                     f"(one slice/rank); got {shape} for {nodes}x{cores}")
+            e = _leaf_elems(shape[1:])
+        elems.append(e)
+        total += e * dtype.itemsize
+    if kind == "allgather":
+        # the inter level moves node blocks (the full p*e payload), the
+        # intra level the node's share
+        m_inter, m_intra = total * p, total * cores
+    else:
+        m_inter = m_intra = total
+    auto_n, auto_c = optimal_hier_blocks(nodes, cores, m_inter, m_intra,
+                                         inter_model, intra_model, kind=kind)
+    cap = max(1, max(elems))
+    if kind == "allgather":
+        cap_intra = cap              # per-rank contribution elems
+        cap_inter = cap * cores      # node-block elems
+    else:
+        cap_intra = cap_inter = cap
+    nN = min(max(1, n_inter or auto_n), cap_inter)
+    nC = min(max(1, n_intra or auto_c), cap_intra)
+    return nN, nC
+
+
+# ---------------------------------------------------------------- the comm
+
+
+@dataclass(frozen=True)
+class HierComm:
+    """Two-level hierarchical communicator over a grid of ranks
+    (:class:`StackedGrid` or :class:`DistGrid`).
+
+    Binds the static context once: the grid (which names its
+    ``inter_axis`` and ``intra_axis``), the round-step ``backend``
+    (``"cuda"``: the kernels on a CUDA tensor, their plain versions on a
+    CPU one; ``"torch"``: the plain versions) and one
+    :class:`~repro_torch.core.costmodel.CommModel` a level.  ``plan``
+    precomputes a :class:`HierPlan`; the named collectives are thin
+    plan-cache lookups.  Frozen and hashable.
+    """
+
+    grid: Any
+    backend: str = "cuda"
+    inter_model: CommModel = DEFAULT_MODEL
+    intra_model: CommModel = DEFAULT_MODEL
+
+    def __post_init__(self):
+        if self.inter_axis == self.intra_axis:
+            raise ValueError("inter_axis and intra_axis must differ, got "
+                             f"{self.inter_axis!r} twice")
+        if self.backend not in BACKENDS:
+            raise ValueError(f"unknown round-step backend {self.backend!r} "
+                             f"(use one of {BACKENDS})")
+
+    @property
+    def inter_axis(self) -> str:
+        return self.grid.inter_axis
+
+    @property
+    def intra_axis(self) -> str:
+        return self.grid.intra_axis
+
+    @property
+    def nodes(self) -> int:
+        return self.grid.nodes
+
+    @property
+    def cores(self) -> int:
+        return self.grid.cores
+
+    @property
+    def p(self) -> int:
+        return self.nodes * self.cores
+
+    # ------------------------------------------------------------- planning
+
+    def plan(self, kind: str, spec: Any, *,
+             n_inter: Optional[int] = None, n_intra: Optional[int] = None,
+             root: int = 0, op: str = "sum") -> HierPlan:
+        """Precompute a :class:`HierPlan` for ``kind`` and a payload spec.
+
+        ``root`` is the flat node-major rank ``node * cores + core``.
+        ``n_inter`` / ``n_intra`` override the per-level cost-model
+        optima.  Cached process-wide; equal arguments return the
+        identical plan object.
+        """
+        if kind not in HIER_KINDS:
+            raise ValueError(f"unknown hier kind {kind!r} "
+                             f"(use one of {HIER_KINDS})")
+        kind = _CANONICAL_KIND.get(kind, kind)
+        spec = payload_spec(spec)
+        _require(spec.num_leaves > 0, "payload has no array leaves")
+        rooted = kind in ("broadcast", "reduce", "allreduce")
+        reducing = kind in ("reduce", "allreduce")
+        _require(rooted or int(root) == 0,
+                 f"root= does not apply to hier kind {kind!r}")
+        _require(reducing or op == "sum",
+                 f"op= does not apply to hier kind {kind!r}")
+        _require(0 <= int(root) < self.p,
+                 f"root must be in [0, nodes*cores), got {root} for "
+                 f"{self.nodes}x{self.cores}")
+        root_key = int(root) if rooted else 0
+        op_key = op if reducing else None
+        nN, nC = self._resolve_n(kind, spec, n_inter, n_intra)
+        key = ("hierplan", self.grid, self.backend, self.inter_model,
+               self.intra_model, kind, spec, nN, nC, root_key, op_key)
+        return cached_plan(key, lambda: self._build(
+            kind, spec, nN, nC, root_key, op_key))
+
+    def _resolve_n(self, kind: str, spec: PayloadSpec,
+                   n_inter: Optional[int],
+                   n_intra: Optional[int]) -> Tuple[int, int]:
+        if self.p == 1:
+            return max(1, n_inter or 1), max(1, n_intra or 1)
+        gspec = PayloadSpec(spec.treedef, tuple(
+            (self.grid.global_shape(s), d) for s, d in spec.leaves))
+        return _resolve_hier_blocks(kind, gspec, self.nodes, self.cores,
+                                    n_inter, n_intra, self.inter_model,
+                                    self.intra_model)
+
+    def _build(self, kind: str, spec: PayloadSpec, nN: int, nC: int,
+               root: int, op: Optional[str]) -> HierPlan:
+        nodes, cores = self.nodes, self.cores
+        if op is not None:
+            _validate(op)
+        rN = num_rounds(nodes, nN)
+        rC = num_rounds(cores, nC)
+        scale = 2 if kind == "allreduce" else 1
+        common = dict(kind=kind, spec=spec, nodes=nodes, cores=cores,
+                      root=root, op=op, n_inter=nN, n_intra=nC,
+                      rounds=scale * (rN + rC), rounds_inter=scale * rN,
+                      rounds_intra=scale * rC, backend=self.backend,
+                      inter_axis=self.inter_axis, intra_axis=self.intra_axis,
+                      grid=self.grid)
+        if self.p == 1:
+            return HierPlan(_execute=None, **common)
+        rootN, rootC = divmod(root, cores)
+        bN = get_bundle(nodes, rootN)
+        bC = get_bundle(cores, rootC)
+        ex = _lower_hier(self.grid, kind, bN, bC, nN, nC, root, op,
+                         get_round_step(self.backend))
+        return HierPlan(_execute=ex,
+                        statics=_hier_statics(kind, bN, bC, nN, nC,
+                                              self.inter_axis,
+                                              self.intra_axis),
+                        **common)
+
+    # ------------------------------------------------ collective shorthands
+
+    def broadcast(self, x: Any, *, n_inter: Optional[int] = None,
+                  n_intra: Optional[int] = None, root: int = 0) -> Any:
+        """Leader broadcast + intra fan-out of flat rank ``root``'s slices."""
+        return self.plan("broadcast", payload_spec(x), n_inter=n_inter,
+                         n_intra=n_intra, root=root)(x)
+
+    def reduce(self, x: Any, *, n_inter: Optional[int] = None,
+               n_intra: Optional[int] = None, root: int = 0,
+               op: str = "sum") -> Any:
+        """Intra-reduce to the leaders, then inter-reduce to ``root``."""
+        return self.plan("reduce", payload_spec(x), n_inter=n_inter,
+                         n_intra=n_intra, root=root, op=op)(x)
+
+    def allreduce(self, x: Any, *, n_inter: Optional[int] = None,
+                  n_intra: Optional[int] = None, root: int = 0,
+                  op: str = "sum") -> Any:
+        """Intra-reduce -> inter-reduce -> inter and intra broadcast."""
+        return self.plan("allreduce", payload_spec(x), n_inter=n_inter,
+                         n_intra=n_intra, root=root, op=op)(x)
+
+    def allgather(self, x: Any, *, n_inter: Optional[int] = None,
+                  n_intra: Optional[int] = None) -> Any:
+        """Two-phase all-to-all broadcast; replicated rank-major result."""
+        return self.plan("allgather", payload_spec(x), n_inter=n_inter,
+                         n_intra=n_intra)(x)
+
+
+def get_hier_comm(grid: Any, *, backend: str = "cuda",
+                  inter_model: CommModel = DEFAULT_MODEL,
+                  intra_model: CommModel = DEFAULT_MODEL) -> HierComm:
+    """The process-cached :class:`HierComm` for this context (identity is
+    stable while cached, like :func:`repro_torch.core.comm.get_comm`)."""
+    return cached_plan(
+        ("hiercomm", grid, backend, inter_model, intra_model),
+        lambda: HierComm(grid=grid, backend=backend,
+                         inter_model=inter_model, intra_model=intra_model))
+
+
+# ------------------------------------------------------ functional wrappers
+
+
+def hier_broadcast(grid: Any, x: Any, *, n_inter: Optional[int] = None,
+                   n_intra: Optional[int] = None, root: int = 0,
+                   backend: str = "cuda") -> Any:
+    """One-call hierarchical broadcast (plan-cache lookup under the hood)."""
+    return get_hier_comm(grid, backend=backend).broadcast(
+        x, n_inter=n_inter, n_intra=n_intra, root=root)
+
+
+def hier_reduce(grid: Any, x: Any, *, n_inter: Optional[int] = None,
+                n_intra: Optional[int] = None, root: int = 0, op: str = "sum",
+                backend: str = "cuda") -> Any:
+    """One-call hierarchical reduction to flat rank ``root``."""
+    return get_hier_comm(grid, backend=backend).reduce(
+        x, n_inter=n_inter, n_intra=n_intra, root=root, op=op)
+
+
+def hier_allreduce(grid: Any, x: Any, *, n_inter: Optional[int] = None,
+                   n_intra: Optional[int] = None, root: int = 0,
+                   op: str = "sum", backend: str = "cuda") -> Any:
+    """One-call hierarchical all-reduction."""
+    return get_hier_comm(grid, backend=backend).allreduce(
+        x, n_inter=n_inter, n_intra=n_intra, root=root, op=op)
+
+
+def hier_allgather(grid: Any, x: Any, *, n_inter: Optional[int] = None,
+                   n_intra: Optional[int] = None, backend: str = "cuda") -> Any:
+    """One-call hierarchical allgather (replicated rank-major result)."""
+    return get_hier_comm(grid, backend=backend).allgather(
+        x, n_inter=n_inter, n_intra=n_intra)
 
 
 # ------------------------------------------------------------ the seam

@@ -385,6 +385,46 @@ def test_hier_cuda_matches_torch(gen, kind, nodes, cores, nN, nC, m, op):
         assert torch.equal(got, vals.view(nodes * cores, m))
 
 
+@pytest.mark.parametrize("kind,op", [("broadcast", "sum"), ("reduce", "sum"),
+                                     ("reduce", "max"), ("allreduce", "sum"),
+                                     ("allgather", "sum"), ("allbroadcast", "sum")])
+def test_hiercomm_cuda_matches_torch(gen, kind, op):
+    """get_hier_comm(StackedGrid(3, 4)): each kind's "cuda" plan on a
+    mixed-dtype pytree (padded blocks at both levels, root 7: node 1,
+    core 3) bit for bit against the "torch" plan, with its launches."""
+    from repro_torch.core.hier import StackedGrid, get_hier_comm
+
+    grid = StackedGrid(3, 4)
+    p = grid.p
+    if kind in ("allgather", "allbroadcast"):
+        x = {"x": torch.randn((p * 61,), generator=gen, device="cuda"),
+             "y": torch.randint(-99, 99, (p, 3, 5), generator=gen, device="cuda",
+                                dtype=torch.int32)}
+        kw = {}
+    else:
+        x = {"w": torch.randn((p, 301), generator=gen, device="cuda"),
+             "b": torch.randint(-2 ** 31, 2 ** 31, (p, 7, 11), generator=gen,
+                                device="cuda", dtype=torch.int32),
+             "t": (torch.randn((p, 45), generator=gen, device="cuda").to(torch.bfloat16),)}
+        kw = {"root": 7} if kind == "broadcast" else {"root": 7, "op": op}
+    plan = get_hier_comm(grid).plan(kind, x, n_inter=2, n_intra=3, **kw)
+    plain = get_hier_comm(grid, backend="torch").plan(kind, x, n_inter=2, n_intra=3, **kw)
+    before = dict(bp.LAUNCHES)
+    out = plan(x)
+    got = tree_flatten(out)[0]
+    assert _launched(before) == comm_launches(plan, len(got))
+    want = tree_flatten(plain(x))[0]
+    for g, w in zip(got, want):
+        assert g.is_cuda and _same_bits(g.contiguous(), w.contiguous())
+    if plan.kind == "allgather":
+        for g, w in zip(tree_flatten(plan.per_rank(x))[0], tree_flatten(x)[0]):
+            assert g.shape == (p,) + w.shape and torch.equal(g, w.expand_as(g))
+    elif kind == "reduce" and op == "sum":
+        assert torch.equal(out["b"][7], x["b"].sum(0, dtype=torch.int32))
+    elif kind == "broadcast":
+        assert torch.equal(out["w"], x["w"][7].expand(p, 301))
+
+
 def test_simulate_hier_certifies_cuda(gen):
     # the reference test's 36 x 32 arguments (tests/test_hier.py)
     assert simulate_hier_broadcast(36, 32, 3, 2, root=35 * 32 + 7,
@@ -721,24 +761,27 @@ def test_serve_loop_on_the_card(gen):
 
 
 def comm_launches(plan, buffers):
-    """The launches one call of a communicator plan makes: ``buffers``
-    round-step buffers (one a leaf; allgatherv: one a leaf and block
-    size) each take a forward phase of R rounds (pack once, shuffle R - 1
-    times, unpack once; overlapped: the pack once a round, the staged
-    shuffle) or a reversed phase (R + 1 acc_shuffles; overlapped: one
-    acc_shuffle, then a pack and a staged acc_shuffle a round)."""
-    R = plan.statics[0].ks.shape[0]
+    """The launches one call of a communicator plan (flat or hier) makes:
+    ``buffers`` round-step buffers (one a leaf; allgatherv: one a leaf
+    and block size) each take a forward phase of R rounds (pack once,
+    shuffle R - 1 times, unpack once; overlapped: the pack once a round,
+    the staged shuffle) or a reversed phase (R + 1 acc_shuffles;
+    overlapped: one acc_shuffle, then a pack and a staged acc_shuffle a
+    round); R is the phase's own (a hier plan's levels differ).  A hier
+    plan has no overlapped loop."""
+    overlap = getattr(plan, "overlap", False)
     out = {}
 
     def add(name, k):
         out[name] = out.get(name, 0) + k * buffers
 
     for phase in plan.statics:
+        R = phase.ks.shape[0]
         if phase.direction == "fwd":
-            add("block_pack", R if plan.overlap else 1)
-            add("block_shuffle_staged" if plan.overlap else "block_shuffle", R - 1)
+            add("block_pack", R if overlap else 1)
+            add("block_shuffle_staged" if overlap else "block_shuffle", R - 1)
             add("block_unpack", 1)
-        elif plan.overlap:
+        elif overlap:
             add("block_acc_shuffle", 1)
             add("block_pack", R)
             add("block_acc_shuffle_staged", R)
