@@ -130,12 +130,43 @@ d_model 2560, 2.42 B parameters in bf16, random weights from a seeded
   * prefill_f32: the same prefill with the model in f32, where "cuda"
     must equal "torch" within 1e-3 of the logits' scale.
 
+Then the two memory families at their full published widths (random
+weights from the seed, every cross-attention gate set to 0.5: at the
+reference's init value 0 the cross-attention drops out of the logits),
+their cross-attention running the flash attention kernel:
+
+  * model_kernels (the same line) also holds flash attention against its
+    plain version at their shapes, timed in bf16 beside SDPA and the
+    bound: llama-3.2-vision-11b's self-attention (B 2, S 4096, 32 / 8
+    heads of 128, causal) and cross-attention (4096 queries over 1601
+    image rows), whisper-small's encoder (B 8, 1500 frames, 12 heads of
+    64, non-causal), decoder (448 tokens, causal) and cross-attention
+    (448 over 1500), and each family's decode cross-attention (one query
+    row); the non-causal ones again in f32;
+  * prefill_vlm: llama-3.2-vision-11b (40 layers, a gated cross-attention
+    layer every 5th, 9.79 B parameters in bf16) on 2 prompts of 4096
+    tokens with 2 x 1601 image embeddings must launch 40 flash
+    attentions (32 causal, 8 cross) and give last-position logits within
+    the stated tolerance of the "torch" backend's; prefill_vlm_f32 runs
+    one super-block (5 layers) at full width in f32 within 1e-3;
+  * decode_vlm: a cache of 4 slots and 128 positions holding
+    ``encode_memory`` of 4 images; prompts of 16-64 tokens fed token by
+    token, then 16 greedy tokens each, 8 launches a step; each prompt's
+    prefill against its decode (first token, largest logit gap: a
+    finding, no gate);
+  * prefill_encdec, decode_encdec, prefill_encdec_f32: whisper-small (12
+    encoder and 12 decoder layers) on 8 utterances of 1500 frames and 8
+    x 448 decoder tokens, 36 launches (12 encoder, 12 causal, 12 cross);
+    decode over 8 slots of 512 positions, 12 launches a step; the f32
+    prefill at full depth.
+
 Matrix products run with TF32 off (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 
 Each path is run with the launch counts set to 0 just before it and read
 just after, and must have gone through its kernels.  Every phase prints
-one JSON line.  The last line is ``{"ok": true, "device": {...}}``; any
+one JSON line; the "wall" line gives the whole run's seconds, the build
+included.  The last line is ``{"ok": true, "device": {...}}``; any
 failed check ends the run with a nonzero exit before it.  Without a CUDA
 device, or outside a checkout, the script exits nonzero and prints no
 result.  It imports nothing of JAX and nothing of the JAX package.
@@ -230,6 +261,25 @@ PREFILL_RTOL = 0.1
 #: order of f32 sums differs, so max |logits - plain| <= 1e-3 * max |plain|.
 PREFILL_RTOL_F32 = 1e-3
 SERVE_SLOTS, SERVE_MAX_SEQ, SERVE_REQUESTS, SERVE_NEW = 4, 128, 8, 16
+#: The memory families at full width, random weights from the seed.
+#: llama-3.2-vision-11b (vlm) prefills the zamba2 prefill's 2 x 4096
+#: tokens with 1601 image embeddings a prompt and decodes over 4 slots of
+#: 128 positions; whisper-small (encdec) prefills 8 utterances of 1500
+#: audio frames and 448 decoder tokens (its published decoder context,
+#: arXiv:2212.04356) and decodes over 8 slots of 512 positions.  Decode
+#: feeds prompts of 16-64 tokens token by token, then SERVE_NEW greedy
+#: tokens each.  The stub frontends' embeddings are standard normal f32.
+VLM_ARCH, VLM_SLOTS, VLM_MAX_SEQ = "llama-3.2-vision-11b", 4, 128
+ENC_ARCH, ENC_B, ENC_S, ENC_SLOTS, ENC_MAX_SEQ = "whisper-small", 8, 448, 8, 512
+#: Every xattn layer's gate.  The reference initialises it to 0, where
+#: tanh(gate) * h drops the cross-attention from the logits and a wrong
+#: cross-attention would pass every comparison; a trained checkpoint's
+#: gates are not 0.
+XATTN_GATE = 0.5
+#: The vlm's f32 check runs one super-block (5 layers: 4 self-attention,
+#: 1 cross-attention) at full width: 40 layers would be 39 GB of f32
+#: weights.  whisper-small's f32 check runs at full depth (0.3 B).
+VLM_F32_LAYERS = 5
 #: The training path: Qwen2-0.5B at full width over 4 stacked ranks, global
 #: batch 8 of 1024 tokens, 3 steps.  By the shapes, the sync holds about 4
 #: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
@@ -769,16 +819,18 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attn_work(B, S, H, Hkv, hd, causal, window, itemsize):
-    """FLOPs of attention over the (query, key) pairs it must see (the
-    causal triangle, cut by the window) -- q.k and p.v, 2 * hd each a pair
-    -- and the bytes of q, k, v read once and out written once."""
+def attn_work(B, S, H, Hkv, hd, causal, window, itemsize, Skv=None):
+    """FLOPs of attention of S queries over Skv keys (default S) on the
+    (query, key) pairs it must see (all S * Skv; causal, S == Skv: the
+    triangle, cut by the window) -- q.k and p.v, 2 * hd each a pair --
+    and the bytes of q, k, v read once and out written once."""
+    Skv = S if Skv is None else Skv
     if not causal:
-        pairs = S * S
+        pairs = S * Skv
     else:
         w = min(window or S, S)
         pairs = w * (w + 1) // 2 + (S - w) * w
-    return 4 * B * H * hd * pairs, itemsize * B * S * hd * (2 * H + 2 * Hkv)
+    return 4 * B * H * hd * pairs, itemsize * B * hd * (2 * H * S + 2 * Hkv * Skv)
 
 
 def scan_work(B, S, H, P, G, N, chunk):
@@ -796,30 +848,33 @@ def scan_work(B, S, H, P, G, N, chunk):
 
 
 def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
-                      timed: bool):
-    """flash_attention vs its plain version on the same random q, k, v;
-    timed: also kernel, plain and library (scaled_dot_product_attention,
-    no window only) times and the bound.  Returns the record."""
+                      timed: bool, Skv=None):
+    """flash_attention of S queries over Skv keys (default S) vs its plain
+    version on the same random q, k, v; timed: also kernel, plain and
+    library (scaled_dot_product_attention, no window only) times and the
+    bound.  Returns the record."""
     import torch.nn.functional as F
 
-    q, k, v = (torch.randn((B, S, h, hd), generator=g, device="cuda").to(dtype)
-               for h in (H, Hkv, Hkv))
+    Skv = S if Skv is None else Skv
+    q, k, v = (torch.randn((B, s, h, hd), generator=g, device="cuda").to(dtype)
+               for s, h in ((S, H), (Skv, Hkv), (Skv, Hkv)))
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = fa.blocked_attention(q, k, v, causal, window)
     name = str(dtype).removeprefix("torch.")
     atol, rtol = ATTN_TOL[name]
     err = float((got.float() - want.float()).abs().max())
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
-          f"flash_attention != plain at {B, S, H, Hkv, hd} {name} causal={causal} "
-          f"window={window}: max abs {err}")
-    rec = {"shape": [B, S, H, Hkv, hd], "dtype": name, "causal": causal,
-           "window": window, "max_abs_err": err,
+          f"flash_attention != plain at {B, S, Skv, H, Hkv, hd} {name} "
+          f"causal={causal} window={window}: max abs {err}")
+    rec = {"shape": [B, S, H, Hkv, hd], "seq_kv": Skv, "dtype": name,
+           "causal": causal, "window": window, "max_abs_err": err,
            "max_abs_plain": float(want.float().abs().max()),
            "atol": atol, "rtol": rtol}
     del got, want
     if not timed:
         return rec
-    flops, nbytes = attn_work(B, S, H, Hkv, hd, causal, window, q.element_size())
+    flops, nbytes = attn_work(B, S, H, Hkv, hd, causal, window, q.element_size(),
+                              Skv)
     rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_FLOPS[name])
     rec.update(flops=flops, bytes=nbytes,
                ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal,
@@ -2332,6 +2387,19 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
             attn_cases.append(dict(compare_attention(
                 torch, fa, g, 2, 333, 6, 2, 40, causal, window, dtype, timed=False),
                 case="odd"))
+    # the memory families' shapes: heads of 128 (vlm) and 64 (whisper),
+    # cross-attention with Sq != Skv, and decode's one query row; timed in
+    # bf16, the non-causal ones checked again in f32
+    for key, (case, path, args, skv) in memory_attn_cases(get_config).items():
+        rec = dict(compare_attention(torch, fa, g, *args, bf16, timed=True, Skv=skv),
+                   case=case)
+        attn_cases.append(rec)
+        kern[f"flash_attention@{key}"] = dict(rec, kernel="flash_attention", path=path)
+        torch.cuda.empty_cache()
+        if not args[5]:
+            attn_cases.append(dict(compare_attention(
+                torch, fa, g, *args, f32, timed=False, Skv=skv), case=case))
+            torch.cuda.empty_cache()
     scan = compare_scan(torch, ss, g, PREFILL_B, PREFILL_S, H_ssm, s.head_dim,
                         s.n_groups, s.d_state, s.chunk, timed=True)
     scan_cases = [dict(scan, case="zamba2-2.7b prefill"),
@@ -2431,19 +2499,10 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
                           (pl - dl[0, 0].float()).abs().max()),
                       "logits_max_abs": float(pl.abs().max())})
     # torch calls in one decode step over the slots (what sets the host's pace)
-    from torch.utils._python_dispatch import TorchDispatchMode
-
-    class CountOps(TorchDispatchMode):
-        n = 0
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            CountOps.n += 1
-            return func(*args, **(kwargs or {}))
-
     cache = init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ)
-    with CountOps():
-        decode_step(params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
-                                                   device="cuda"))
+    ops_per_step = torch_calls(torch, lambda: decode_step(
+        params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
+                                       device="cuda")))
     del cache
     emit({"phase": "serve", "arch": ARCH, "batch_slots": SERVE_SLOTS,
           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS,
@@ -2452,7 +2511,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
           "ms_per_decode_step": serve_s / steps * 1e3,
           "generated_tok_per_s": SERVE_REQUESTS * SERVE_NEW / serve_s,
           "kernel_launches": got, "first_tokens": agree,
-          "torch_ops_per_decode_step": CountOps.n,
+          "torch_ops_per_decode_step": ops_per_step,
           "max_memory_allocated": serve_peak, "card": card})
     kern["flash_attention"], kern["ssd_scan"] = attn, scan
     del params, loop
@@ -2478,7 +2537,258 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     torch.cuda.empty_cache()
 
 
+def torch_calls(torch, fn) -> int:
+    """The torch operator calls ``fn()`` makes (what sets a host-bound
+    step's pace)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class CountOps(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            CountOps.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with CountOps():
+        fn()
+    return CountOps.n
+
+
+def memory_len(cfg) -> int:
+    """Rows of the stub frontend's output: image tokens or audio frames."""
+    return cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+
+
+def memory_attn_cases(get_config) -> dict:
+    """The memory families' attention shapes: key -> (case, the path that
+    launches it, (B, S, H, Hkv, hd, causal, window), Skv)."""
+    v, w = get_config(VLM_ARCH), get_config(ENC_ARCH)
+    vh, wh = (v.n_heads, v.n_kv_heads, v.hd), (w.n_heads, w.n_kv_heads, w.hd)
+    T, F_ = v.n_image_tokens, w.n_audio_frames
+    return {
+        "vlm_self": (f"{VLM_ARCH} self", "prefill_vlm",
+                     (PREFILL_B, PREFILL_S, *vh, True, None), PREFILL_S),
+        "vlm_cross": (f"{VLM_ARCH} cross", "prefill_vlm",
+                      (PREFILL_B, PREFILL_S, *vh, False, None), T),
+        "vlm_decode_cross": (f"{VLM_ARCH} decode cross", "decode_vlm",
+                             (VLM_SLOTS, 1, *vh, False, None), T),
+        "whisper_encoder": (f"{ENC_ARCH} encoder", "prefill_encdec",
+                            (ENC_B, F_, *wh, False, None), F_),
+        "whisper_decoder": (f"{ENC_ARCH} decoder", "prefill_encdec",
+                            (ENC_B, ENC_S, *wh, True, None), ENC_S),
+        "whisper_cross": (f"{ENC_ARCH} cross", "prefill_encdec",
+                          (ENC_B, ENC_S, *wh, False, None), F_),
+        "whisper_decode_cross": (f"{ENC_ARCH} decode cross", "decode_encdec",
+                                 (ENC_SLOTS, 1, *wh, False, None), F_),
+    }
+
+
+def gated_params(torch, init_params, cfg):
+    """Random weights from the seed, every xattn gate at XATTN_GATE."""
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    for layer in params.layers:
+        if layer.typ == "xattn":
+            layer.gate.fill_(XATTN_GATE)
+    return params
+
+
+def memory_prefill(torch, kmods, cfg, params, tok, mem, expect, rtol) -> tuple:
+    """``make_prefill_step`` with ``memory_embeds``: its launches must be
+    ``expect``, its last-position logits finite and within ``rtol`` of the
+    largest "torch" logit of the "torch" backend's.  Returns the record
+    and the two steps."""
+    from repro_torch.serve.engine import make_prefill_step
+
+    step = make_prefill_step(cfg)
+    plain_step = make_prefill_step(cfg, backend="torch")
+    logits, got = counted_run(torch, kmods, lambda: step(params, tok, mem))
+    by_shape = shape_launches(kmods)
+    check(got == expect, f"{cfg.name} prefill launches {got} != {expect}")
+    check(tuple(logits.shape) == (tok.shape[0], 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)} not finite or misshapen")
+    plain, got = counted_run(torch, kmods, lambda: plain_step(params, tok, mem))
+    check(got == {}, f"the torch backend launched {got}")
+    diff = float((logits.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    check(diff <= rtol * scale,
+          f"{cfg.name} {cfg.dtype} prefill: cuda backend differs from torch by "
+          f"{diff} (scale {scale})")
+    rec = {"arch": cfg.name, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+           "batch": tok.shape[0], "seq": tok.shape[1], "memory_rows": mem.shape[1],
+           "xattn_gate": XATTN_GATE if cfg.family == "vlm" else None,
+           "launches": expect, "finite": True, "cuda_vs_torch_max_abs": diff,
+           "torch_logits_max_abs": scale, "tolerance_rel": rtol,
+           "same_greedy_token": (logits.argmax(-1) == plain.argmax(-1)).tolist()}
+    return rec, by_shape, step, plain_step
+
+
+def shape_launches(kmods) -> dict:
+    """The flash_attention wrapper's launches by shape since the last
+    reset: (causal, Sq, Skv, H, Hkv, hd) -> launches."""
+    return next(dict(m.LAUNCHES_BY_SHAPE) for m in kmods
+                if hasattr(m, "LAUNCHES_BY_SHAPE"))
+
+
+def shape_key(case) -> tuple:
+    """A ``memory_attn_cases`` entry's key in ``LAUNCHES_BY_SHAPE``."""
+    _, _, (_, S, H, Hkv, hd, causal, _), skv = case
+    return (causal, S, skv, H, Hkv, hd)
+
+
+def greedy_decode(torch, decode_step, params, cfg, cache, prompts, new):
+    """Each slot's prompt fed token by token through ``decode_step``, then
+    ``new`` greedy tokens -> (tokens generated a slot, each slot's logits
+    at its last prompt token, steps)."""
+    outs, first = [[] for _ in prompts], [None] * len(prompts)
+    steps = max(map(len, prompts)) - 1 + new
+    cur = [p[0] for p in prompts]
+    for t in range(steps):
+        logits, cache = decode_step(params, cfg, cache,
+                                    torch.tensor(cur, device="cuda")[:, None])
+        nxt = logits[:, 0].argmax(-1).tolist()
+        for i, p in enumerate(prompts):
+            if t == len(p) - 1:
+                first[i] = logits[i, 0].float().clone()
+            if t >= len(p) - 1 and len(outs[i]) < new:
+                outs[i].append(nxt[i])
+            cur[i] = p[t + 1] if t + 1 < len(p) else nxt[i]
+    return outs, first, steps
+
+
+def memory_model_phases(torch, np, card, kmods, launches, kern) -> None:
+    """llama-3.2-vision-11b and whisper-small at full width: the bf16
+    prefill with its frontend embeddings ("cuda" against "torch"), the
+    prefill in f32, and greedy decode over a cache holding the encoded
+    memory.  Fills ``launches`` for the kernels line's memory-family rows
+    of ``kern``, each shape's count read from the wrapper's
+    ``LAUNCHES_BY_SHAPE``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, encode_memory, init_cache, init_params
+    from repro_torch.models import layer_pattern
+
+    cases = memory_attn_cases(get_config)
+    rng = np.random.default_rng(SEED)
+    for arch, B, S, slots, max_seq in (
+            (VLM_ARCH, PREFILL_B, PREFILL_S, VLM_SLOTS, VLM_MAX_SEQ),
+            (ENC_ARCH, ENC_B, ENC_S, ENC_SLOTS, ENC_MAX_SEQ)):
+        cfg = get_config(arch)
+        tag = cfg.family
+        pattern, R, _ = layer_pattern(cfg)
+        per_shape = ({"vlm_self": R * pattern.count("attn"),
+                      "vlm_cross": R * pattern.count("xattn")} if tag == "vlm" else
+                     {"whisper_encoder": cfg.encoder_layers,
+                      "whisper_decoder": R * pattern.count("dec"),
+                      "whisper_cross": R * pattern.count("dec")})
+        per_step = R * (pattern.count("xattn") + pattern.count("dec"))
+        expect = {"flash_attention": sum(per_shape.values())}
+        tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).cuda()
+        mem = torch.from_numpy(rng.standard_normal(
+            (B, memory_len(cfg), cfg.d_model), dtype=np.float32)).cuda()
+
+        # prefill, bf16
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = gated_params(torch, init_params, cfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        rec, by_shape, step, plain_step = memory_prefill(
+            torch, kmods, cfg, params, tok, mem, expect, PREFILL_RTOL)
+        measured = {k: by_shape.get(shape_key(cases[k]), 0) for k in per_shape}
+        check(measured == per_shape and sum(by_shape.values()) == sum(measured.values()),
+              f"{arch} prefill launches by shape {by_shape} != {per_shape}")
+        torch.cuda.empty_cache()
+        pre_ms, pre_runs = median_ms(torch, lambda: step(params, tok, mem), 3)
+        peak = torch.cuda.max_memory_allocated()
+        plain_ms, plain_runs = median_ms(torch, lambda: plain_step(params, tok, mem), 3)
+        kernel_ms = {k: kern[f"flash_attention@{k}"]["ms"] * n
+                     for k, n in per_shape.items()}
+        for k, n in measured.items():
+            launches[f"flash_attention@{k}"] = n
+            kern[f"flash_attention@{k}"]["path_launches"] = expect["flash_attention"]
+        emit({"phase": f"prefill_{tag}", **rec,
+              "params": sum(p.numel() for p in params.parameters()),
+              "param_count": cfg.param_count(),
+              "weight_bytes": sum(p.numel() * p.element_size()
+                                  for p in params.parameters()),
+              "init_s": init_s, "launches_by_shape": measured,
+              "ms": pre_ms, "ms_runs": pre_runs,
+              "tokens_per_s": B * S / pre_ms * 1e3,
+              "plain_ms": plain_ms, "plain_ms_runs": plain_runs,
+              "flash_attention_ms": kernel_ms,
+              "flash_attention_share": sum(kernel_ms.values()) / pre_ms,
+              "max_memory_allocated": peak, "memory_allocated_at_start": start,
+              "card": card})
+
+        # decode over a cache holding the encoded memory
+        lens = rng.integers(16, 65, slots)
+        prompts = [rng.integers(0, cfg.vocab, int(n)).tolist() for n in lens]
+        dmem = torch.from_numpy(rng.standard_normal(
+            (slots, memory_len(cfg), cfg.d_model), dtype=np.float32)).cuda()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        cache = init_cache(cfg, slots, max_seq, memory=encode_memory(params, cfg, dmem))
+        t0 = time.perf_counter()
+        (outs, first, steps), got = counted_run(torch, kmods, lambda: greedy_decode(
+            torch, decode_step, params, cfg, cache, prompts, SERVE_NEW))
+        dec_s = time.perf_counter() - t0
+        key = f"{'vlm' if tag == 'vlm' else 'whisper'}_decode_cross"
+        dec_shape = shape_launches(kmods)
+        check(got == {"flash_attention": per_step * steps}
+              and dec_shape == {shape_key(cases[key]): per_step * steps},
+              f"{arch} decode launches {got}, by shape {dec_shape} != "
+              f"{per_step} a step x {steps}")
+        check(all(len(o) == SERVE_NEW for o in outs), f"{arch} decode: a slot "
+              "did not get its tokens")
+        dec_peak = torch.cuda.max_memory_allocated()
+        launches[f"flash_attention@{key}"] = dec_shape[shape_key(cases[key])]
+        kern[f"flash_attention@{key}"]["launches_per_step"] = per_step
+        step_ops = torch_calls(torch, lambda: decode_step(
+            params, cfg, cache, torch.ones((slots, 1), dtype=torch.long, device="cuda")))
+        del cache
+        # a finding, no gate: each prompt's prefill against its decode
+        agree = []
+        for i, p in enumerate(prompts):
+            pl = step(params, torch.tensor([p], device="cuda"), dmem[i:i + 1])[0, 0]
+            agree.append({"prompt_len": len(p),
+                          "prefill_first_token": int(pl.argmax()),
+                          "decode_first_token": outs[i][0],
+                          "prefill_vs_decode_logits_max_abs": float(
+                              (pl.float() - first[i]).abs().max()),
+                          "logits_max_abs": float(pl.float().abs().max())})
+        emit({"phase": f"decode_{tag}", "arch": cfg.name, "batch_slots": slots,
+              "max_seq": max_seq, "memory_rows": memory_len(cfg),
+              "prompt_lens": lens.tolist(), "max_new": SERVE_NEW, "steps": steps,
+              "launches": got, "launches_per_step": per_step, "seconds": dec_s,
+              "ms_per_decode_step": dec_s / steps * 1e3,
+              "generated_tok_per_s": slots * SERVE_NEW / dec_s,
+              "fed_and_generated_tok_per_s": slots * steps / dec_s,
+              "torch_ops_per_decode_step": step_ops, "first_tokens": agree,
+              "max_memory_allocated": dec_peak, "memory_allocated_at_start": start,
+              "card": card})
+        del params, step, plain_step
+        torch.cuda.empty_cache()
+
+        # the prefill in f32 (vlm: one super-block), "cuda" against "torch"
+        cfg32 = replace(cfg, dtype="float32")
+        if tag == "vlm":
+            cfg32 = replace(cfg32, n_layers=VLM_F32_LAYERS)
+        pattern, R, _ = layer_pattern(cfg32)
+        expect32 = {"flash_attention": R * len(pattern) + R * pattern.count("dec")
+                    + cfg32.encoder_layers}
+        params = gated_params(torch, init_params, cfg32)
+        rec, _, _, _ = memory_prefill(torch, kmods, cfg32, params, tok, mem,
+                                      expect32, PREFILL_RTOL_F32)
+        emit({"phase": f"prefill_{tag}_f32", **rec, "card": card})
+        del params
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
+    t_start = time.perf_counter()
     import numpy as np
     import torch
 
@@ -3128,7 +3438,12 @@ def main() -> None:
     # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop
     model_phases(torch, np, card, kmods, g, launches, kern)
 
-    # 14. the kernels line, each kernel with the launch count of its path
+    # 13b. llama-3.2-vision-11b and whisper-small: prefill and decode
+    memory_model_phases(torch, np, card, kmods, launches, kern)
+
+    # 14. the whole run's wall time, then the kernels line, each kernel
+    #     with the launch count of its path
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start, "card": card})
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": SOURCES.get(rec.get("kernel", name), KERNEL_SOURCE),

@@ -12,8 +12,9 @@ query head h reading kv head ``h // (H // Hkv)``.  On CPU tensors it runs
 :func:`blocked_attention`, the plain version (the forward of
 ``repro.models.attention.blocked_attention``: the same online softmax in
 f32 over key chunks); on CUDA tensors it launches the kernel, adds one to
-:data:`LAUNCHES`, and raises if the launch failed.  There is no fallback
-from a CUDA tensor to the plain version.  The kernel has no backward: on
+:data:`LAUNCHES` (and to its shape's count in :data:`LAUNCHES_BY_SHAPE`),
+and raises if the launch failed.  There is no fallback from a CUDA tensor
+to the plain version.  The kernel has no backward: on
 the card an operand that requires grad under grad mode raises
 ``ValueError`` (the plain version on a CPU tensor keeps autograd).
 """
@@ -28,6 +29,8 @@ import torch.nn.functional as F
 
 #: Kernel launches since the last :func:`reset_launches`.
 LAUNCHES = {"flash_attention": 0}
+#: The same launches by shape: (causal, Sq, Skv, H, Hkv, hd) -> launches.
+LAUNCHES_BY_SHAPE: dict = {}
 
 #: Element types the kernel reads and writes, by the code it switches on.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
@@ -37,6 +40,7 @@ NEG_INF = -1e30
 
 def reset_launches() -> None:
     LAUNCHES["flash_attention"] = 0
+    LAUNCHES_BY_SHAPE.clear()
 
 
 def chunk_bounds(qi, q_chunk, kv_chunk, n_kv, causal, window, q_offset):
@@ -183,4 +187,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   window if (causal and window is not None) else 0,
                   DTYPES[q.dtype])
     LAUNCHES["flash_attention"] += 1
+    shape = (bool(causal), Sq, Skv, H, Hkv, hd)
+    LAUNCHES_BY_SHAPE[shape] = LAUNCHES_BY_SHAPE.get(shape, 0) + 1
     return out

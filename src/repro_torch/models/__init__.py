@@ -1,13 +1,14 @@
-"""Models of the port: the dense, ssm and hybrid families' serving path
-(:mod:`.transformer`), built from :mod:`.layers`, GQA attention
-(:mod:`.attention`) and the Mamba2 block (:mod:`.ssm`), with the
-configuration dataclasses (:mod:`.common`) and the bridge that carries
-the JAX reference's weights across (:mod:`.convert`)."""
+"""Models of the port: the dense, ssm, hybrid, vlm and encdec families'
+serving path (:mod:`.transformer`), built from :mod:`.layers`, GQA and
+cross-attention (:mod:`.attention`) and the Mamba2 block (:mod:`.ssm`),
+with the configuration dataclasses (:mod:`.common`) and the bridge that
+carries the JAX reference's weights across (:mod:`.convert`)."""
 
 from .common import SHAPES, MLAConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig
 from .transformer import (
     Model,
     decode_step,
+    encode_memory,
     forward,
     forward_hidden,
     init_cache,
@@ -17,6 +18,6 @@ from .transformer import (
 )
 
 __all__ = ["MLAConfig", "Model", "ModelConfig", "MoEConfig", "SHAPES",
-           "SSMConfig", "ShapeConfig", "decode_step", "forward",
+           "SSMConfig", "ShapeConfig", "decode_step", "encode_memory", "forward",
            "forward_hidden", "init_cache", "init_params", "layer_pattern",
            "prefill"]

@@ -1,16 +1,18 @@
-"""Grouped-query self-attention with RoPE, causal and sliding-window masks.
+"""Grouped-query self-attention with RoPE, causal and sliding-window
+masks, and cross-attention to a memory.
 
-Port of the GQA half of ``repro.models.attention``.  The full-sequence
-path (:func:`gqa_full`, train and prefill) runs the hand-written CUDA
-flash attention on a CUDA tensor (``backend="cuda"``, forward only: it
-refuses operands that need a gradient) and otherwise
-:func:`blocked_attention`: the plain blocked online softmax (also what
-the kernel's wrapper runs on a CPU tensor) with the reference's
-O(S)-memory backward, an ``autograd.Function`` in place of its
-``custom_vjp``.  Decode (:func:`gqa_decode`)
-attends a fixed-size cache with position masks, in plain torch as in the
-reference.  Cross-attention (vlm, encdec) and MLA (moe) wait for a later
-slice (``ROADMAP.md``).
+Port of the GQA and cross-attention parts of ``repro.models.attention``.
+The full-sequence path (:func:`gqa_full`, train and prefill) and
+cross-attention (:func:`cross_attn_apply`, the vlm and encdec families,
+in prefill and in decode) run the hand-written CUDA flash attention on a
+CUDA tensor (``backend="cuda"``, forward only: it refuses operands that
+need a gradient) and otherwise :func:`blocked_attention`: the plain
+blocked online softmax (also what the kernel's wrapper runs on a CPU
+tensor) with the reference's O(S)-memory backward, an
+``autograd.Function`` in place of its ``custom_vjp``.  Decode's
+self-attention (:func:`gqa_decode`) attends a fixed-size cache with
+position masks, in plain torch as in the reference.  MLA (moe) waits for
+a later slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -208,3 +210,37 @@ def gqa_decode(p: GQA, x, cfg: ModelConfig, cache_k, cache_v, pos):
     o = torch.einsum("bhrqk,bkhd->bqhrd", w, cache_v.float())
     o = o.to(x.dtype).reshape(B, 1, cfg.n_heads * hd) @ p.wo
     return o, cache_k, cache_v
+
+
+class CrossAttention(nn.Module):
+    """``wq`` [d, H*hd], ``wk``/``wv`` [d, Hkv*hd] and ``wo`` [H*hd, d]."""
+
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        hd, d = cfg.hd, cfg.d_model
+        dev = device or gen.device
+        self.wq = dense_init(gen, d, cfg.n_heads * hd, dtype, device=dev)
+        self.wk = dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device=dev)
+        self.wv = dense_init(gen, d, cfg.n_kv_heads * hd, dtype, device=dev)
+        self.wo = dense_init(gen, cfg.n_heads * hd, d, dtype, device=dev)
+
+
+def cross_attn_apply(p: CrossAttention, x, memory, cfg: ModelConfig, *,
+                     backend: str = "cuda"):
+    """x: [B, S, d] queries; memory: [B, T, d] keys and values (no
+    RoPE, no mask: every query sees all T rows) -> [B, S, d].
+    ``backend="cuda"`` runs the flash attention kernel on a CUDA tensor
+    (its plain version on a CPU one); ``"torch"`` runs
+    :func:`blocked_attention`, which trains."""
+    check_backend(backend)
+    B, S, _ = x.shape
+    T = memory.shape[1]
+    hd = cfg.hd
+    q = (x @ p.wq).reshape(B, S, cfg.n_heads, hd)
+    k = (memory @ p.wk).reshape(B, T, cfg.n_kv_heads, hd)
+    v = (memory @ p.wv).reshape(B, T, cfg.n_kv_heads, hd)
+    if backend == "cuda":
+        o = flash_attention(q, k, v, causal=False)
+    else:
+        o = blocked_attention(q, k, v, False)
+    return o.reshape(B, S, cfg.n_heads * hd) @ p.wo

@@ -2,8 +2,10 @@
 per-layer modules.
 
 The reference keeps parameters as a pytree of arrays with each pattern
-position's layers stacked over R (``params["pos{i}"]``); the port keeps
-``R * len(pattern)`` layer modules in execution order.
+position's layers stacked over R (``params["pos{i}"]``) and the
+encoder's over its depth (``params["enc"]``); the port keeps
+``R * len(pattern)`` layer modules in execution order (``layers.N``) and
+the encoder's in a list of its own (``enc.N``).
 :func:`params_from_jax` and :func:`cache_from_jax` take the reference's
 pytree with its leaves as NumPy arrays (``np.asarray`` of each JAX array;
 bfloat16 arrives as the ``ml_dtypes`` type) and fill the port's
@@ -57,14 +59,9 @@ def params_from_jax(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> Mode
     k = len(layer_pattern(cfg)[0])
     used = set()
     for name, p in model.named_parameters():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            r, i = divmod(int(parts[1]), k)
-            path = (f"pos{i}", *parts[2:])
-            value = to_tensor(_leaf(tree, path)[r], p.device)
-        else:
-            path = tuple(parts)
-            value = to_tensor(_leaf(tree, path), p.device)
+        path, r = _stacked_path(name, k)
+        leaf = _leaf(tree, path)
+        value = to_tensor(leaf if r is None else leaf[r], p.device)
         if value.shape != p.shape or value.dtype != p.dtype:
             raise ValueError(f"{name}: reference {tuple(value.shape)} {value.dtype}, "
                              f"port {tuple(p.shape)} {p.dtype}")
@@ -94,12 +91,15 @@ def cache_from_jax(tree: Dict[str, Any], device=None) -> Dict[str, torch.Tensor]
 
 
 def _stacked_path(name: str, k: int):
-    """A parameter name -> (its path in the reference's tree, its layer's
-    repeat r, or None for a leaf that is not stacked)."""
+    """A parameter name -> (its path in the reference's tree, its index in
+    the stacked leaf -- the layer's repeat r, or the encoder layer --, or
+    None for a leaf that is not stacked)."""
     parts = name.split(".")
     if parts[0] == "layers":
         r, i = divmod(int(parts[1]), k)
         return (f"pos{i}", *parts[2:]), r
+    if parts[0] == "enc":
+        return ("enc", *parts[2:]), int(parts[1])
     return tuple(parts), None
 
 

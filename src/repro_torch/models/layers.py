@@ -5,8 +5,7 @@ Port of ``repro.models.layers``: the initializers draw from an explicit
 model that holds shapes only), the apply functions take the owning
 module (or tensor) and the input.  Weights are ``[d_in, d_out]`` as in
 the reference (``x @ w``).  The training loss is :func:`cross_entropy`
-and its chunked form :func:`chunked_softmax_xent`.  ``gelu_mlp``
-(encoder-decoder) waits for a later slice (``ROADMAP.md``).
+and its chunked form :func:`chunked_softmax_xent`.
 """
 
 from __future__ import annotations
@@ -57,6 +56,21 @@ class SwiGLU(nn.Module):
 
 def swiglu_apply(p: SwiGLU, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+
+
+class GeluMLP(nn.Module):
+    """``w_in`` [d, f] and ``w_out`` [f, d] (the encoder-decoder MLP)."""
+
+    def __init__(self, gen: torch.Generator, d: int, f: int, dtype, device=None):
+        super().__init__()
+        self.w_in = dense_init(gen, d, f, dtype, device=device)
+        self.w_out = dense_init(gen, f, d, dtype, device=device)
+
+
+def gelu_mlp_apply(p: GeluMLP, x: torch.Tensor) -> torch.Tensor:
+    """GELU in its tanh form, the default of the reference's ``jax.nn.gelu``
+    (torch's default is the erf form)."""
+    return F.gelu(x @ p.w_in, approximate="tanh") @ p.w_out
 
 
 # ---------------------------------------------------------------- RoPE

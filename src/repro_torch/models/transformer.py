@@ -1,4 +1,4 @@
-"""LM assembly for the dense, ssm and hybrid families.
+"""LM assembly for the dense, ssm, hybrid, vlm and encdec families.
 
 Port of ``repro.models.transformer`` (serving, and the training loss
 with remat).  A model is a repeated *super-block pattern* over R
@@ -8,6 +8,17 @@ repeats:
   ssm          ['ssm']             x n_layers     (mamba2)
   hybrid       ['ssm']*k + shared-attn call       (zamba2: one SHARED
                weight set applied after every k mamba layers)
+  vlm          ['attn']*(k-1) + ['xattn']         (llama-3.2-vision:
+               gated cross-attention to the image memory every k-th layer)
+  encdec       encoder ['enc'] x encoder_layers;
+               decoder ['dec'] (self-attn + cross-attn) x n_layers
+               (whisper)
+
+The vlm and encdec families read a *memory*: the stub frontend's image
+or audio embeddings ``memory_embeds`` [B, T, d], projected by
+``img_proj`` (vlm) or run through the encoder stack (encdec,
+:func:`encode_memory`).  A decode cache holds it under ``"memory"`` as
+given, and each step projects a vlm memory again, as the reference does.
 
 The reference stacks each pattern position's parameters over R and scans
 them; here they are ``R * len(pattern)`` layer modules in execution order
@@ -18,8 +29,8 @@ reference, and :func:`decode_step` updates them in place.  The trainer
 keeps the parameters in the reference's stacked layout and binds views
 of them into a model (:mod:`repro_torch.models.convert`); :func:`loss_fn`
 differentiates through them, with each super-block checkpointed
-(``remat="full"``) or its matrix products saved (``"dots"``).  The moe,
-vlm and encdec families and MTP wait for later slices (``ROADMAP.md``).
+(``remat="full"``) or its matrix products saved (``"dots"``).  The moe
+family and MTP wait for later slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -36,14 +47,24 @@ from torch.utils.checkpoint import (
 )
 
 from ..core.comm import resolve_device
-from .attention import GQA, check_backend, gqa_decode, gqa_full
+from .attention import (
+    GQA,
+    CrossAttention,
+    check_backend,
+    cross_attn_apply,
+    gqa_decode,
+    gqa_full,
+)
 from .common import ModelConfig
 from .layers import (
+    GeluMLP,
     SwiGLU,
     chunked_softmax_xent,
     embed_apply,
     embed_init,
+    gelu_mlp_apply,
     init_rms_norm,
+    param,
     rms_norm,
     swiglu_apply,
     unembed_apply,
@@ -64,18 +85,32 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, bool]:
         if cfg.n_layers % k:
             raise ValueError("hybrid layers must divide shared_attn_every")
         return ["ssm"] * k, cfg.n_layers // k, True
-    if cfg.family in ("moe", "vlm", "encdec"):
+    if cfg.family == "vlm":
+        k = cfg.cross_attn_every or 5
+        if cfg.n_layers % k:
+            raise ValueError("vlm layers must divide cross_attn_every")
+        return ["attn"] * (k - 1) + ["xattn"], cfg.n_layers // k, False
+    if cfg.family == "encdec":
+        return ["dec"], cfg.n_layers, False
+    if cfg.family == "moe":
         raise NotImplementedError(
-            f"the {cfg.family} family is not ported yet (ROADMAP.md Queue 1 item 9)")
+            "the moe family is not ported yet (ROADMAP.md Queue 1 item 9)")
     raise ValueError(cfg.family)
+
+
+#: The families whose forward pass and decode read a memory.
+MEMORY_FAMILIES = ("vlm", "encdec")
 
 
 # ---------------------------------------------------------------- init
 
 
 class Block(nn.Module):
-    """One layer: ``attn`` (``ln1``, ``attn``, ``ln2``, ``mlp``) or ``ssm``
-    (``ln1``, ``ssm``), the reference's parameter names."""
+    """One layer, with the reference's parameter names: ``attn`` and
+    ``enc`` (``ln1``, ``attn``, ``ln2``, ``mlp``: SwiGLU, or GELU in the
+    encoder), ``ssm`` (``ln1``, ``ssm``), ``xattn`` (``ln1``, ``xattn``,
+    ``gate`` [1] f32 zeros, ``ln2``, a SwiGLU ``mlp``) or ``dec``
+    (``ln1``, ``attn``, ``lnx``, ``xattn``, ``ln2``, a GELU ``mlp``)."""
 
     def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype,
                  device=None):
@@ -83,19 +118,29 @@ class Block(nn.Module):
         self.typ = typ
         d, dev = cfg.d_model, device or gen.device
         self.ln1 = init_rms_norm(d, dev)
-        if typ == "attn":
-            self.attn = GQA(gen, cfg, dtype, dev)
-            self.ln2 = init_rms_norm(d, dev)
-            self.mlp = SwiGLU(gen, d, cfg.d_ff, dtype, dev)
-        elif typ == "ssm":
+        if typ == "ssm":
             self.ssm = Mamba2(gen, cfg, dtype, dev)
-        else:
+            return
+        if typ in ("attn", "enc", "dec"):
+            self.attn = GQA(gen, cfg, dtype, dev)
+        elif typ != "xattn":
             raise ValueError(typ)
+        if typ == "dec":
+            self.lnx = init_rms_norm(d, dev)
+        if typ in ("xattn", "dec"):
+            self.xattn = CrossAttention(gen, cfg, dtype, dev)
+        if typ == "xattn":
+            self.gate = param(torch.zeros((1,), dtype=torch.float32, device=dev))
+        self.ln2 = init_rms_norm(d, dev)
+        mlp = GeluMLP if typ in ("enc", "dec") else SwiGLU
+        self.mlp = mlp(gen, d, cfg.d_ff, dtype, dev)
 
 
 class Model(nn.Module):
     """``embed`` [V, d], ``ln_f``, ``unembed`` [V, d] (None when tied), the
-    layers in execution order and the hybrid family's ``shared_attn``."""
+    layers in execution order, the hybrid family's ``shared_attn``, the
+    encdec family's encoder ``enc`` (``encoder_layers`` blocks) and
+    ``enc_ln_f``, and the vlm family's ``img_proj`` [d, d]."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
@@ -109,6 +154,13 @@ class Model(nn.Module):
         self.layers = nn.ModuleList(
             Block(gen, typ, cfg, dtype, dev) for _ in range(R) for typ in pattern)
         self.shared_attn = Block(gen, "attn", cfg, dtype, dev) if shared else None
+        self.enc = self.enc_ln_f = self.img_proj = None
+        if cfg.family == "encdec":
+            self.enc = nn.ModuleList(
+                Block(gen, "enc", cfg, dtype, dev) for _ in range(cfg.encoder_layers))
+            self.enc_ln_f = init_rms_norm(cfg.d_model, dev)
+        if cfg.family == "vlm":
+            self.img_proj = embed_init(gen, cfg.d_model, cfg.d_model, dtype, dev)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -136,14 +188,69 @@ def _table(params: Model) -> torch.Tensor:
 # ------------------------------------------------------------- forward
 
 
-def _apply_layer(p: Block, x, cfg: ModelConfig, positions, backend: str):
-    if p.typ == "attn":
-        h, _ = gqa_full(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
-                        backend=backend)
-        x = x + h
-        return x + swiglu_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
-    return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+def _mlp_apply(p: Block, x):
+    mlp = gelu_mlp_apply if isinstance(p.mlp, GeluMLP) else swiglu_apply
+    return mlp(p.mlp, x)
+
+
+def _gated_cross(p: Block, x, memory, cfg: ModelConfig, backend: str):
+    """The ``xattn`` layer's body: ``tanh(gate)``-scaled cross-attention,
+    then its MLP."""
+    h = cross_attn_apply(p.xattn, rms_norm(x, p.ln1, cfg.norm_eps), memory, cfg,
                          backend=backend)
+    x = x + torch.tanh(p.gate).to(x.dtype) * h
+    return x + _mlp_apply(p, rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _apply_layer(p: Block, x, cfg: ModelConfig, positions, memory, backend: str):
+    if p.typ == "ssm":
+        return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                             backend=backend)
+    if p.typ == "xattn":
+        return _gated_cross(p, x, memory, cfg, backend)
+    h, _ = gqa_full(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
+                    causal=p.typ != "enc", backend=backend)
+    x = x + h
+    if p.typ == "dec":
+        x = x + cross_attn_apply(p.xattn, rms_norm(x, p.lnx, cfg.norm_eps), memory,
+                                 cfg, backend=backend)
+    return x + _mlp_apply(p, rms_norm(x, p.ln2, cfg.norm_eps))
+
+
+def _encode(params: Model, cfg: ModelConfig, audio_embeds, backend: str):
+    """The encoder stack over stub frame embeddings [B, T, d]: non-causal
+    self-attention with RoPE and a GELU MLP a layer, then ``enc_ln_f``."""
+    x = audio_embeds.to(cfg.torch_dtype)
+    B, T, _ = x.shape
+    positions = torch.arange(T, device=x.device).expand(B, T)
+    for p in params.enc:
+        x = _apply_layer(p, x, cfg, positions, None, backend)
+    return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
+
+
+def encode_memory(params: Model, cfg: ModelConfig, memory_embeds):
+    """The memory as a decode cache stores it (``init_cache(memory=)``):
+    the encoder's output for encdec, the embeddings as given for vlm
+    (:func:`decode_step` projects them through ``img_proj`` each step)."""
+    if cfg.family == "encdec":
+        return _encode(params, cfg, memory_embeds, "cuda")
+    return memory_embeds
+
+
+def _require_memory(cfg: ModelConfig, memory, what: str) -> None:
+    if cfg.family in MEMORY_FAMILIES and memory is None:
+        raise ValueError(f"the {cfg.family} family reads a memory: {what}")
+
+
+def _memory(params: Model, cfg: ModelConfig, memory_embeds, backend: str):
+    """The memory the decoder's cross-attention reads, from the stub
+    frontend's embeddings (None for the families without one)."""
+    _require_memory(cfg, memory_embeds, "pass memory_embeds [B, T, d]")
+    if cfg.family == "vlm":
+        return memory_embeds.to(cfg.torch_dtype) @ params.img_proj
+    if cfg.family == "encdec":
+        return _encode(params, cfg, memory_embeds, backend)
+    return None
 
 
 #: The matrix products ``remat="dots"`` keeps (the reference's
@@ -159,9 +266,11 @@ def _save_products(ctx, op, *args, **kwargs):
 
 
 def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
-                   backend: str = "cuda",
+                   memory_embeds=None, backend: str = "cuda",
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss 0).
+    ``memory_embeds`` [B, T, d]: the stub frontend's image (vlm) or audio
+    frame (encdec) embeddings, which those families need.
     ``backend="cuda"`` runs attention and the SSD scan in the CUDA kernels
     on a CUDA tensor; ``"torch"`` runs their plain versions (the training
     path).  ``remat``: ``"none"``; ``"full"`` checkpoints each super-block
@@ -174,13 +283,15 @@ def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
     B, S = tokens.shape
     x = embed_apply(params.embed, tokens)
     positions = torch.arange(S, device=x.device).expand(B, S)
+    memory = _memory(params, cfg, memory_embeds, backend)
     k = len(pattern)
 
     def super_block(x, r):
         for i in range(k):
-            x = _apply_layer(params.layers[r * k + i], x, cfg, positions, backend)
+            x = _apply_layer(params.layers[r * k + i], x, cfg, positions, memory,
+                             backend)
         if shared:
-            x = _apply_layer(params.shared_attn, x, cfg, positions, backend)
+            x = _apply_layer(params.shared_attn, x, cfg, positions, None, backend)
         return x
 
     for r in range(R):
@@ -194,47 +305,54 @@ def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
     return x, torch.zeros((), device=x.device)
 
 
-def forward(params: Model, cfg: ModelConfig, tokens, *,
+def forward(params: Model, cfg: ModelConfig, tokens, *, memory_embeds=None,
             backend: str = "cuda") -> Tuple[torch.Tensor, torch.Tensor]:
     """Full forward: tokens [B, S] -> (logits [B, S, V], aux_loss)."""
-    x, aux = forward_hidden(params, cfg, tokens, backend=backend)
+    x, aux = forward_hidden(params, cfg, tokens, memory_embeds=memory_embeds,
+                            backend=backend)
     return unembed_apply(_table(params), x), aux
 
 
 def loss_fn(params: Model, cfg: ModelConfig, batch, *, remat: str = "none",
             backend: str = "torch"):
     """The training loss of ``batch`` ({"tokens", "labels"}, [B, S] each;
-    label -100 is ignored): ``(ce + 0.01 * aux, {"ce", "aux"})``, the
-    cross entropy through the chunked LM head.  ``backend="torch"`` (the
+    label -100 is ignored; "memory_embeds" for the vlm and encdec
+    families): ``(ce + 0.01 * aux, {"ce", "aux"})``, the cross entropy
+    through the chunked LM head.  ``backend="torch"`` (the
     default) differentiates; the CUDA kernels have no backward."""
     if cfg.mtp:
         raise NotImplementedError(
             "multi-token prediction (deepseek-v3) is not ported yet "
             "(ROADMAP.md Queue 1 item 9)")
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"], backend=backend,
-                                 remat=remat)
+    hidden, aux = forward_hidden(params, cfg, batch["tokens"],
+                                 memory_embeds=batch.get("memory_embeds"),
+                                 backend=backend, remat=remat)
     loss = chunked_softmax_xent(hidden, _table(params), batch["labels"])
     return loss + 0.01 * aux, {"ce": loss, "aux": aux}
 
 
-def prefill(params: Model, cfg: ModelConfig, tokens, *,
+def prefill(params: Model, cfg: ModelConfig, tokens, *, memory_embeds=None,
             backend: str = "cuda") -> torch.Tensor:
     """Prefill: full backbone forward, unembed ONLY the last position
     (no [B, S, V] logits for long prompts) -> [B, 1, V]."""
-    hidden, _ = forward_hidden(params, cfg, tokens, backend=backend)
+    hidden, _ = forward_hidden(params, cfg, tokens, memory_embeds=memory_embeds,
+                               backend=backend)
     return unembed_apply(_table(params), hidden[:, -1:])
 
 
 # ---------------------------------------------------------------- cache
 
 
-def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
+def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
                device=None) -> Dict[str, torch.Tensor]:
     """Decode cache, stacked [R, ...] per pattern position: ``pos{i}_k`` /
-    ``pos{i}_v`` [R, B, seq, Hkv, hd] (attention), ``pos{i}_conv``
-    [R, B, d_conv-1, channels] and ``pos{i}_ssd`` [R, B, H, N, P] f32
-    (ssm), ``shared_k``/``shared_v`` (hybrid), and ``pos_idx`` [B] int32,
-    each slot's next position (continuous batching)."""
+    ``pos{i}_v`` [R, B, seq, Hkv, hd] (``attn`` and ``dec``),
+    ``pos{i}_conv`` [R, B, d_conv-1, channels] and ``pos{i}_ssd``
+    [R, B, H, N, P] f32 (ssm), nothing for ``xattn``, ``shared_k``/
+    ``shared_v`` (hybrid), ``pos_idx`` [B] int32, each slot's next
+    position (continuous batching), and ``memory`` as given (the
+    :func:`encode_memory` of the frontend's embeddings), which the vlm
+    and encdec families' decode reads."""
     dev = resolve_device(device)
     pattern, R, shared = layer_pattern(cfg)
     dtype = cfg.torch_dtype
@@ -248,9 +366,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
 
     cache = {"pos_idx": zeros((batch,), torch.int32)}
     for i, typ in enumerate(pattern):
-        if typ == "attn":
+        if typ in ("attn", "dec"):
             cache[f"pos{i}_k"], cache[f"pos{i}_v"] = kv(), kv()
-        else:
+        elif typ == "ssm":
             d_in = s.expand * cfg.d_model
             cch = d_in + 2 * s.n_groups * s.d_state
             cache[f"pos{i}_conv"] = zeros((R, batch, s.d_conv - 1, cch))
@@ -258,35 +376,53 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *,
                 (R, batch, d_in // s.head_dim, s.d_state, s.head_dim), torch.float32)
     if shared:
         cache["shared_k"], cache["shared_v"] = kv(), kv()
+    if memory is not None:
+        cache["memory"] = memory
     return cache
 
 
-def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos):
-    """One-token decode through one layer, its cache rows updated in place."""
-    if p.typ == "attn":
-        h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
-                             cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
-        x = x + h
-        return x + swiglu_apply(p.mlp, rms_norm(x, p.ln2, cfg.norm_eps))
-    y, _, _ = ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
-                        conv_state=cache[f"{prefix}_conv"][r],
-                        ssd_state=cache[f"{prefix}_ssd"][r])
-    return x + y
+def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos,
+                  memory):
+    """One-token decode through one layer, its cache rows updated in place.
+    Cross-attention runs the flash attention kernel on a CUDA tensor."""
+    if p.typ == "ssm":
+        y, _, _ = ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                            conv_state=cache[f"{prefix}_conv"][r],
+                            ssd_state=cache[f"{prefix}_ssd"][r])
+        return x + y
+    if p.typ == "xattn":
+        return _gated_cross(p, x, memory, cfg, "cuda")
+    h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                         cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
+    x = x + h
+    if p.typ == "dec":
+        x = x + cross_attn_apply(p.xattn, rms_norm(x, p.lnx, cfg.norm_eps), memory,
+                                 cfg)
+    return x + _mlp_apply(p, rms_norm(x, p.ln2, cfg.norm_eps))
 
 
 def decode_step(params: Model, cfg: ModelConfig, cache, tokens):
     """One decoding step.  tokens: [B, 1] -> (logits [B, 1, V], cache):
     the cache's tensors are updated in place (a key or value at
-    ``pos >= seq`` is dropped) and ``pos_idx`` advances by one."""
+    ``pos >= seq`` is dropped) and ``pos_idx`` advances by one.  A vlm or
+    encdec cache must hold ``"memory"`` (``init_cache(memory=)``): without
+    it this raises ``ValueError`` (the reference fails on ``None``)."""
     pattern, R, shared = layer_pattern(cfg)
     pos = cache["pos_idx"]
+    memory = cache.get("memory")
+    _require_memory(cfg, memory, 'the cache has no "memory": build it with '
+                    "init_cache(cfg, batch, seq, memory=encode_memory(...))")
+    if cfg.family == "vlm":
+        memory = memory.to(cfg.torch_dtype) @ params.img_proj
     x = embed_apply(params.embed, tokens)
     k = len(pattern)
     for r in range(R):
         for i in range(k):
-            x = _decode_layer(params.layers[r * k + i], x, cfg, cache, f"pos{i}", r, pos)
+            x = _decode_layer(params.layers[r * k + i], x, cfg, cache, f"pos{i}", r,
+                              pos, memory)
         if shared:
-            x = _decode_layer(params.shared_attn, x, cfg, cache, "shared", r, pos)
+            x = _decode_layer(params.shared_attn, x, cfg, cache, "shared", r, pos,
+                              None)
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
     cache["pos_idx"] = pos + 1
     return unembed_apply(_table(params), x), cache

@@ -8,7 +8,10 @@ paths.  ``ServeLoop`` is a small continuous-batching driver: requests
 join a fixed-slot batch, finished slots are refilled, greedy sampling.
 As in the reference, it feeds each prompt token by token through the
 decode step, and :meth:`ServeLoop.run` returns an empty list (callers
-read ``req.out`` and ``req.done``).
+read ``req.out`` and ``req.done``).  The vlm and encdec families' prefill
+also takes the frontend's ``memory_embeds``, and their decode a cache
+holding its memory; their cross-attention runs the flash attention
+kernel in both.
 """
 
 from __future__ import annotations
@@ -25,8 +28,10 @@ from ..models.transformer import Model, decode_step, init_cache, prefill
 
 
 def make_prefill_step(cfg: ModelConfig, backend: str = "cuda"):
-    def prefill_step(params: Model, tokens: torch.Tensor) -> torch.Tensor:
-        return prefill(params, cfg, tokens, backend=backend)
+    def prefill_step(params: Model, tokens: torch.Tensor,
+                     memory_embeds: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return prefill(params, cfg, tokens, memory_embeds=memory_embeds,
+                       backend=backend)
 
     return prefill_step
 
@@ -71,11 +76,12 @@ class ServeLoop:
         self.queue.append(req)
 
     def _reset_slot(self, i: int):
-        """Zero slot i's recurrent state and position (new request)."""
+        """Zero slot i's recurrent state and position (new request); a
+        cache's ``memory`` stays as it is."""
         for key, arr in self.cache.items():
             if key == "pos_idx":
                 arr[i] = 0
-            elif arr.dim() >= 2 and arr.shape[1] == self.B:
+            elif key != "memory" and arr.dim() >= 2 and arr.shape[1] == self.B:
                 arr[:, i] = 0           # stacked caches are [R, B, ...]
 
     def _admit(self):

@@ -25,6 +25,7 @@ f32.  TF32 is off for these (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 """
 
+import copy
 from dataclasses import replace
 
 import numpy as np
@@ -32,7 +33,14 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.models import init_params, layer_pattern, prefill
+from repro_torch.models import (
+    decode_step,
+    encode_memory,
+    init_cache,
+    init_params,
+    layer_pattern,
+    prefill,
+)
 from repro_torch.serve.engine import Request, ServeLoop
 from repro_torch.core import (
     StackedGroup,
@@ -567,6 +575,32 @@ def test_flash_attention_matches_plain(gen, dtype, B, S, H, Hkv, hd, causal,
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=str)
+@pytest.mark.parametrize("B,Sq,Skv,H,Hkv,hd", [
+    (2, 200, 1601, 8, 2, 128),   # vlm cross-attention: heads of 128, GQA
+    (2, 1, 1601, 8, 2, 128),     # its decode: one query row in a 64-row block
+    (2, 448, 1500, 4, 4, 64),    # whisper cross-attention
+    (3, 1, 1500, 4, 4, 64),      # its decode
+    (1, 1500, 1500, 4, 4, 64),   # whisper's encoder: non-causal self
+    (2, 70, 33, 4, 2, 80),       # more queries than keys
+])
+def test_flash_attention_cross_shapes(gen, dtype, B, Sq, Skv, H, Hkv, hd):
+    """Non-causal attention with Sq != Skv, as cross-attention runs it:
+    1601 and 1500 keys end in a partial 64-key block."""
+    q = torch.randn((B, Sq, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, Skv, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    assert out.dtype == dtype and out.shape == (B, Sq, H, hd)
+    want = fa.blocked_attention(q, k, v, False, q_chunk=128, kv_chunk=256)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
 def test_flash_attention_value_width_differs(gen):
     q = torch.randn((2, 90, 4, 48), generator=gen, device="cuda")
     k = torch.randn((2, 90, 2, 48), generator=gen, device="cuda")
@@ -743,6 +777,41 @@ def test_model_prefill_cuda_matches_torch(gen, arch):
         R * (pattern.count("attn") + shared), R * pattern.count("ssm"))
     want = prefill(params, cfg, tok, backend="torch")
     torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_memory_model_cuda_matches_torch(gen, arch):
+    """The vlm and encdec families in f32, cross-attention gates at 0.5:
+    prefill launches one kernel an attention layer (the encoder's too),
+    decode one a cross-attention layer a step, and both equal the
+    "torch" backend."""
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    for layer in params.layers:
+        if layer.typ == "xattn":
+            layer.gate.fill_(0.5)
+    T = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    mem = torch.randn((2, T, cfg.d_model), generator=gen, device="cuda")
+    tok = torch.randint(0, cfg.vocab, (2, 70), generator=gen, device="cuda")
+    pattern, R, _ = layer_pattern(cfg)
+    before = fa.LAUNCHES["flash_attention"]
+    got = prefill(params, cfg, tok, memory_embeds=mem)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == (
+        R * len(pattern) + R * pattern.count("dec") + cfg.encoder_layers)
+    want = prefill(params, cfg, tok, memory_embeds=mem, backend="torch")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    cache = init_cache(cfg, 2, 16, memory=encode_memory(params, cfg, mem))
+    plain = {k: v.cpu() for k, v in cache.items()}
+    cpu_params = copy.deepcopy(params).cpu()
+    for i in range(4):
+        before = fa.LAUNCHES["flash_attention"]
+        logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1])
+        torch.cuda.synchronize()
+        assert fa.LAUNCHES["flash_attention"] - before == R * (
+            pattern.count("xattn") + pattern.count("dec"))
+        want, plain = decode_step(cpu_params, cfg, plain, tok[:, i:i + 1].cpu())
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
 
 
 def test_serve_loop_on_the_card(gen):

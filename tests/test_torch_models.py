@@ -39,7 +39,8 @@ from repro_torch.models.common import SHAPES
 from repro_torch.models.convert import params_from_jax, to_tensor
 
 ARCHS = all_arch_names()
-SERVED = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b"]
+SERVED = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b",
+          "llama-3.2-vision-11b", "whisper-small"]
 RNG = np.random.default_rng(11)
 
 
@@ -101,7 +102,7 @@ def test_shapes_match():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_layer_pattern(arch):
     cfg = get_config(arch, smoke=True)
-    if cfg.family in ("moe", "vlm", "encdec"):
+    if cfg.family == "moe":
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             tt.layer_pattern(cfg)
     else:
@@ -127,9 +128,10 @@ def test_params_from_jax(arch, dtype):
     k = len(pattern)
     for name, p in tp.named_parameters():
         parts = name.split(".")
-        if parts[0] == "layers":
+        if parts[0] in ("layers", "enc"):       # stacked over R, or the encoder
             r, i = divmod(int(parts[1]), k)
-            ref = jp[f"pos{i}"]
+            ref, r = (jp[f"pos{i}"], r) if parts[0] == "layers" else (
+                jp["enc"], int(parts[1]))
             for key in parts[2:]:
                 ref = ref[key]
             ref = ref[r]
