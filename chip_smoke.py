@@ -160,6 +160,33 @@ their cross-attention running the flash attention kernel:
     decode over 8 slots of 512 positions, 12 launches a step; the f32
     prefill at full depth.
 
+Then the moe family at its full published width: deepseek-moe-16b (28
+layers, d_model 2048, 16 heads of 128, 64 routed experts top-6 of width
+1408 and 2 shared ones, capacity factor 1.25, vocab 102,400; 16.88 B
+parameters in bf16, random weights from the seed), its attention
+running the flash attention kernel:
+
+  * model_kernels (the same line) also holds flash attention against its
+    plain version at its prefill shape (B 2, S 4096, 16 / 16 heads of
+    128, causal), timed in bf16 beside SDPA and the bound, again in f32;
+  * prefill_moe: 2 prompts of 4096 tokens (C = 960 rows an expert) must
+    launch 28 flash attentions, and give last-position logits within
+    MOE_PREFILL_RTOL of the "torch" backend's scale; its time, tokens/s,
+    the attention's and the moe blocks' shares (the first layer's block
+    timed alone on its input, by stage: routing, dispatch, experts,
+    combine, shared experts), the share of dropped (token, k) slots, the
+    operations bound by part and the peak above the phase's start;
+  * decode_moe: a ``ServeLoop`` of 4 slots and 128 positions (C = 1 a
+    step: the slots compete) answers 8 requests of 16-64 prompt tokens
+    with 16 greedy tokens each, twice with the same tokens; ms a step,
+    torch calls a step, the dropped share and the bytes bound; a no-drop
+    variant (capacity factor E / K, so C = T) gives each prompt's
+    prefill beside its decode (a finding in bf16);
+  * prefill_moe_f32: 2 of the 28 layers at full width in f32 (28 would be
+    67.5 GB), "cuda" within 1e-3 of "torch", and the no-drop variant's
+    prefill equal to its decode: the same next token, logits within 1e-3
+    of their scale.
+
 Matrix products run with TF32 off (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 
@@ -174,6 +201,7 @@ result.  It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -280,6 +308,22 @@ XATTN_GATE = 0.5
 #: 1 cross-attention) at full width: 40 layers would be 39 GB of f32
 #: weights.  whisper-small's f32 check runs at full depth (0.3 B).
 VLM_F32_LAYERS = 5
+#: deepseek-moe-16b (moe) at full width, random bf16 weights from the seed:
+#: the zamba2 prefill's 2 x 4096 tokens, then the serve loop's 4 slots of
+#: 128 positions and 8 requests.  Its f32 check runs 2 of the 28 layers at
+#: full width: 28 layers in f32 would be 67.5 GB of weights.
+MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 2
+#: "cuda" vs "torch" prefill of the bf16 moe model.  As PREFILL_RTOL's
+#: rounding differences, and on top of them routing: a token whose K-th
+#: and (K+1)-th router logits lie closer than that difference takes
+#: another expert in the other backend, and a slot it frees or takes can
+#: change which later slots are dropped.
+#: tools/prefill_spread.py --arch deepseek-moe-16b measured max |logits -
+#: plain| / max |plain| at 0.056-0.197 over seeds 0-7 (0.111 at seed 0,
+#: this run's; tokens routed otherwise 0.3-0.5 % at layer 0, 33-37 % at
+#: layer 27) on an NVIDIA H100 80GB HBM3 at 700 W; the limit is twice the
+#: largest.  The f32 prefill is the tight check of the same path.
+MOE_PREFILL_RTOL = 0.4
 #: The training path: Qwen2-0.5B at full width over 4 stacked ranks, global
 #: batch 8 of 1024 tokens, 3 steps.  By the shapes, the sync holds about 4
 #: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
@@ -2400,6 +2444,19 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
             attn_cases.append(dict(compare_attention(
                 torch, fa, g, *args, f32, timed=False, Skv=skv), case=case))
             torch.cuda.empty_cache()
+    # deepseek-moe-16b's self-attention: 16 heads of 128, no GQA; timed in
+    # bf16, checked again in f32
+    moe = get_config(MOE_ARCH)
+    moe_args = (PREFILL_B, PREFILL_S, moe.n_heads, moe.n_kv_heads, moe.hd, True, None)
+    rec = dict(compare_attention(torch, fa, g, *moe_args, bf16, timed=True),
+               case=f"{MOE_ARCH} prefill")
+    attn_cases.append(rec)
+    kern["flash_attention@moe_self"] = dict(rec, kernel="flash_attention",
+                                            path="prefill_moe")
+    torch.cuda.empty_cache()
+    attn_cases.append(dict(compare_attention(torch, fa, g, *moe_args, f32, timed=False),
+                           case=f"{MOE_ARCH} prefill"))
+    torch.cuda.empty_cache()
     scan = compare_scan(torch, ss, g, PREFILL_B, PREFILL_S, H_ssm, s.head_dim,
                         s.n_groups, s.d_state, s.chunk, timed=True)
     scan_cases = [dict(scan, case="zamba2-2.7b prefill"),
@@ -2785,6 +2842,293 @@ def memory_model_phases(torch, np, card, kmods, launches, kern) -> None:
         emit({"phase": f"prefill_{tag}_f32", **rec, "card": card})
         del params
         torch.cuda.empty_cache()
+
+
+def moe_flops(cfg, B, S) -> dict:
+    """The prefill's operations by part, from the shapes: each expert's
+    SwiGLU over its padded E x C rows (and, for comparison, over the
+    T x K real slots), the shared experts, the attention projections and
+    attention itself (the causal triangle), per layer times its layers;
+    the router's f32 product apart (it runs outside the tensor cores)."""
+    from repro_torch.models.moe import capacity
+
+    mo, d, L, T = cfg.moe, cfg.d_model, cfg.n_layers, B * S
+    swiglu = 2 * 3 * d * mo.d_expert             # a row of one expert, 3 products
+    hd = cfg.hd
+    proj = 2 * T * d * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd)
+    attn, _ = attn_work(B, S, cfg.n_heads, cfg.n_kv_heads, hd, True, None, 2)
+    return {"routed_padded": L * swiglu * mo.n_experts * capacity(cfg, T),
+            "routed_real": L * swiglu * T * mo.top_k,
+            "shared": L * swiglu * mo.n_shared * T,
+            "attention_projections": L * proj, "attention": L * attn,
+            "router_f32": L * 2 * T * d * mo.n_experts}
+
+
+@contextlib.contextmanager
+def moe_drops(torch):
+    """Counts, while inside, the (token, k) slots every ``moe_apply`` of
+    the model keeps and drops (its routing computed once more, on the
+    device, no host sync): yields {"kept": [...], "dropped": [...]}, one
+    tensor a call, and "first": the first call's (block, input)."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.moe import route
+
+    seen = {"kept": [], "dropped": []}
+    plain = tt.moe_apply
+
+    def counting(p, x, cfg):
+        seen.setdefault("first", (p, x))
+        r, _ = route(p, x.reshape(-1, x.shape[-1]), cfg)
+        seen["kept"].append(r.keep.sum())
+        seen["dropped"].append((~r.keep).sum())
+        return plain(p, x, cfg)
+
+    tt.moe_apply = counting
+    try:
+        yield seen
+    finally:
+        tt.moe_apply = plain
+
+
+def drop_share(seen) -> dict:
+    """The dropped share of the slots a ``moe_drops`` run saw, overall and
+    the least and most of one call."""
+    kept = [int(t) for t in seen["kept"]]
+    dropped = [int(t) for t in seen["dropped"]]
+    per_call = [d / (k + d) for k, d in zip(kept, dropped)]
+    return {"dropped_share": sum(dropped) / (sum(kept) + sum(dropped)),
+            "dropped_slots": sum(dropped), "slots": sum(kept) + sum(dropped),
+            "calls": len(kept), "min_call_share": min(per_call),
+            "max_call_share": max(per_call)}
+
+
+def nodrop_agreement(torch, params, cfg, prompts) -> list:
+    """With ``capacity_factor = E / K`` (C = T: no slot dropped, so a token's
+    output does not depend on the others), each prompt's prefill against
+    token-by-token decode over SERVE_SLOTS slots: next tokens and the
+    largest logit gap, a record a prompt."""
+    from repro_torch.models import decode_step, init_cache
+    from repro_torch.models.moe import capacity
+    from repro_torch.serve.engine import make_prefill_step
+
+    mo = cfg.moe
+    nodrop = replace(cfg, moe=replace(mo, capacity_factor=mo.n_experts / mo.top_k))
+    check(all(capacity(nodrop, t) >= t for t in [SERVE_SLOTS] + list(map(len, prompts))),
+          "no-drop variant: a capacity below its tokens")
+    step = make_prefill_step(nodrop)
+    agree = []
+    for lo in range(0, len(prompts), SERVE_SLOTS):
+        group = prompts[lo:lo + SERVE_SLOTS]
+        cache = init_cache(nodrop, len(group), SERVE_MAX_SEQ)
+        outs, first, _ = greedy_decode(torch, decode_step, params, nodrop, cache,
+                                       group, 1)
+        del cache
+        for p, out, dl in zip(group, outs, first):
+            pl = step(params, torch.tensor([p], device="cuda"))[0, 0].float()
+            agree.append({"prompt_len": len(p),
+                          "prefill_first_token": int(pl.argmax()),
+                          "decode_first_token": out[0],
+                          "prefill_vs_decode_logits_max_abs": float(
+                              (pl - dl).abs().max()),
+                          "logits_max_abs": float(pl.abs().max())})
+    return agree
+
+
+def moe_phases(torch, np, card, kmods, launches, kern) -> None:
+    """deepseek-moe-16b at full width: the bf16 prefill of 2 x 4096 tokens
+    ("cuda" against "torch", 28 flash attention launches, the moe block
+    timed alone by stage, the dropped slots), a continuous-batching serve
+    loop, the first tokens of a no-drop variant against its prefill, and
+    a 2-layer f32 prefill."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import decode_step, init_cache, init_params, layer_pattern
+    from repro_torch.models import moe as tm
+    from repro_torch.models.layers import swiglu_apply
+    from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
+
+    cfg = get_config(MOE_ARCH)
+    mo = cfg.moe
+    pattern, R, _ = layer_pattern(cfg)
+    expect = {"flash_attention": R * len(pattern)}
+    rng = np.random.default_rng(SEED)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).cuda()
+
+    # prefill, bf16
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in params.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    check(n_params == cfg.param_count() + cfg.d_model,
+          f"{MOE_ARCH}: {n_params} parameters, param_count() + ln_f "
+          f"{cfg.param_count() + cfg.d_model}")
+    step = make_prefill_step(cfg)
+    plain_step = make_prefill_step(cfg, backend="torch")
+    logits, got = counted_run(torch, kmods, lambda: step(params, tok))
+    check(got == expect, f"{MOE_ARCH} prefill launches {got} != {expect}")
+    launches["flash_attention@moe_self"] = got["flash_attention"]
+    kern["flash_attention@moe_self"]["path_launches"] = got["flash_attention"]
+    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"{MOE_ARCH} prefill logits {tuple(logits.shape)} not finite or misshapen")
+    plain, got = counted_run(torch, kmods, lambda: plain_step(params, tok))
+    check(got == {}, f"the torch backend launched {got}")
+    diff = float((logits.float() - plain.float()).abs().max())
+    scale = float(plain.float().abs().max())
+    check(diff <= MOE_PREFILL_RTOL * scale,
+          f"{MOE_ARCH} prefill: cuda backend differs from torch by {diff} "
+          f"(scale {scale})")
+    same_top = (logits.argmax(-1) == plain.argmax(-1)).tolist()
+    del plain
+    torch.cuda.empty_cache()
+    pre_ms, pre_runs = median_ms(torch, lambda: step(params, tok), 3)
+    peak = torch.cuda.max_memory_allocated()
+    plain_ms, plain_runs = median_ms(torch, lambda: plain_step(params, tok), 3)
+    with moe_drops(torch) as seen:
+        step(params, tok)
+    drops = drop_share(seen)
+    torch.cuda.empty_cache()
+
+    # the first layer's moe block alone on its input in this prefill, by stage
+    block, x = seen.pop("first")
+    xt = x.reshape(-1, cfg.d_model)
+    T = xt.shape[0]
+    r, _ = tm.route(block, xt, cfg)
+    buf = tm.dispatch(xt, r, cfg)
+    y = tm.expert_ffn(block, buf)
+    stages = {"routing": cuda_ms(torch, lambda: tm.route(block, xt, cfg), 5),
+              "dispatch": cuda_ms(torch, lambda: tm.dispatch(xt, r, cfg), 5),
+              "experts": cuda_ms(torch, lambda: tm.expert_ffn(block, buf), 5),
+              "combine": cuda_ms(torch, lambda: tm.combine(y, r, T), 5),
+              "shared": cuda_ms(torch, lambda: swiglu_apply(block.shared, xt), 5)}
+    moe_ms = cuda_ms(torch, lambda: tm.moe_apply(block, x, cfg), 5)
+    first_drop = float((~r.keep).float().mean())
+    del block, x, xt, r, buf, y
+    torch.cuda.empty_cache()
+    flops = moe_flops(cfg, PREFILL_B, PREFILL_S)
+    bf16_flops = sum(v for k, v in flops.items()
+                     if k not in ("routed_real", "router_f32"))
+    ops_ms = (bf16_flops / PEAK_FLOPS["bfloat16"]
+              + flops["router_f32"] / PEAK_FLOPS["float32"]) * 1e3
+    attn_ms = kern["flash_attention@moe_self"]["ms"] * expect["flash_attention"]
+    emit({"phase": "prefill_moe", "arch": MOE_ARCH, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "batch": PREFILL_B, "seq": PREFILL_S,
+          "experts": mo.n_experts, "top_k": mo.top_k, "shared": mo.n_shared,
+          "capacity": tm.capacity(cfg, PREFILL_B * PREFILL_S),
+          "params": n_params, "param_count": cfg.param_count(),
+          "weight_bytes": weight_bytes, "init_s": init_s,
+          "launches": expect, "finite": True,
+          "cuda_vs_torch_max_abs": diff, "torch_logits_max_abs": scale,
+          "cuda_vs_torch_rel": diff / scale, "tolerance_rel": MOE_PREFILL_RTOL,
+          "same_greedy_token": same_top,
+          "ms": pre_ms, "ms_runs": pre_runs,
+          "tokens_per_s": PREFILL_B * PREFILL_S / pre_ms * 1e3,
+          "plain_ms": plain_ms, "plain_ms_runs": plain_runs,
+          "flash_attention_ms": attn_ms, "flash_attention_share": attn_ms / pre_ms,
+          "moe_block_ms": moe_ms, "moe_block_stages_ms": stages,
+          "moe_block_dropped_share": first_drop,
+          "moe_share": moe_ms * R / pre_ms, **drops,
+          "flops": flops, "flops_counted": bf16_flops + flops["router_f32"],
+          "bound_ms": max(ops_ms, ms_of_bytes(weight_bytes)),
+          "bound_by": "operations" if ops_ms >= ms_of_bytes(weight_bytes) else "bytes",
+          "weights_bytes_ms": ms_of_bytes(weight_bytes),
+          "max_memory_allocated": peak, "memory_allocated_at_start": start,
+          "peak_above_start": peak - start, "card": card})
+
+    # decode: ServeLoop answers 8 requests, 16 greedy tokens each
+    prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
+               for n in rng.integers(16, 65, SERVE_REQUESTS)]
+
+    def serve_all(config):
+        reqs = [Request(i, p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
+        loop = ServeLoop(config, params, batch_slots=SERVE_SLOTS, max_seq=SERVE_MAX_SEQ)
+        for req in reqs:
+            loop.submit(req)
+        n = 0
+        while loop.step() or loop.queue:
+            n += 1
+        return reqs, n
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    (reqs, steps), got = counted_run(torch, kmods, lambda: serve_all(cfg))
+    dec_s = time.perf_counter() - t0
+    check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
+          f"{MOE_ARCH} serve: a request did not finish with its tokens")
+    check(got == {}, f"{MOE_ARCH} serve (decode only) launched {got}")
+    dec_peak = torch.cuda.max_memory_allocated()
+    with moe_drops(torch) as seen:
+        again, _ = serve_all(cfg)
+    dec_drops = drop_share(seen)
+    check([r.out for r in again] == [r.out for r in reqs],
+          f"{MOE_ARCH} serve: a second run gave other tokens")
+    cache = init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ)
+    step_ops = torch_calls(torch, lambda: decode_step(
+        params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
+                                       device="cuda")))
+    cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
+    del cache
+    # a step reads every weight but the embedding table (B rows of it)
+    # and every cache
+    step_bytes = weight_bytes - params.embed.numel() * params.embed.element_size() \
+        + cache_bytes
+
+    # no-drop variant (C = T): each prompt's prefill against its decode, a
+    # finding in bf16 (routing flips with rounding), checked in f32 below
+    agree = nodrop_agreement(torch, params, cfg, prompts)
+    emit({"phase": "decode_moe", "arch": MOE_ARCH, "batch_slots": SERVE_SLOTS,
+          "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS,
+          "prompt_lens": [len(p) for p in prompts], "max_new": SERVE_NEW,
+          "all_done": True, "engine_steps": steps, "seconds": dec_s,
+          "ms_per_decode_step": dec_s / steps * 1e3,
+          "generated_tok_per_s": SERVE_REQUESTS * SERVE_NEW / dec_s,
+          "kernel_launches": got, "torch_ops_per_decode_step": step_ops,
+          "capacity": tm.capacity(cfg, SERVE_SLOTS), **dec_drops,
+          "step_bytes": step_bytes, "bytes_bound_ms": ms_of_bytes(step_bytes),
+          "nodrop_capacity_factor": mo.n_experts / mo.top_k,
+          "nodrop_first_tokens": agree,
+          "nodrop_first_tokens_equal": sum(a["prefill_first_token"]
+                                           == a["decode_first_token"] for a in agree),
+          "max_memory_allocated": dec_peak, "memory_allocated_at_start": start,
+          "card": card})
+    del params, step, plain_step
+    torch.cuda.empty_cache()
+
+    # the prefill in f32, 2 layers at full width: "cuda" against "torch";
+    # the no-drop variant's prefill against its decode
+    cfg32 = replace(cfg, dtype="float32", n_layers=MOE_F32_LAYERS)
+    params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED))
+    logits, got = counted_run(torch, kmods, lambda: make_prefill_step(cfg32)(params, tok))
+    check(got == {"flash_attention": MOE_F32_LAYERS},
+          f"{MOE_ARCH} f32 prefill launches {got}")
+    plain = make_prefill_step(cfg32, backend="torch")(params, tok)
+    diff = float((logits - plain).abs().max())
+    scale = float(plain.abs().max())
+    check(bool(torch.isfinite(logits).all()) and diff <= PREFILL_RTOL_F32 * scale,
+          f"{MOE_ARCH} f32 prefill: cuda backend differs from torch by {diff} "
+          f"(scale {scale})")
+    same_top = (logits.argmax(-1) == plain.argmax(-1)).tolist()
+    del logits, plain
+    agree = nodrop_agreement(torch, params, cfg32, prompts)
+    check(all(a["prefill_first_token"] == a["decode_first_token"]
+              and a["prefill_vs_decode_logits_max_abs"]
+              <= PREFILL_RTOL_F32 * a["logits_max_abs"] for a in agree),
+          f"{MOE_ARCH} f32 no-drop variant: a prefill differs from its decode: "
+          f"{agree}")
+    emit({"phase": "prefill_moe_f32", "arch": MOE_ARCH, "dtype": "float32",
+          "n_layers": MOE_F32_LAYERS, "batch": PREFILL_B, "seq": PREFILL_S,
+          "launches": got, "cuda_vs_torch_max_abs": diff,
+          "torch_logits_max_abs": scale, "tolerance_rel": PREFILL_RTOL_F32,
+          "same_greedy_token": same_top, "nodrop_first_tokens": agree,
+          "nodrop_first_tokens_equal": True, "card": card})
+    del params
+    torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -3440,6 +3784,9 @@ def main() -> None:
 
     # 13b. llama-3.2-vision-11b and whisper-small: prefill and decode
     memory_model_phases(torch, np, card, kmods, launches, kern)
+
+    # 13c. deepseek-moe-16b: prefill and decode
+    moe_phases(torch, np, card, kmods, launches, kern)
 
     # 14. the whole run's wall time, then the kernels line, each kernel
     #     with the launch count of its path

@@ -1,10 +1,12 @@
-"""Models of the port: the dense, ssm, hybrid, vlm and encdec families'
-serving path (:mod:`.transformer`), built from :mod:`.layers`, GQA and
-cross-attention (:mod:`.attention`) and the Mamba2 block (:mod:`.ssm`),
-with the configuration dataclasses (:mod:`.common`) and the bridge that
-carries the JAX reference's weights across (:mod:`.convert`)."""
+"""Models of the port: the dense, ssm, hybrid, vlm, encdec and moe
+families' serving path (:mod:`.transformer`), built from :mod:`.layers`,
+GQA and cross-attention (:mod:`.attention`), the Mamba2 block
+(:mod:`.ssm`) and the mixture-of-experts block (:mod:`.moe`), with the
+configuration dataclasses (:mod:`.common`) and the bridge that carries
+the JAX reference's weights across (:mod:`.convert`)."""
 
 from .common import SHAPES, MLAConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig
+from .moe import MoE, moe_apply
 from .transformer import (
     Model,
     decode_step,
@@ -17,7 +19,7 @@ from .transformer import (
     prefill,
 )
 
-__all__ = ["MLAConfig", "Model", "ModelConfig", "MoEConfig", "SHAPES",
+__all__ = ["MLAConfig", "Model", "ModelConfig", "MoE", "MoEConfig", "SHAPES",
            "SSMConfig", "ShapeConfig", "decode_step", "encode_memory", "forward",
            "forward_hidden", "init_cache", "init_params", "layer_pattern",
-           "prefill"]
+           "moe_apply", "prefill"]

@@ -11,8 +11,8 @@ blocked online softmax (also what the kernel's wrapper runs on a CPU
 tensor) with the reference's O(S)-memory backward, an
 ``autograd.Function`` in place of its ``custom_vjp``.  Decode's
 self-attention (:func:`gqa_decode`) attends a fixed-size cache with
-position masks, in plain torch as in the reference.  MLA (moe) waits for
-a later slice (``ROADMAP.md``).
+position masks, in plain torch as in the reference.  MLA (deepseek-v3)
+waits for a later slice (``ROADMAP.md``).
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""LM assembly for the dense, ssm, hybrid, vlm and encdec families.
+"""LM assembly for the dense, ssm, hybrid, vlm, encdec and moe families.
 
 Port of ``repro.models.transformer`` (serving, and the training loss
 with remat).  A model is a repeated *super-block pattern* over R
@@ -13,6 +13,8 @@ repeats:
   encdec       encoder ['enc'] x encoder_layers;
                decoder ['dec'] (self-attn + cross-attn) x n_layers
                (whisper)
+  moe          ['attn_moe']        x n_layers     (deepseek-moe: GQA,
+               then a mixture of experts in place of the MLP, :mod:`.moe`)
 
 The vlm and encdec families read a *memory*: the stub frontend's image
 or audio embeddings ``memory_embeds`` [B, T, d], projected by
@@ -29,8 +31,11 @@ reference, and :func:`decode_step` updates them in place.  The trainer
 keeps the parameters in the reference's stacked layout and binds views
 of them into a model (:mod:`repro_torch.models.convert`); :func:`loss_fn`
 differentiates through them, with each super-block checkpointed
-(``remat="full"``) or its matrix products saved (``"dots"``).  The moe
-family and MTP wait for later slices (``ROADMAP.md``).
+(``remat="full"``) or its matrix products saved (``"dots"``).  Each
+``attn_moe`` layer adds its load-balancing loss to the aux sum that
+:func:`forward_hidden` returns and :func:`loss_fn` weighs by 0.01.  MLA
+(the moe family with ``cfg.mla``, deepseek-v3) and MTP wait for later
+slices (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from .layers import (
     swiglu_apply,
     unembed_apply,
 )
+from .moe import MoE, moe_apply
 from .ssm import Mamba2, ssm_block
 
 # ------------------------------------------------------------- patterns
@@ -93,8 +99,11 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, bool]:
     if cfg.family == "encdec":
         return ["dec"], cfg.n_layers, False
     if cfg.family == "moe":
-        raise NotImplementedError(
-            "the moe family is not ported yet (ROADMAP.md Queue 1 item 9)")
+        if cfg.mla is not None:
+            raise NotImplementedError(
+                "multi-head latent attention (the moe family with mla, "
+                "deepseek-v3) is not ported yet (ROADMAP.md Queue 1 item 9b)")
+        return ["attn_moe"], cfg.n_layers, False
     raise ValueError(cfg.family)
 
 
@@ -108,9 +117,10 @@ MEMORY_FAMILIES = ("vlm", "encdec")
 class Block(nn.Module):
     """One layer, with the reference's parameter names: ``attn`` and
     ``enc`` (``ln1``, ``attn``, ``ln2``, ``mlp``: SwiGLU, or GELU in the
-    encoder), ``ssm`` (``ln1``, ``ssm``), ``xattn`` (``ln1``, ``xattn``,
-    ``gate`` [1] f32 zeros, ``ln2``, a SwiGLU ``mlp``) or ``dec``
-    (``ln1``, ``attn``, ``lnx``, ``xattn``, ``ln2``, a GELU ``mlp``)."""
+    encoder), ``attn_moe`` (``ln1``, ``attn``, ``ln2``, ``moe``), ``ssm``
+    (``ln1``, ``ssm``), ``xattn`` (``ln1``, ``xattn``, ``gate`` [1] f32
+    zeros, ``ln2``, a SwiGLU ``mlp``) or ``dec`` (``ln1``, ``attn``,
+    ``lnx``, ``xattn``, ``ln2``, a GELU ``mlp``)."""
 
     def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype,
                  device=None):
@@ -121,7 +131,7 @@ class Block(nn.Module):
         if typ == "ssm":
             self.ssm = Mamba2(gen, cfg, dtype, dev)
             return
-        if typ in ("attn", "enc", "dec"):
+        if typ in ("attn", "enc", "dec", "attn_moe"):
             self.attn = GQA(gen, cfg, dtype, dev)
         elif typ != "xattn":
             raise ValueError(typ)
@@ -132,6 +142,9 @@ class Block(nn.Module):
         if typ == "xattn":
             self.gate = param(torch.zeros((1,), dtype=torch.float32, device=dev))
         self.ln2 = init_rms_norm(d, dev)
+        if typ == "attn_moe":
+            self.moe = MoE(gen, cfg, dtype, dev)
+            return
         mlp = GeluMLP if typ in ("enc", "dec") else SwiGLU
         self.mlp = mlp(gen, d, cfg.d_ff, dtype, dev)
 
@@ -203,18 +216,23 @@ def _gated_cross(p: Block, x, memory, cfg: ModelConfig, backend: str):
 
 
 def _apply_layer(p: Block, x, cfg: ModelConfig, positions, memory, backend: str):
+    """One layer over the whole sequence -> (x, the layer's aux loss: a
+    tensor for ``attn_moe``, else None)."""
     if p.typ == "ssm":
         return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
-                             backend=backend)
+                             backend=backend), None
     if p.typ == "xattn":
-        return _gated_cross(p, x, memory, cfg, backend)
+        return _gated_cross(p, x, memory, cfg, backend), None
     h, _ = gqa_full(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
                     causal=p.typ != "enc", backend=backend)
     x = x + h
+    if p.typ == "attn_moe":
+        h, aux = moe_apply(p.moe, rms_norm(x, p.ln2, cfg.norm_eps), cfg)
+        return x + h, aux
     if p.typ == "dec":
         x = x + cross_attn_apply(p.xattn, rms_norm(x, p.lnx, cfg.norm_eps), memory,
                                  cfg, backend=backend)
-    return x + _mlp_apply(p, rms_norm(x, p.ln2, cfg.norm_eps))
+    return x + _mlp_apply(p, rms_norm(x, p.ln2, cfg.norm_eps)), None
 
 
 def _encode(params: Model, cfg: ModelConfig, audio_embeds, backend: str):
@@ -224,7 +242,7 @@ def _encode(params: Model, cfg: ModelConfig, audio_embeds, backend: str):
     B, T, _ = x.shape
     positions = torch.arange(T, device=x.device).expand(B, T)
     for p in params.enc:
-        x = _apply_layer(p, x, cfg, positions, None, backend)
+        x, _ = _apply_layer(p, x, cfg, positions, None, backend)
     return rms_norm(x, params.enc_ln_f, cfg.norm_eps)
 
 
@@ -255,7 +273,8 @@ def _memory(params: Model, cfg: ModelConfig, memory_embeds, backend: str):
 
 #: The matrix products ``remat="dots"`` keeps (the reference's
 #: ``checkpoint_dots_with_no_batch_dims``: a product with no batch
-#: dimensions; attention's batched einsums are recomputed).
+#: dimensions; attention's batched einsums and the experts' batched
+#: products are recomputed).
 _SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 REMATS = ("none", "full", "dots")
 
@@ -268,7 +287,9 @@ def _save_products(ctx, op, *args, **kwargs):
 def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
                    memory_embeds=None, backend: str = "cuda",
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
-    """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss 0).
+    """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss):
+    the f32 sum of the ``attn_moe`` layers' load-balancing losses (0
+    without them).
     ``memory_embeds`` [B, T, d]: the stub frontend's image (vlm) or audio
     frame (encdec) embeddings, which those families need.
     ``backend="cuda"`` runs attention and the SSD scan in the CUDA kernels
@@ -286,23 +307,28 @@ def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
     memory = _memory(params, cfg, memory_embeds, backend)
     k = len(pattern)
 
-    def super_block(x, r):
+    def super_block(x, aux, r):
         for i in range(k):
-            x = _apply_layer(params.layers[r * k + i], x, cfg, positions, memory,
-                             backend)
+            x, a = _apply_layer(params.layers[r * k + i], x, cfg, positions, memory,
+                                backend)
+            if a is not None:
+                aux = aux + a
         if shared:
-            x = _apply_layer(params.shared_attn, x, cfg, positions, None, backend)
-        return x
+            x, _ = _apply_layer(params.shared_attn, x, cfg, positions, None, backend)
+        return x, aux
 
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for r in range(R):
         if remat == "none":
-            x = super_block(x, r)
+            x, aux = super_block(x, aux, r)
             continue
+        # a recomputed moe layer routes as its first pass did: its sorts
+        # are stable, so equal inputs give equal slots
         kw = {} if remat == "full" else {"context_fn": partial(
             create_selective_checkpoint_contexts, _save_products)}
-        x = checkpoint(super_block, x, r, use_reentrant=False, **kw)
+        x, aux = checkpoint(super_block, x, aux, r, use_reentrant=False, **kw)
     x = rms_norm(x, params.ln_f, cfg.norm_eps)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 def forward(params: Model, cfg: ModelConfig, tokens, *, memory_embeds=None,
@@ -323,7 +349,7 @@ def loss_fn(params: Model, cfg: ModelConfig, batch, *, remat: str = "none",
     if cfg.mtp:
         raise NotImplementedError(
             "multi-token prediction (deepseek-v3) is not ported yet "
-            "(ROADMAP.md Queue 1 item 9)")
+            "(ROADMAP.md Queue 1 item 9c)")
     hidden, aux = forward_hidden(params, cfg, batch["tokens"],
                                  memory_embeds=batch.get("memory_embeds"),
                                  backend=backend, remat=remat)
@@ -346,7 +372,7 @@ def prefill(params: Model, cfg: ModelConfig, tokens, *, memory_embeds=None,
 def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
                device=None) -> Dict[str, torch.Tensor]:
     """Decode cache, stacked [R, ...] per pattern position: ``pos{i}_k`` /
-    ``pos{i}_v`` [R, B, seq, Hkv, hd] (``attn`` and ``dec``),
+    ``pos{i}_v`` [R, B, seq, Hkv, hd] (``attn``, ``attn_moe``, ``dec``),
     ``pos{i}_conv`` [R, B, d_conv-1, channels] and ``pos{i}_ssd``
     [R, B, H, N, P] f32 (ssm), nothing for ``xattn``, ``shared_k``/
     ``shared_v`` (hybrid), ``pos_idx`` [B] int32, each slot's next
@@ -366,7 +392,7 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
 
     cache = {"pos_idx": zeros((batch,), torch.int32)}
     for i, typ in enumerate(pattern):
-        if typ in ("attn", "dec"):
+        if typ in ("attn", "attn_moe", "dec"):
             cache[f"pos{i}_k"], cache[f"pos{i}_v"] = kv(), kv()
         elif typ == "ssm":
             d_in = s.expand * cfg.d_model
@@ -384,7 +410,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
 def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos,
                   memory):
     """One-token decode through one layer, its cache rows updated in place.
-    Cross-attention runs the flash attention kernel on a CUDA tensor."""
+    Cross-attention runs the flash attention kernel on a CUDA tensor.  An
+    ``attn_moe`` layer routes the step's B tokens together: its capacity
+    follows B, and the slots compete for it."""
     if p.typ == "ssm":
         y, _, _ = ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
                             conv_state=cache[f"{prefix}_conv"][r],
@@ -395,6 +423,9 @@ def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos
     h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
                          cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
     x = x + h
+    if p.typ == "attn_moe":
+        h, _ = moe_apply(p.moe, rms_norm(x, p.ln2, cfg.norm_eps), cfg)
+        return x + h
     if p.typ == "dec":
         x = x + cross_attn_apply(p.xattn, rms_norm(x, p.lnx, cfg.norm_eps), memory,
                                  cfg)

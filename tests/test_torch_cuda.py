@@ -34,13 +34,16 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.models import (
+    MoE,
     decode_step,
     encode_memory,
     init_cache,
     init_params,
     layer_pattern,
+    moe_apply,
     prefill,
 )
+from repro_torch.models.moe import route as moe_route
 from repro_torch.serve.engine import Request, ServeLoop
 from repro_torch.core import (
     StackedGroup,
@@ -810,6 +813,61 @@ def test_memory_model_cuda_matches_torch(gen, arch):
         torch.cuda.synchronize()
         assert fa.LAUNCHES["flash_attention"] - before == R * (
             pattern.count("xattn") + pattern.count("dec"))
+        want, plain = decode_step(cpu_params, cfg, plain, tok[:, i:i + 1].cpu())
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("case", ["random", "ties", "overflow", "decode"])
+def test_moe_apply_cuda_matches_cpu(gen, case):
+    """The moe block on the card against the CPU in f32: the same expert
+    indices, rows and drops (CUDA's stable sorts and accumulating
+    ``index_put``), out and aux within 1e-5.  "ties": two equal router
+    columns on inputs whose logits are exact; "overflow" and "decode"
+    (4 tokens, C = 1): one expert takes every token first."""
+    cfg = replace(get_config("deepseek-moe-16b", smoke=True), dtype="float32")
+    d, E = cfg.d_model, cfg.moe.n_experts
+    cpu = MoE(torch.Generator().manual_seed(1), cfg, torch.float32)
+    g = torch.Generator().manual_seed(2)
+    shape = (4, 1, d) if case == "decode" else (2, 64, d)
+    x = torch.randn(shape, generator=g)
+    if case == "ties":
+        cpu.router.data = torch.randint(-2, 3, (d, E), generator=g) * 0.125
+        cpu.router.data[:, 2] = cpu.router[:, 1]
+        x = torch.randint(-2, 3, shape, generator=g) * 0.25
+    elif case != "random":
+        cpu.router.data[:, 0] += 4 * cpu.router.abs().max()
+        x = x.abs()
+    card = copy.deepcopy(cpu).cuda()
+    want, want_aux = moe_apply(cpu, x, cfg)
+    got, aux = moe_apply(card, x.cuda(), cfg)
+    r_cpu, _ = moe_route(cpu, x.reshape(-1, d), cfg)
+    r, _ = moe_route(card, x.cuda().reshape(-1, d), cfg)
+    for name in ("expert", "pos", "keep"):
+        assert torch.equal(getattr(r, name).cpu(), getattr(r_cpu, name)), name
+    if case in ("overflow", "decode"):
+        assert not bool(r_cpu.keep.all())
+    torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=1e-5, rtol=1e-5)
+
+
+def test_moe_model_cuda_matches_torch(gen):
+    """deepseek-moe-smoke in f32: prefill launches one kernel a layer and
+    equals the "torch" backend; decode steps over 4 slots (C = 1) equal
+    the CPU's."""
+    cfg = replace(get_config("deepseek-moe-16b", smoke=True), dtype="float32")
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    tok = torch.randint(0, cfg.vocab, (4, 70), generator=gen, device="cuda")
+    before = fa.LAUNCHES["flash_attention"]
+    got = prefill(params, cfg, tok)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == cfg.n_layers
+    want = prefill(params, cfg, tok, backend="torch")
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    cache = init_cache(cfg, 4, 16)
+    plain = {k: v.cpu() for k, v in cache.items()}
+    cpu_params = copy.deepcopy(params).cpu()
+    for i in range(4):
+        logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1])
         want, plain = decode_step(cpu_params, cfg, plain, tok[:, i:i + 1].cpu())
         torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
 

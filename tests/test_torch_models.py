@@ -39,7 +39,7 @@ from repro_torch.models.common import SHAPES
 from repro_torch.models.convert import params_from_jax, to_tensor
 
 ARCHS = all_arch_names()
-SERVED = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b",
+SERVED = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b", "deepseek-moe-16b",
           "llama-3.2-vision-11b", "whisper-small"]
 RNG = np.random.default_rng(11)
 
@@ -102,8 +102,8 @@ def test_shapes_match():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_layer_pattern(arch):
     cfg = get_config(arch, smoke=True)
-    if cfg.family == "moe":
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    if cfg.mla is not None:     # deepseek-v3: MLA waits for a later slice
+        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9b"):
             tt.layer_pattern(cfg)
     else:
         assert tt.layer_pattern(cfg) == jt.layer_pattern(jax_config(arch, smoke=True))

@@ -1,7 +1,9 @@
 """The port's trainer against the JAX package's.
 
 ``make_train_step`` on ``qwen2-smoke`` in f32 over a ``StackedGroup`` of
-p in {2, 4} ranks, against the reference's ``make_train_step`` on a
+p in {2, 4} ranks (and on ``deepseek-moe-smoke``, auto and compressed, at
+p = 2: its loss carries the experts' aux loss, and each rank's shard
+routes its own tokens), against the reference's ``make_train_step`` on a
 p-device host mesh (a subprocess a p, both started together, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=p`` and
 ``JAX_PLATFORMS=cpu``; the reference's initial parameters and losses come
@@ -43,6 +45,9 @@ STEPS = 5
 TRAIN_CASES = [("auto", 1, False, "none"), ("auto", 2, False, "full"),
                ("compressed", 1, False, "none"), ("compressed", 2, False, "full"),
                ("compressed", 1, True, "dots"), ("compressed", 2, True, "full")]
+#: the cases of the moe family, at p = 2 only
+MOE_CASES = [("auto", 1, False, "none"), ("compressed", 2, False, "full")]
+ARCHS = {"dense": "qwen2-0.5b", "moe": "deepseek-moe-16b"}
 
 RUNNER = r'''
 import pickle, sys
@@ -59,9 +64,9 @@ with open(src, "rb") as f:
     job = pickle.load(f)
 p = job["p"]
 mesh = Mesh(np.array(jax.devices()[:p]), ("data",))
-cfg = replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
 out = {}
-for gs, mb, stream, remat in job["cases"]:
+for arch, gs, mb, stream, remat in job["cases"]:
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
     tcfg = TrainConfig(microbatches=mb, remat=remat, grad_sync=gs,
                        stream_grad_sync=stream, dp_axes=("data",),
                        opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=job["steps"]))
@@ -70,19 +75,19 @@ for gs, mb, stream, remat in job["cases"]:
     step = jax.jit(make_train_step(cfg, tcfg, mesh=mesh))
     losses = []
     with mesh:
-        for b in job["batches"]:
+        for b in job["batches"][arch]:
             batch = {k: jax.device_put(jnp.asarray(v), NamedSharding(mesh, P("data")))
                      for k, v in b.items()}
             state, m = step(state, batch)
             losses.append(float(m["loss"]))
-    out[(gs, mb, stream, remat)] = (init, losses)
+    out[(arch, gs, mb, stream, remat)] = (init, losses)
 with open(dst, "wb") as f:
     pickle.dump(out, f)
 '''
 
 
-def _train_batches(p):
-    cfg = get_config("qwen2-0.5b", smoke=True)
+def _train_batches(p, arch=ARCHS["dense"]):
+    cfg = get_config(arch, smoke=True)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2 * p,
                                   seed=p))
     return [data.batch_at(i) for i in range(STEPS)]
@@ -109,9 +114,13 @@ def reference_training(tmp_path_factory):
         procs = {}
         for p in (2, 4):
             src, dst = work / f"in{p}.pkl", work / f"out{p}.pkl"
+            cases = [(ARCHS["dense"], *c) for c in TRAIN_CASES]
+            if p == 2:
+                cases += [(ARCHS["moe"], *c) for c in MOE_CASES]
             with open(src, "wb") as f:
-                pickle.dump({"p": p, "steps": STEPS, "cases": TRAIN_CASES,
-                             "batches": _train_batches(p)}, f)
+                pickle.dump({"p": p, "steps": STEPS, "cases": cases,
+                             "batches": {a: _train_batches(p, a)
+                                         for a in ARCHS.values()}}, f)
             env = dict(os.environ)
             env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={p}"
             env["JAX_PLATFORMS"] = "cpu"
@@ -133,12 +142,9 @@ def reference_training(tmp_path_factory):
         return out
 
 
-@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: "-".join(map(str, c)))
-@pytest.mark.parametrize("p", [2, 4])
-def test_trainer_matches_reference(reference_training, p, case):
+def _port_losses(arch, p, case, init):
     gs, mb, stream, remat = case
-    init, want = reference_training[p][case]
-    cfg = replace(get_config("qwen2-0.5b", smoke=True), dtype="float32")
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
     tcfg = TrainConfig(microbatches=mb, remat=remat, grad_sync=gs,
                        stream_grad_sync=stream,
                        grad_sync_backend="torch" if stream else "cuda",
@@ -149,9 +155,28 @@ def test_trainer_matches_reference(reference_training, p, case):
     state = init_train_state(cfg, tcfg, params=params, group=group)
     step = make_train_step(cfg, tcfg, group=group)
     losses = []
-    for batch in _train_batches(p):
+    for batch in _train_batches(p, arch):
         state, metrics = step(state, batch)
         losses.append(float(metrics["loss"]))
     assert all(np.isfinite(losses))
+    return losses
+
+
+@pytest.mark.parametrize("case", TRAIN_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("p", [2, 4])
+def test_trainer_matches_reference(reference_training, p, case):
+    init, want = reference_training[p][(ARCHS["dense"], *case)]
+    losses = _port_losses(ARCHS["dense"], p, case, init)
+    diff = np.abs(np.array(losses) - np.array(want))
+    assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_moe_trainer_matches_reference(reference_training, case):
+    """deepseek-moe-smoke at p = 2, at the same bound: the loss includes
+    0.01 x the experts' aux loss, and the compressed case's ranks each
+    route their own shard (their own capacity)."""
+    init, want = reference_training[2][(ARCHS["moe"], *case)]
+    losses = _port_losses(ARCHS["moe"], 2, case, init)
     diff = np.abs(np.array(losses) - np.array(want))
     assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)

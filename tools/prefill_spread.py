@@ -1,20 +1,26 @@
 #!/usr/bin/env python3
 """Spread over seeds of the bf16 prefill's "cuda" vs "torch" difference.
 
-    python3 tools/prefill_spread.py
+    python3 tools/prefill_spread.py [--arch zamba2-2.7b]
 
-Runs the prefill that ``chip_smoke.py`` gates, zamba2-2.7b FULL in bf16
-on 2 prompts of 4096 tokens, once for each of seeds 0-7: weights from a
-``torch.Generator`` seeded s, prompts from ``numpy.random.default_rng(s)``
-(seed 0 is the smoke run's).  For each seed it prints, as one JSON line,
-max |logits_cuda - logits_torch| over max |logits_torch| of the
-last-position logits and whether the greedy tokens agree, then a line
-with the largest ratio.  ``chip_smoke.py``'s ``PREFILL_RTOL`` is set from
-that line.  Needs one CUDA card; TF32 is off, as in ``chip_smoke.py``.
+Runs the prefill that ``chip_smoke.py`` gates, a FULL config in bf16 on
+2 prompts of 4096 tokens (zamba2-2.7b by default; ``--arch
+deepseek-moe-16b`` for the moe prefill), once for each of seeds 0-7:
+weights from a ``torch.Generator`` seeded s, prompts from
+``numpy.random.default_rng(s)`` (seed 0 is the smoke run's).  For each
+seed it prints, as one JSON line, max |logits_cuda - logits_torch| over
+max |logits_torch| of the last-position logits and whether the greedy
+tokens agree; for a moe config also, layer by layer, the share of
+tokens whose top-K experts differ between the two backends and the
+share of (token, k) slots kept by one and dropped by the other.  Then a
+line with the largest ratio.  ``chip_smoke.py``'s ``PREFILL_RTOL``
+(zamba2) and ``MOE_PREFILL_RTOL`` are set from that line.  Needs one
+CUDA card; TF32 is off, as in ``chip_smoke.py``.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -22,13 +28,37 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 SEEDS = range(8)
-ARCH, BATCH, SEQ = "zamba2-2.7b", 2, 4096
+BATCH, SEQ = 2, 4096
+
+
+def routed(torch, step, params, tok):
+    """``step(params, tok)`` and each moe layer's routing in call order:
+    [(experts [T, K] sorted, kept [T, K])]."""
+    from repro_torch.models import transformer as tt
+    from repro_torch.models.moe import route
+
+    seen, plain = [], tt.moe_apply
+
+    def recording(p, x, cfg):
+        r, _ = route(p, x.reshape(-1, x.shape[-1]), cfg)
+        K = cfg.moe.top_k
+        seen.append((r.expert.view(-1, K).sort(dim=-1).values, r.keep.view(-1, K)))
+        return plain(p, x, cfg)
+
+    tt.moe_apply = recording
+    try:
+        return step(params, tok), seen
+    finally:
+        tt.moe_apply = plain
 
 
 def main() -> None:
     import numpy as np
     import torch
 
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", default="zamba2-2.7b")
+    arch = ap.parse_args().arch
     if not torch.cuda.is_available():
         sys.exit("prefill_spread: needs a CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -41,7 +71,7 @@ def main() -> None:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    cfg = get_config(ARCH)
+    cfg = get_config(arch)
     step = make_prefill_step(cfg)
     plain_step = make_prefill_step(cfg, backend="torch")
     worst = 0.0
@@ -49,18 +79,25 @@ def main() -> None:
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
         rng = np.random.default_rng(seed)
         tok = torch.from_numpy(rng.integers(0, cfg.vocab, (BATCH, SEQ))).cuda()
-        got = step(params, tok).float()
-        want = plain_step(params, tok).float()
+        got, got_routes = routed(torch, step, params, tok)
+        want, want_routes = routed(torch, plain_step, params, tok)
+        got, want = got.float(), want.float()
         ratio = float((got - want).abs().max() / want.abs().max())
         worst = max(worst, ratio)
-        print(json.dumps({"seed": seed, "cuda_vs_torch_rel": ratio,
-                          "torch_logits_max_abs": float(want.abs().max()),
-                          "same_greedy_token":
-                              (got.argmax(-1) == want.argmax(-1)).tolist()}),
-              flush=True)
-        del params, got, want
+        line = {"seed": seed, "cuda_vs_torch_rel": ratio,
+                "torch_logits_max_abs": float(want.abs().max()),
+                "same_greedy_token": (got.argmax(-1) == want.argmax(-1)).tolist()}
+        if got_routes:
+            line["tokens_routed_otherwise"] = [
+                float((a != b).any(-1).float().mean())
+                for (a, _), (b, _) in zip(got_routes, want_routes)]
+            line["slots_kept_otherwise"] = [
+                float((a != b).float().mean())
+                for (_, a), (_, b) in zip(got_routes, want_routes)]
+        print(json.dumps(line), flush=True)
+        del params, got, want, got_routes, want_routes
         torch.cuda.empty_cache()
-    print(json.dumps({"arch": ARCH, "dtype": cfg.dtype, "batch": BATCH, "seq": SEQ,
+    print(json.dumps({"arch": arch, "dtype": cfg.dtype, "batch": BATCH, "seq": SEQ,
                       "seeds": list(SEEDS), "max_cuda_vs_torch_rel": worst,
                       "card": card}), flush=True)
 
