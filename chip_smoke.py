@@ -187,6 +187,30 @@ running the flash attention kernel:
     prefill equal to its decode: the same next token, logits within 1e-3
     of their scale.
 
+Then deepseek-v3-671b at its full published width (d_model 7168, 128
+heads of multi-head latent attention: q_lora 1536, kv_lora 512, q and k
+heads of 128 nope + 64 rope, v heads of 128; 256 routed experts top-8
+of width 2048 and 1 shared; vocab 129,280; multi-token prediction), cut
+in depth to 2 of its 61 layers (25.22 B parameters in bf16, random from
+the seed), its self-attention on the flash attention kernel's
+tensor-core instance for q/k heads of 192 and v heads of 128:
+
+  * model_kernels (the same line) also holds flash attention against its
+    plain version at its prefill shape (B 2, S 4096, 128 / 128 heads,
+    q/k 192, v 128, causal), timed in bf16 beside SDPA (and the backend
+    SDPA picks) and the bound, with the instance's registers and spills;
+    and in f32, the CUDA-core kernel, timed the same way;
+  * prefill_mla, decode_mla, prefill_mla_f32: as the moe phases above,
+    2 flash attention launches at the 192-wide key, last-position
+    logits within MLA_PREFILL_RTOL of the "torch" backend's scale;
+    decode through the absorbed MLA over the compressed cache (C = 1 a
+    step); the f32 check on 1 layer (54.9 GB) and 2 x 1024 tokens;
+  * loss_mtp: ``loss_fn`` with its MTP term on 1 layer at full width in
+    bf16, backend "torch", 2 x 512 tokens, forward and backward: ce, aux
+    and mtp finite beside ln V, every gradient finite, the MTP leaves'
+    not 0; its time and peak (no optimizer: AdamW's moments would not
+    fit beside 55 GB of weights and gradients).
+
 Matrix products run with TF32 off (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 
@@ -324,6 +348,25 @@ MOE_ARCH, MOE_F32_LAYERS = "deepseek-moe-16b", 2
 #: layer 27) on an NVIDIA H100 80GB HBM3 at 700 W; the limit is twice the
 #: largest.  The f32 prefill is the tight check of the same path.
 MOE_PREFILL_RTOL = 0.4
+#: deepseek-v3-671b (moe with multi-head latent attention and MTP) at full
+#: width, random bf16 weights from the seed, cut in depth to 2 of its 61
+#: layers: each keeps its 256 experts of 2048 and the shared one, so 2
+#: layers are 25.22 B parameters, 50.4 GB in bf16 (3 would be 73.5 GB).
+#: Its f32 check runs 1 layer (54.9 GB) on 2 x 1024 tokens.  The MTP loss
+#: runs 1 layer in bf16 on 2 x 512 tokens, forward and backward: weights
+#: and gradients are 55 GB, and AdamW's moments would not fit beside them.
+MLA_ARCH, MLA_LAYERS, MLA_F32_LAYERS, MLA_F32_SEQ = "deepseek-v3-671b", 2, 1, 1024
+MTP_LAYERS, MTP_B, MTP_S = 1, 2, 512
+#: The flash attention instance MLA's bf16 prefill runs (q/k 192, v 128),
+#: by its ptxas name.
+MLA_INSTANCE = "flash_fwd_mma_kernelI13__nv_bfloat16Li12ELi16ELb1EE"
+#: "cuda" vs "torch" prefill of the 2-layer bf16 deepseek-v3, as
+#: MOE_PREFILL_RTOL.  tools/prefill_spread.py --arch deepseek-v3-671b
+#: --layers 2 measured max |logits - plain| / max |plain| at 0.0074-0.140
+#: over seeds 0-7 (0.0074 at seed 0, this run's; tokens routed otherwise
+#: 0.7-1.1 % at layer 0, 5.3-6.0 % at layer 1) on an NVIDIA H100 80GB
+#: HBM3 at 700 W; the limit is twice the largest, rounded up.
+MLA_PREFILL_RTOL = 0.3
 #: The training path: Qwen2-0.5B at full width over 4 stacked ranks, global
 #: batch 8 of 1024 tokens, 3 steps.  By the shapes, the sync holds about 4
 #: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
@@ -863,18 +906,21 @@ def bound_ms(flops: float, nbytes: float, peak: float):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def attn_work(B, S, H, Hkv, hd, causal, window, itemsize, Skv=None):
+def attn_work(B, S, H, Hkv, hd, causal, window, itemsize, Skv=None, hd_v=None):
     """FLOPs of attention of S queries over Skv keys (default S) on the
     (query, key) pairs it must see (all S * Skv; causal, S == Skv: the
-    triangle, cut by the window) -- q.k and p.v, 2 * hd each a pair --
-    and the bytes of q, k, v read once and out written once."""
+    triangle, cut by the window) -- q.k, 2 * hd a pair, and p.v, 2 * hd_v
+    (default hd) -- and the bytes of q, k, v read once and out written
+    once."""
     Skv = S if Skv is None else Skv
+    hd_v = hd if hd_v is None else hd_v
     if not causal:
         pairs = S * Skv
     else:
         w = min(window or S, S)
         pairs = w * (w + 1) // 2 + (S - w) * w
-    return 4 * B * H * hd * pairs, itemsize * B * hd * (2 * H * S + 2 * Hkv * Skv)
+    return (2 * B * H * (hd + hd_v) * pairs,
+            itemsize * B * (hd + hd_v) * (H * S + Hkv * Skv))
 
 
 def scan_work(B, S, H, P, G, N, chunk):
@@ -891,17 +937,33 @@ def scan_work(B, S, H, P, G, N, chunk):
     return B * per_row, 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H)
 
 
+def sdpa_backend(torch, q, k, v, causal: bool, gqa: bool):
+    """The backend ``scaled_dot_product_attention`` picks for these
+    operands (its dispatcher's own choice), or None where this torch does
+    not say."""
+    try:
+        from torch.nn.attention import SDPBackend
+
+        names = {int(m.value): n for n, m in SDPBackend.__members__.items()}
+        return names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+                                                      enable_gqa=gqa)))
+    except (AttributeError, ImportError, RuntimeError, TypeError):
+        return None
+
+
 def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
-                      timed: bool, Skv=None):
-    """flash_attention of S queries over Skv keys (default S) vs its plain
-    version on the same random q, k, v; timed: also kernel, plain and
-    library (scaled_dot_product_attention, no window only) times and the
-    bound.  Returns the record."""
+                      timed: bool, Skv=None, hd_v=None):
+    """flash_attention of S queries over Skv keys (default S), values of
+    hd_v (default hd), vs its plain version on the same random q, k, v;
+    timed: also kernel, plain and library (scaled_dot_product_attention,
+    no window only, with the backend it picks) times and the bound.
+    Returns the record."""
     import torch.nn.functional as F
 
     Skv = S if Skv is None else Skv
-    q, k, v = (torch.randn((B, s, h, hd), generator=g, device="cuda").to(dtype)
-               for s, h in ((S, H), (Skv, Hkv), (Skv, Hkv)))
+    hd_v = hd if hd_v is None else hd_v
+    q, k, v = (torch.randn((B, s, h, w), generator=g, device="cuda").to(dtype)
+               for s, h, w in ((S, H, hd), (Skv, Hkv, hd), (Skv, Hkv, hd_v)))
     got = fa.flash_attention(q, k, v, causal=causal, window=window)
     want = fa.blocked_attention(q, k, v, causal, window)
     name = str(dtype).removeprefix("torch.")
@@ -910,7 +972,7 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
     check(torch.allclose(got.float(), want.float(), atol=atol, rtol=rtol),
           f"flash_attention != plain at {B, S, Skv, H, Hkv, hd} {name} "
           f"causal={causal} window={window}: max abs {err}")
-    rec = {"shape": [B, S, H, Hkv, hd], "seq_kv": Skv, "dtype": name,
+    rec = {"shape": [B, S, H, Hkv, hd], "seq_kv": Skv, "hd_v": hd_v, "dtype": name,
            "causal": causal, "window": window, "max_abs_err": err,
            "max_abs_plain": float(want.float().abs().max()),
            "atol": atol, "rtol": rtol}
@@ -918,7 +980,7 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
     if not timed:
         return rec
     flops, nbytes = attn_work(B, S, H, Hkv, hd, causal, window, q.element_size(),
-                              Skv)
+                              Skv, hd_v)
     rec["bound_ms"], rec["bound_by"] = bound_ms(flops, nbytes, PEAK_FLOPS[name])
     rec.update(flops=flops, bytes=nbytes,
                ms=cuda_ms(torch, lambda: fa.flash_attention(q, k, v, causal=causal,
@@ -927,12 +989,14 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
                                                                     window), 3))
     rec["tflops"] = flops / rec["ms"] * 1e-9
     # the kernel's own tensor-core work: q.k once, p.v twice (P split hi + lo)
-    rec["bound_ms_split_p"] = 1.5 * flops / PEAK_FLOPS[name] * 1e3
-    rec["library_ms"] = None
+    rec["bound_ms_split_p"] = (flops * (hd + 2 * hd_v) / (hd + hd_v)
+                               / PEAK_FLOPS[name] * 1e3)
+    rec["library_ms"] = rec["library_backend"] = None
     if window is None:
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         rec["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 10)
+        rec["library_backend"] = sdpa_backend(torch, qt, kt, vt, causal, H != Hkv)
     return rec
 
 
@@ -2390,11 +2454,11 @@ def train_phases(torch, np, card, kmods, g) -> dict:
     return launches
 
 
-def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
+def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     """The model kernels against their plain versions, then zamba2-2.7b's
     prefill and a continuous-batching serve loop at full width, and the
     prefill again in f32.  Fills ``launches`` and ``kern`` for the two
-    kernels."""
+    kernels; ``ptx``: the build's registers and spills by kernel."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
@@ -2456,6 +2520,27 @@ def model_phases(torch, np, card, kmods, g, launches, kern) -> None:
     torch.cuda.empty_cache()
     attn_cases.append(dict(compare_attention(torch, fa, g, *moe_args, f32, timed=False),
                            case=f"{MOE_ARCH} prefill"))
+    torch.cuda.empty_cache()
+    # deepseek-v3's MLA self-attention: 128 heads, q and k of 192 (128 nope +
+    # 64 rope), v of 128: bf16 on the tensor-core instance sized to them,
+    # timed beside SDPA and the bound; f32 (the CUDA-core kernel) timed too
+    check(MLA_INSTANCE in ptx, f"the build reports no {MLA_INSTANCE}")
+    mla = get_config(MLA_ARCH)
+    mla_args = (PREFILL_B, PREFILL_S, mla.n_heads, mla.n_kv_heads,
+                mla.mla.qk_nope_dim + mla.mla.qk_rope_dim, True, None)
+    rec = dict(compare_attention(torch, fa, g, *mla_args, bf16, timed=True,
+                                 hd_v=mla.mla.v_head_dim),
+               case=f"{MLA_ARCH} prefill", instance=MLA_INSTANCE, **ptx[MLA_INSTANCE])
+    attn_cases.append(rec)
+    torch.cuda.empty_cache()
+    simt = dict(compare_attention(torch, fa, g, *mla_args, f32, timed=True,
+                                  hd_v=mla.mla.v_head_dim),
+                case=f"{MLA_ARCH} prefill", instance="flash_fwd_simt_kernelIfEE")
+    attn_cases.append(simt)
+    kern["flash_attention@mla_self"] = dict(
+        rec, kernel="flash_attention", path="prefill_mla", f32_simt_ms=simt["ms"],
+        f32_plain_ms=simt["plain_ms"], f32_library_ms=simt["library_ms"],
+        f32_library_backend=simt["library_backend"])
     torch.cuda.empty_cache()
     scan = compare_scan(torch, ss, g, PREFILL_B, PREFILL_S, H_ssm, s.head_dim,
                         s.n_groups, s.d_state, s.chunk, timed=True)
@@ -2847,16 +2932,26 @@ def memory_model_phases(torch, np, card, kmods, launches, kern) -> None:
 def moe_flops(cfg, B, S) -> dict:
     """The prefill's operations by part, from the shapes: each expert's
     SwiGLU over its padded E x C rows (and, for comparison, over the
-    T x K real slots), the shared experts, the attention projections and
-    attention itself (the causal triangle), per layer times its layers;
-    the router's f32 product apart (it runs outside the tensor cores)."""
+    T x K real slots), the shared experts, the attention projections (GQA,
+    or MLA's down, up and output projections) and attention itself (the
+    causal triangle), per layer times its layers; the router's f32
+    product apart (it runs outside the tensor cores)."""
     from repro_torch.models.moe import capacity
 
     mo, d, L, T = cfg.moe, cfg.d_model, cfg.n_layers, B * S
     swiglu = 2 * 3 * d * mo.d_expert             # a row of one expert, 3 products
-    hd = cfg.hd
-    proj = 2 * T * d * (2 * cfg.n_heads * hd + 2 * cfg.n_kv_heads * hd)
-    attn, _ = attn_work(B, S, cfg.n_heads, cfg.n_kv_heads, hd, True, None, 2)
+    H, m = cfg.n_heads, cfg.mla
+    if m is None:
+        hd = cfg.hd
+        proj = 2 * T * d * (2 * H * hd + 2 * cfg.n_kv_heads * hd)
+        attn, _ = attn_work(B, S, H, cfg.n_kv_heads, hd, True, None, 2)
+    else:
+        qk = m.qk_nope_dim + m.qk_rope_dim
+        proj = 2 * T * (d * m.q_lora_rank + m.q_lora_rank * H * qk
+                        + d * (m.kv_lora_rank + m.qk_rope_dim)
+                        + m.kv_lora_rank * H * (m.qk_nope_dim + m.v_head_dim)
+                        + H * m.v_head_dim * d)
+        attn, _ = attn_work(B, S, H, H, qk, True, None, 2, hd_v=m.v_head_dim)
     return {"routed_padded": L * swiglu * mo.n_experts * capacity(cfg, T),
             "routed_real": L * swiglu * T * mo.top_k,
             "shared": L * swiglu * mo.n_shared * T,
@@ -2934,22 +3029,45 @@ def nodrop_agreement(torch, params, cfg, prompts) -> list:
     return agree
 
 
-def moe_phases(torch, np, card, kmods, launches, kern) -> None:
-    """deepseek-moe-16b at full width: the bf16 prefill of 2 x 4096 tokens
-    ("cuda" against "torch", 28 flash attention launches, the moe block
-    timed alone by stage, the dropped slots), a continuous-batching serve
-    loop, the first tokens of a no-drop variant against its prefill, and
-    a 2-layer f32 prefill."""
+def mtp_params(cfg) -> int:
+    """Parameters outside ``param_count()`` besides ``ln_f``: with MTP, the
+    ``attn`` block ``mtp`` (GQA, two norms, a SwiGLU of d_ff) and
+    ``mtp_proj`` [2d, d]."""
+    if not cfg.mtp:
+        return 0
+    d, hd = cfg.d_model, cfg.hd
+    gqa = d * (cfg.n_heads + 2 * cfg.n_kv_heads) * hd + cfg.n_heads * hd * d
+    return gqa + 2 * d + 3 * d * cfg.d_ff + 2 * d * d
+
+
+def moe_phases(torch, np, card, kmods, launches, kern, arch=MOE_ARCH, layers=None,
+               f32_layers=MOE_F32_LAYERS, f32_seq=PREFILL_S,
+               rtol=MOE_PREFILL_RTOL) -> None:
+    """A moe config at full width (deepseek-moe-16b: phases ``*_moe``; with
+    MLA, deepseek-v3: ``*_mla``), cut to ``layers`` layers when given: the
+    bf16 prefill of 2 x 4096 tokens ("cuda" against "torch" within
+    ``rtol``, one flash attention launch a layer, the moe block timed
+    alone by stage, the dropped slots), a continuous-batching serve loop,
+    the first tokens of a no-drop variant against its prefill, and an
+    f32 prefill of ``f32_layers`` layers on ``f32_seq`` tokens a prompt."""
     from repro_torch.configs import get_config
     from repro_torch.models import decode_step, init_cache, init_params, layer_pattern
     from repro_torch.models import moe as tm
     from repro_torch.models.layers import swiglu_apply
     from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
 
-    cfg = get_config(MOE_ARCH)
+    cfg = get_config(arch)
+    published = cfg.n_layers
+    if layers is not None:
+        cfg = replace(cfg, n_layers=layers)
+    tag = "moe" if cfg.mla is None else "mla"
+    key = f"flash_attention@{tag}_self"
     mo = cfg.moe
     pattern, R, _ = layer_pattern(cfg)
     expect = {"flash_attention": R * len(pattern)}
+    hd_q = cfg.hd if cfg.mla is None else cfg.mla.qk_nope_dim + cfg.mla.qk_rope_dim
+    by_shape = {(True, PREFILL_S, PREFILL_S, cfg.n_heads, cfg.n_kv_heads, hd_q):
+                expect["flash_attention"]}
     rng = np.random.default_rng(SEED)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).cuda()
 
@@ -2963,24 +3081,28 @@ def moe_phases(torch, np, card, kmods, launches, kern) -> None:
     init_s = time.perf_counter() - t0
     n_params = sum(p.numel() for p in params.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
-    check(n_params == cfg.param_count() + cfg.d_model,
-          f"{MOE_ARCH}: {n_params} parameters, param_count() + ln_f "
-          f"{cfg.param_count() + cfg.d_model}")
+    outside = cfg.d_model + mtp_params(cfg)
+    check(n_params == cfg.param_count() + outside,
+          f"{arch}: {n_params} parameters, param_count() + ln_f (+ MTP) "
+          f"{cfg.param_count() + outside}")
     step = make_prefill_step(cfg)
     plain_step = make_prefill_step(cfg, backend="torch")
     logits, got = counted_run(torch, kmods, lambda: step(params, tok))
-    check(got == expect, f"{MOE_ARCH} prefill launches {got} != {expect}")
-    launches["flash_attention@moe_self"] = got["flash_attention"]
-    kern["flash_attention@moe_self"]["path_launches"] = got["flash_attention"]
+    check(got == expect, f"{arch} prefill launches {got} != {expect}")
+    got_by_shape = shape_launches(kmods)
+    check(got_by_shape == by_shape,
+          f"{arch} prefill launches by shape {got_by_shape} != {by_shape}")
+    launches[key] = got["flash_attention"]
+    kern[key]["path_launches"] = got["flash_attention"]
     check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
-          f"{MOE_ARCH} prefill logits {tuple(logits.shape)} not finite or misshapen")
+          f"{arch} prefill logits {tuple(logits.shape)} not finite or misshapen")
     plain, got = counted_run(torch, kmods, lambda: plain_step(params, tok))
     check(got == {}, f"the torch backend launched {got}")
     diff = float((logits.float() - plain.float()).abs().max())
     scale = float(plain.float().abs().max())
-    check(diff <= MOE_PREFILL_RTOL * scale,
-          f"{MOE_ARCH} prefill: cuda backend differs from torch by {diff} "
+    check(diff <= rtol * scale,
+          f"{arch} prefill: cuda backend differs from torch by {diff} "
           f"(scale {scale})")
     same_top = (logits.argmax(-1) == plain.argmax(-1)).tolist()
     del plain
@@ -3014,16 +3136,21 @@ def moe_phases(torch, np, card, kmods, launches, kern) -> None:
                      if k not in ("routed_real", "router_f32"))
     ops_ms = (bf16_flops / PEAK_FLOPS["bfloat16"]
               + flops["router_f32"] / PEAK_FLOPS["float32"]) * 1e3
-    attn_ms = kern["flash_attention@moe_self"]["ms"] * expect["flash_attention"]
-    emit({"phase": "prefill_moe", "arch": MOE_ARCH, "dtype": cfg.dtype,
-          "n_layers": cfg.n_layers, "batch": PREFILL_B, "seq": PREFILL_S,
+    attn_ms = kern[key]["ms"] * expect["flash_attention"]
+    emit({"phase": f"prefill_{tag}", "arch": arch, "dtype": cfg.dtype,
+          "n_layers": cfg.n_layers, "published_layers": published,
+          "cut": None if layers is None else f"{layers} of {published} layers, "
+                                             "each at full width",
+          "batch": PREFILL_B, "seq": PREFILL_S, "launches_by_shape": {
+              str(list(k)): v for k, v in got_by_shape.items()},
           "experts": mo.n_experts, "top_k": mo.top_k, "shared": mo.n_shared,
           "capacity": tm.capacity(cfg, PREFILL_B * PREFILL_S),
           "params": n_params, "param_count": cfg.param_count(),
+          "params_outside_param_count": outside,
           "weight_bytes": weight_bytes, "init_s": init_s,
           "launches": expect, "finite": True,
           "cuda_vs_torch_max_abs": diff, "torch_logits_max_abs": scale,
-          "cuda_vs_torch_rel": diff / scale, "tolerance_rel": MOE_PREFILL_RTOL,
+          "cuda_vs_torch_rel": diff / scale, "tolerance_rel": rtol,
           "same_greedy_token": same_top,
           "ms": pre_ms, "ms_runs": pre_runs,
           "tokens_per_s": PREFILL_B * PREFILL_S / pre_ms * 1e3,
@@ -3060,29 +3187,31 @@ def moe_phases(torch, np, card, kmods, launches, kern) -> None:
     (reqs, steps), got = counted_run(torch, kmods, lambda: serve_all(cfg))
     dec_s = time.perf_counter() - t0
     check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
-          f"{MOE_ARCH} serve: a request did not finish with its tokens")
-    check(got == {}, f"{MOE_ARCH} serve (decode only) launched {got}")
+          f"{arch} serve: a request did not finish with its tokens")
+    check(got == {}, f"{arch} serve (decode only) launched {got}")
     dec_peak = torch.cuda.max_memory_allocated()
     with moe_drops(torch) as seen:
         again, _ = serve_all(cfg)
     dec_drops = drop_share(seen)
+    del seen                    # its "first" holds a block of the model
     check([r.out for r in again] == [r.out for r in reqs],
-          f"{MOE_ARCH} serve: a second run gave other tokens")
+          f"{arch} serve: a second run gave other tokens")
     cache = init_cache(cfg, SERVE_SLOTS, SERVE_MAX_SEQ)
     step_ops = torch_calls(torch, lambda: decode_step(
         params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
                                        device="cuda")))
     cache_bytes = sum(v.numel() * v.element_size() for v in cache.values())
     del cache
-    # a step reads every weight but the embedding table (B rows of it)
-    # and every cache
+    # a step reads every weight but the embedding table (B rows of it) and
+    # the MTP block and projection (training only), and every cache
     step_bytes = weight_bytes - params.embed.numel() * params.embed.element_size() \
-        + cache_bytes
+        - mtp_params(cfg) * params.embed.element_size() + cache_bytes
 
     # no-drop variant (C = T): each prompt's prefill against its decode, a
     # finding in bf16 (routing flips with rounding), checked in f32 below
     agree = nodrop_agreement(torch, params, cfg, prompts)
-    emit({"phase": "decode_moe", "arch": MOE_ARCH, "batch_slots": SERVE_SLOTS,
+    emit({"phase": f"decode_{tag}", "arch": arch, "n_layers": cfg.n_layers,
+          "batch_slots": SERVE_SLOTS,
           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS,
           "prompt_lens": [len(p) for p in prompts], "max_new": SERVE_NEW,
           "all_done": True, "engine_steps": steps, "seconds": dec_s,
@@ -3100,18 +3229,18 @@ def moe_phases(torch, np, card, kmods, launches, kern) -> None:
     del params, step, plain_step
     torch.cuda.empty_cache()
 
-    # the prefill in f32, 2 layers at full width: "cuda" against "torch";
-    # the no-drop variant's prefill against its decode
-    cfg32 = replace(cfg, dtype="float32", n_layers=MOE_F32_LAYERS)
+    # the prefill in f32, f32_layers layers at full width: "cuda" against
+    # "torch"; the no-drop variant's prefill against its decode
+    cfg32 = replace(cfg, dtype="float32", n_layers=f32_layers)
+    tok = tok[:, :f32_seq].contiguous()
     params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED))
     logits, got = counted_run(torch, kmods, lambda: make_prefill_step(cfg32)(params, tok))
-    check(got == {"flash_attention": MOE_F32_LAYERS},
-          f"{MOE_ARCH} f32 prefill launches {got}")
+    check(got == {"flash_attention": f32_layers}, f"{arch} f32 prefill launches {got}")
     plain = make_prefill_step(cfg32, backend="torch")(params, tok)
     diff = float((logits - plain).abs().max())
     scale = float(plain.abs().max())
     check(bool(torch.isfinite(logits).all()) and diff <= PREFILL_RTOL_F32 * scale,
-          f"{MOE_ARCH} f32 prefill: cuda backend differs from torch by {diff} "
+          f"{arch} f32 prefill: cuda backend differs from torch by {diff} "
           f"(scale {scale})")
     same_top = (logits.argmax(-1) == plain.argmax(-1)).tolist()
     del logits, plain
@@ -3119,15 +3248,92 @@ def moe_phases(torch, np, card, kmods, launches, kern) -> None:
     check(all(a["prefill_first_token"] == a["decode_first_token"]
               and a["prefill_vs_decode_logits_max_abs"]
               <= PREFILL_RTOL_F32 * a["logits_max_abs"] for a in agree),
-          f"{MOE_ARCH} f32 no-drop variant: a prefill differs from its decode: "
+          f"{arch} f32 no-drop variant: a prefill differs from its decode: "
           f"{agree}")
-    emit({"phase": "prefill_moe_f32", "arch": MOE_ARCH, "dtype": "float32",
-          "n_layers": MOE_F32_LAYERS, "batch": PREFILL_B, "seq": PREFILL_S,
+    emit({"phase": f"prefill_{tag}_f32", "arch": arch, "dtype": "float32",
+          "n_layers": f32_layers, "published_layers": published,
+          "cut": f"{f32_layers} of {published} layers, each at full width",
+          "batch": PREFILL_B, "seq": f32_seq,
           "launches": got, "cuda_vs_torch_max_abs": diff,
           "torch_logits_max_abs": scale, "tolerance_rel": PREFILL_RTOL_F32,
           "same_greedy_token": same_top, "nodrop_first_tokens": agree,
           "nodrop_first_tokens_equal": True, "card": card})
     del params
+    torch.cuda.empty_cache()
+
+
+def mtp_loss_phase(torch, np, card, kmods) -> None:
+    """deepseek-v3's training loss with its multi-token-prediction term, at
+    full width cut to MTP_LAYERS layer, bf16, through the plain attention
+    (``backend="torch"``: the kernels have no backward): forward and
+    backward on MTP_B x MTP_S tokens.  ce, aux and mtp finite, the loss
+    their weighted sum, every gradient finite and the MTP leaves' not 0."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import loss_fn
+
+    cfg = replace(get_config(MLA_ARCH), n_layers=MTP_LAYERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    names = [n for n, _ in params.named_parameters()]
+    leaves = [p.requires_grad_() for p in params.parameters()]
+    weight_bytes = sum(p.numel() * p.element_size() for p in leaves)
+    rng = np.random.default_rng(SEED)
+    tokens = rng.integers(0, cfg.vocab, (MTP_B, MTP_S))
+    labels = np.concatenate([tokens[:, 1:], np.full((MTP_B, 1), -100)], axis=1)
+    batch = {"tokens": torch.from_numpy(tokens).cuda(),
+             "labels": torch.from_numpy(labels).cuda()}
+
+    def step():
+        loss, metrics = loss_fn(params, cfg, batch, backend="torch")
+        grads = torch.autograd.grad(loss, leaves)
+        return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},
+                grads)
+
+    (loss, metrics, grads), got = counted_run(torch, kmods, step)
+    peak = torch.cuda.max_memory_allocated()
+    check(got == {}, f"{MLA_ARCH} loss launched {got}")
+    check(math.isfinite(loss) and all(map(math.isfinite, metrics.values()))
+          and set(metrics) == {"ce", "aux", "mtp"},
+          f"{MLA_ARCH} loss {loss} metrics {metrics}")
+    parts = metrics["ce"] + 0.3 * metrics["mtp"] + 0.01 * metrics["aux"]
+    check(abs(loss - parts) <= 1e-5 * abs(parts),
+          f"{MLA_ARCH} loss {loss} != ce + 0.3 mtp + 0.01 aux = {parts}")
+    torch.cuda.empty_cache()
+    # in slices of 2^26 elements: a whole expert stack's mask would be 3.5 GB
+    check(all(bool(torch.isfinite(c).all()) for g in grads
+              for c in g.view(-1).split(1 << 26)),
+          f"{MLA_ARCH}: a gradient is not finite")
+    mtp_grads = {n: float(g.abs().max()) for n, g in zip(names, grads)
+                 if n.startswith("mtp")}
+    check(len(mtp_grads) == 10 and all(v > 0 for v in mtp_grads.values()),
+          f"{MLA_ARCH}: the MTP leaves' gradients {mtp_grads}")
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads)
+    del grads
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        del out
+        torch.cuda.empty_cache()
+    published = get_config(MLA_ARCH).n_layers
+    emit({"phase": "loss_mtp", "arch": MLA_ARCH, "dtype": cfg.dtype,
+          "n_layers": MTP_LAYERS, "published_layers": published,
+          "cut": f"{MTP_LAYERS} of {published} layers, each at full width; no optimizer",
+          "batch": MTP_B, "seq": MTP_S, "backend": "torch", "launches": got,
+          "loss": loss, **metrics, "ln_vocab": math.log(cfg.vocab),
+          "finite": True, "mtp_grad_max_abs": mtp_grads,
+          "params": sum(p.numel() for p in leaves), "weight_bytes": weight_bytes,
+          "grad_bytes": grad_bytes, "ms": sorted(times)[1], "ms_runs": times,
+          "tokens_per_s": MTP_B * MTP_S / sorted(times)[1] * 1e3,
+          "max_memory_allocated": peak, "memory_allocated_at_start": start,
+          "peak_above_start": peak - start, "card": card})
+    del params, leaves, batch
     torch.cuda.empty_cache()
 
 
@@ -3152,6 +3358,7 @@ def main() -> None:
         verify_bundle,
     )
     from repro_torch.core.comm import _forward_rounds as forward_rounds
+    from repro_torch.core.engine import plan_cache_clear
     from repro_torch.core.comm import _roll as roll_rows
     from repro_torch.kernels import _build, ref
     from repro_torch.kernels import block_pack as bp
@@ -3187,12 +3394,13 @@ def main() -> None:
     build_s = time.perf_counter() - t0
     ptxas = [ln.strip() for log in logs.values() for ln in log.splitlines()
              if "registers" in ln or "spill" in ln or "Compiling entry" in ln]
+    ptx = model_kernel_ptxas(ptxas)
     emit({"phase": "build", "seconds": build_s, "nvcc": _build.nvcc_path(),
           "ptxas_lines": len(ptxas),
           "max_registers": max(int(ln.split("Used ")[1].split()[0])
                                for ln in ptxas if "registers" in ln),
           "spills": sorted({ln for ln in ptxas if "spill" in ln}),
-          "model_kernels": model_kernel_ptxas(ptxas)})
+          "model_kernels": ptx})
 
     # 3. kernels vs plain versions on the card
     n = optimal_num_blocks_bcast(P, PAYLOAD_BYTES, DEFAULT_MODEL)
@@ -3779,14 +3987,25 @@ def main() -> None:
     train = train_phases(torch, np, card, kmods, g)
     torch.cuda.empty_cache()
 
-    # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop
-    model_phases(torch, np, card, kmods, g, launches, kern)
+    # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop;
+    #        the collectives' cached plans (their device slot tables, ~6 GB
+    #        at p = 1152) are not used past this point
+    plan_cache_clear()
+    torch.cuda.empty_cache()
+    model_phases(torch, np, card, kmods, g, launches, kern, ptx)
 
     # 13b. llama-3.2-vision-11b and whisper-small: prefill and decode
     memory_model_phases(torch, np, card, kmods, launches, kern)
 
     # 13c. deepseek-moe-16b: prefill and decode
     moe_phases(torch, np, card, kmods, launches, kern)
+
+    # 13d. deepseek-v3-671b cut to 2 layers: MLA prefill, absorbed decode,
+    #      the f32 check; then the training loss with its MTP term
+    moe_phases(torch, np, card, kmods, launches, kern, arch=MLA_ARCH,
+               layers=MLA_LAYERS, f32_layers=MLA_F32_LAYERS, f32_seq=MLA_F32_SEQ,
+               rtol=MLA_PREFILL_RTOL)
+    mtp_loss_phase(torch, np, card, kmods)
 
     # 14. the whole run's wall time, then the kernels line, each kernel
     #     with the launch count of its path

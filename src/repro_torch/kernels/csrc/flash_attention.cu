@@ -21,11 +21,13 @@
 // block owns a block of 64 query rows of one (head, batch row) and walks the
 // key blocks in a loop, with m, l and acc in registers.  Two kernels:
 //
-// flash_fwd_mma_kernel, bf16 and f16 with hd <= 128 (the model's path).  Four
-// warps, 16 query rows each.  Q is loaded once and kept in registers as
-// mma A fragments; K and V tiles of 64 keys arrive through a ring of two
-// stages in shared memory, filled by 16-byte cp.async copies, the next tile
-// in flight while the current one is consumed.  Q.K^T and P.V are
+// flash_fwd_mma_kernel, bf16 and f16 with hd <= 128, or hd 192 with hd_v
+// 128 (multi-head latent attention: 128 nope + 64 rope columns of q and k,
+// 128 of v), the model's path.  Four warps, 16 query rows each.  Q is
+// loaded once and kept in registers as mma A fragments; K and V tiles of 64
+// keys arrive through a ring of two stages in shared memory, filled by
+// 16-byte cp.async copies, the next tile in flight while the current one is
+// consumed.  Q.K^T and P.V are
 // mma.sync.m16n8k16 with f32 accumulators, fed by ldmatrix (.trans for V)
 // from rows padded by 16 bytes, so the eight rows of each 8 x 8 matrix fall
 // in distinct banks.  The scores stay in registers: the online softmax takes
@@ -39,14 +41,18 @@
 // is exact in the f32 sum.  Ragged head widths (5, 40, 72, 80) are zero
 // padded in shared memory to a multiple of 16; a row past the sequence
 // reads as zero.  Causal query blocks are issued last block first, so the
-// longest start first.  Heads of 64 and 80 get kernels whose tile counts are
-// compile-time constants; registers are bounded for three blocks an SM.
+// longest start first.  Heads of 64 and 80, and MLA's 192/128, get kernels
+// whose tile counts are compile-time constants; registers are bounded for
+// three blocks an SM, or for two at MLA's widths, whose Q fragments (12
+// tiles of 16 columns) do not fit the three-block bound of ~170 registers.
+// MLA's two stages of K [64][200] and V [64][136] with Q [64][200] take
+// 109 KB of shared memory, two blocks an SM.
 // Rows that are not a multiple of 8 elements, or operands not on 16-byte
 // boundaries, take a plain load path into the same tiles.
 //
-// flash_fwd_simt_kernel, f32 (and bf16/f16 heads wider than 128): products
-// in f32 FMAs on the CUDA cores, from f32 copies of the tiles in shared
-// memory.  A single TF32 pass cannot hold the f32 tolerance (2e-5).  256
+// flash_fwd_simt_kernel, f32 (and bf16/f16 heads wider than 128 but MLA's
+// pair): products in f32 FMAs on the CUDA cores, from f32 copies of the
+// tiles in shared memory.  A single TF32 pass cannot hold the f32 tolerance (2e-5).  256
 // threads as a 16 x 16 grid: thread (ty, tx) owns query rows ty + 16r
 // (r < 4), the score columns tx + 16c (c < 4) of each 64-key block, and the
 // output columns tx + 16c (c < 8, so hd_v <= 128).  A row's 16 owners sit in
@@ -364,8 +370,10 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ 
 // KT: 16-column tiles of hd kept as Q fragments; NT: 8-column tiles of the
 // output.  EXACT: hd and hd_v take exactly KT and NT tiles, so every loop has
 // a compile-time count; else loops run to these bounds with runtime guards.
+// Blocks an SM: three up to KT 8, two above (MLA's KT 12 takes 255
+// registers with no spill).
 template <typename T, int KT, int NT, bool EXACT>
-__global__ void __launch_bounds__(kMmaThreads, 3)
+__global__ void __launch_bounds__(kMmaThreads, KT > 8 ? 2 : 3)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ out, Dims d, int vec) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -594,14 +602,23 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int64_t B
   return (int)cudaGetLastError();
 }
 
-// The tensor-core kernel for hd, hd_v <= 128: widths of 64 and 80 (the
-// model zoo's) get kernels sized to them, any other the widest.
+// MLA's widths: q and k heads of 177-192 (deepseek-v3's 192), v heads of
+// 121-128, which the tensor-core kernel takes in 12 and 16 tiles.
+bool mla_widths(int64_t hd, int64_t hd_v) {
+  return (hd + 15) / 16 == 12 && (hd_v + 15) / 16 * 2 == 16;
+}
+
+// The tensor-core kernel for hd, hd_v <= 128 and for MLA's widths: widths of
+// 64 and 80 (the model zoo's) and MLA's get kernels sized to them, any other
+// the widest of hd <= 128.
 template <typename T>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int64_t B,
               const Dims& d, cudaStream_t stream) {
   const int64_t kts = (d.hd + 15) / 16, nts = (d.hd_v + 15) / 16 * 2;
   if (kts == 4 && nts == 8) return launch_mma<T, 4, 8, true>(q, k, v, out, B, d, stream);
   if (kts == 5 && nts == 10) return launch_mma<T, 5, 10, true>(q, k, v, out, B, d, stream);
+  if (mla_widths(d.hd, d.hd_v))
+    return launch_mma<T, 12, 16, true>(q, k, v, out, B, d, stream);
   return launch_mma<T, 8, 16, false>(q, k, v, out, B, d, stream);
 }
 
@@ -625,12 +642,13 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Dims d{Sq, Skv, H, Hkv, hd, hd_v, seq_kv, window, causal,
                (float)(1.0 / sqrt((double)hd))};  // as the reference's scale
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool tc = hd <= 128 || mla_widths(hd, hd_v);
   switch (dtype) {
     case 0: return launch_simt<float>(q, k, v, out, B, d, s);
-    case 1: return hd <= 128 ? launch_tc<__nv_bfloat16>(q, k, v, out, B, d, s)
-                             : launch_simt<__nv_bfloat16>(q, k, v, out, B, d, s);
-    case 2: return hd <= 128 ? launch_tc<__half>(q, k, v, out, B, d, s)
-                             : launch_simt<__half>(q, k, v, out, B, d, s);
+    case 1: return tc ? launch_tc<__nv_bfloat16>(q, k, v, out, B, d, s)
+                      : launch_simt<__nv_bfloat16>(q, k, v, out, B, d, s);
+    case 2: return tc ? launch_tc<__half>(q, k, v, out, B, d, s)
+                      : launch_simt<__half>(q, k, v, out, B, d, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

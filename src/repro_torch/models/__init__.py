@@ -1,6 +1,7 @@
 """Models of the port: the dense, ssm, hybrid, vlm, encdec and moe
-families' serving path (:mod:`.transformer`), built from :mod:`.layers`,
-GQA and cross-attention (:mod:`.attention`), the Mamba2 block
+families' serving path and training loss (:mod:`.transformer`), built
+from :mod:`.layers`, GQA, cross-attention and multi-head latent
+attention (:mod:`.attention`), the Mamba2 block
 (:mod:`.ssm`) and the mixture-of-experts block (:mod:`.moe`), with the
 configuration dataclasses (:mod:`.common`) and the bridge that carries
 the JAX reference's weights across (:mod:`.convert`)."""

@@ -1,7 +1,7 @@
 """Grouped-query self-attention with RoPE, causal and sliding-window
-masks, and cross-attention to a memory.
+masks, cross-attention to a memory, and multi-head latent attention.
 
-Port of the GQA and cross-attention parts of ``repro.models.attention``.
+Port of ``repro.models.attention``.
 The full-sequence path (:func:`gqa_full`, train and prefill) and
 cross-attention (:func:`cross_attn_apply`, the vlm and encdec families,
 in prefill and in decode) run the hand-written CUDA flash attention on a
@@ -11,8 +11,16 @@ blocked online softmax (also what the kernel's wrapper runs on a CPU
 tensor) with the reference's O(S)-memory backward, an
 ``autograd.Function`` in place of its ``custom_vjp``.  Decode's
 self-attention (:func:`gqa_decode`) attends a fixed-size cache with
-position masks, in plain torch as in the reference.  MLA (deepseek-v3)
-waits for a later slice (``ROADMAP.md``).
+position masks, in plain torch as in the reference.
+
+Multi-head latent attention (:class:`MLA`, deepseek-v3) compresses keys
+and values into a latent ``c_kv`` of ``kv_lora_rank`` plus one shared
+RoPE key of ``qk_rope_dim``.  Its full-sequence path (:func:`mla_full`)
+materializes per-head keys of ``qk_nope_dim + qk_rope_dim`` (192 in
+deepseek-v3) and values of ``v_head_dim`` (128), and runs the same
+kernel, whose tensor cores take that pair of widths; its decode
+(:func:`mla_decode`) is the reference's absorbed form over the
+compressed cache, plain torch.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from ..kernels.flash_attention import (
 )
 from ..kernels.flash_attention import blocked_attention as blocked_forward
 from .common import ModelConfig
-from .layers import apply_rope, dense_init, param
+from .layers import apply_rope, dense_init, init_rms_norm, param, rms_norm
 
 BACKENDS = ("cuda", "torch")
 
@@ -244,3 +252,105 @@ def cross_attn_apply(p: CrossAttention, x, memory, cfg: ModelConfig, *,
     else:
         o = blocked_attention(q, k, v, False)
     return o.reshape(B, S, cfg.n_heads * hd) @ p.wo
+
+
+# ------------------------------------------------------------------ MLA
+
+
+class MLA(nn.Module):
+    """Multi-head latent attention: ``w_dq`` [d, q_lora], ``q_norm``
+    [q_lora] f32, ``w_uq`` [q_lora, H*(nope+rope)], ``w_dkv`` [d, kv_lora],
+    ``kv_norm`` [kv_lora] f32, ``w_kr`` [d, rope], ``w_uk`` [kv_lora,
+    H*nope], ``w_uv`` [kv_lora, H*v] and ``wo`` [H*v, d]."""
+
+    def __init__(self, gen: torch.Generator, cfg: ModelConfig, dtype, device=None):
+        super().__init__()
+        m, d, H = cfg.mla, cfg.d_model, cfg.n_heads
+        dev = device or gen.device
+        self.w_dq = dense_init(gen, d, m.q_lora_rank, dtype, device=dev)
+        self.q_norm = init_rms_norm(m.q_lora_rank, dev)
+        self.w_uq = dense_init(gen, m.q_lora_rank, H * (m.qk_nope_dim + m.qk_rope_dim),
+                               dtype, device=dev)
+        self.w_dkv = dense_init(gen, d, m.kv_lora_rank, dtype, device=dev)
+        self.kv_norm = init_rms_norm(m.kv_lora_rank, dev)
+        self.w_kr = dense_init(gen, d, m.qk_rope_dim, dtype, device=dev)
+        self.w_uk = dense_init(gen, m.kv_lora_rank, H * m.qk_nope_dim, dtype, device=dev)
+        self.w_uv = dense_init(gen, m.kv_lora_rank, H * m.v_head_dim, dtype, device=dev)
+        self.wo = dense_init(gen, H * m.v_head_dim, d, dtype, device=dev)
+
+
+def _mla_q(p: MLA, x, cfg: ModelConfig, positions):
+    """The queries' (nope, rope) parts, [B, S, H, nope] and [B, S, H, rope],
+    the rope part rotated."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    cq = rms_norm(x @ p.w_dq, p.q_norm, cfg.norm_eps)
+    qall = (cq @ p.w_uq).reshape(B, S, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim)
+    q_nope, q_rope = qall[..., :m.qk_nope_dim], qall[..., m.qk_nope_dim:]
+    return q_nope, apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(p: MLA, x, cfg: ModelConfig, positions):
+    """What the cache holds of x: the normed latent ``c_kv`` [B, S, kv_lora]
+    and the rotated shared key ``k_rope`` [B, S, 1, rope]."""
+    c_kv = rms_norm(x @ p.w_dkv, p.kv_norm, cfg.norm_eps)
+    k_rope = apply_rope((x @ p.w_kr)[:, :, None, :], positions, cfg.rope_theta)
+    return c_kv, k_rope
+
+
+def mla_full(p: MLA, x, cfg: ModelConfig, positions, *, causal=True,
+             backend: str = "cuda"):
+    """Materialized MLA for train and prefill -> ([B, S, d], (c_kv, k_rope)
+    for the cache, [B, S, kv_lora] and [B, S, rope]).  q and k are
+    ``cat(nope, rope)`` per head (the rope key shared by every head), v is
+    ``c_kv @ w_uv``; ``backend`` as :func:`gqa_full`'s."""
+    check_backend(backend)
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    k_nope = (c_kv @ p.w_uk).reshape(B, S, H, m.qk_nope_dim)
+    v = (c_kv @ p.w_uv).reshape(B, S, H, m.v_head_dim)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, m.qk_rope_dim)], dim=-1)
+    if backend == "cuda":
+        o = flash_attention(q, k, v, causal=causal)
+    else:
+        o = blocked_attention(q, k, v, causal)
+    o = o.reshape(B, S, H * m.v_head_dim) @ p.wo
+    return o, (c_kv, k_rope[:, :, 0])
+
+
+def mla_decode(p: MLA, x, cfg: ModelConfig, cache_ckv, cache_kr, pos):
+    """One-token MLA decode in the absorbed form, over the compressed
+    cache: cache_ckv [B, S, kv_lora], cache_kr [B, S, rope].  Scores are
+    taken in latent space (``q_nope`` absorbs ``w_uk``, the output
+    absorbs ``w_uv``), so no per-head key or value is made.  Writes the
+    new rows in place (dropped at ``pos >= S``) and returns (out,
+    cache_ckv, cache_kr).  Types as the reference's: the absorbed query
+    in x's dtype, both score products and the weighted latent sum in
+    f32, the latent output cast to x's dtype before ``w_uv``."""
+    m = cfg.mla
+    B = x.shape[0]
+    H = cfg.n_heads
+    S = cache_ckv.shape[1]
+    pos = torch.as_tensor(pos, device=x.device).expand(B)
+    positions = pos[:, None]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)             # [B, 1, H, *]
+    c_kv, k_rope = _mla_latent(p, x, cfg, positions)
+    write_rows(cache_ckv, pos, c_kv[:, 0])
+    write_rows(cache_kr, pos, k_rope[:, 0, 0])
+    w_uk = p.w_uk.reshape(m.kv_lora_rank, H, m.qk_nope_dim)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)      # absorb w_uk
+    s = torch.einsum("bqhr,bkr->bhqk", q_lat.float(), cache_ckv.float())
+    s = s + torch.einsum("bqhn,bkn->bhqk", q_rope.float(), cache_kr.float())
+    s = s / math.sqrt(m.qk_nope_dim + m.qk_rope_dim)
+    mask = torch.arange(S, device=x.device)[None, :] <= pos[:, None]   # [B, S]
+    s = torch.where(mask[:, None, None, :], s, NEG_INF)
+    w = torch.softmax(s, dim=-1)
+    o_lat = torch.einsum("bhqk,bkr->bqhr", w, cache_ckv.float())
+    w_uv = p.w_uv.reshape(m.kv_lora_rank, H, m.v_head_dim)
+    o = torch.einsum("bqhr,rhv->bqhv", o_lat.to(x.dtype), w_uv)
+    o = o.reshape(B, 1, H * m.v_head_dim) @ p.wo
+    return o, cache_ckv, cache_kr

@@ -5,7 +5,9 @@ The reference keeps parameters as a pytree of arrays with each pattern
 position's layers stacked over R (``params["pos{i}"]``) and the
 encoder's over its depth (``params["enc"]``); the port keeps
 ``R * len(pattern)`` layer modules in execution order (``layers.N``) and
-the encoder's in a list of its own (``enc.N``).
+the encoder's in a list of its own (``enc.N``).  The other blocks (the
+hybrid family's ``shared_attn``, deepseek-v3's ``mtp`` and
+``mtp_proj``) are one leaf each in both, not stacked.
 :func:`params_from_jax` and :func:`cache_from_jax` take the reference's
 pytree with its leaves as NumPy arrays (``np.asarray`` of each JAX array;
 bfloat16 arrives as the ``ml_dtypes`` type) and fill the port's

@@ -60,7 +60,10 @@ class MoE(nn.Module):
         self.router = dense_init(gen, d, E, torch.float32, device=dev)
 
         def experts(d_in, d_out):
-            w = torch.randn((E, d_in, d_out), generator=gen, device=dev) / np.sqrt(d_in)
+            # scaled in place: one f32 copy of an expert stack at a time
+            # (deepseek-v3's is 15 GB)
+            w = torch.randn((E, d_in, d_out), generator=gen, device=dev)
+            w /= np.sqrt(d_in)
             return param(w.to(dtype))
 
         self.w_gate, self.w_up, self.w_down = experts(d, f), experts(d, f), experts(f, d)

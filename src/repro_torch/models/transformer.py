@@ -15,6 +15,8 @@ repeats:
                (whisper)
   moe          ['attn_moe']        x n_layers     (deepseek-moe: GQA,
                then a mixture of experts in place of the MLP, :mod:`.moe`)
+  moe + MLA    ['mla_moe']         x n_layers     (deepseek-v3: multi-head
+               latent attention, then the mixture of experts)
 
 The vlm and encdec families read a *memory*: the stub frontend's image
 or audio embeddings ``memory_embeds`` [B, T, d], projected by
@@ -32,10 +34,12 @@ keeps the parameters in the reference's stacked layout and binds views
 of them into a model (:mod:`repro_torch.models.convert`); :func:`loss_fn`
 differentiates through them, with each super-block checkpointed
 (``remat="full"``) or its matrix products saved (``"dots"``).  Each
-``attn_moe`` layer adds its load-balancing loss to the aux sum that
-:func:`forward_hidden` returns and :func:`loss_fn` weighs by 0.01.  MLA
-(the moe family with ``cfg.mla``, deepseek-v3) and MTP wait for later
-slices (``ROADMAP.md``).
+``attn_moe`` and ``mla_moe`` layer adds its load-balancing loss to the
+aux sum that :func:`forward_hidden` returns and :func:`loss_fn` weighs
+by 0.01.  An ``mla_moe`` layer's decode cache is the compressed one,
+``c_kv`` and the shared RoPE key.  With ``cfg.mtp`` (deepseek-v3) the
+model also holds the depth-1 multi-token-prediction block ``mtp`` and
+its input projection ``mtp_proj``, which only :func:`loss_fn` uses.
 """
 
 from __future__ import annotations
@@ -44,6 +48,7 @@ from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import (
     CheckpointPolicy,
@@ -54,11 +59,14 @@ from torch.utils.checkpoint import (
 from ..core.comm import resolve_device
 from .attention import (
     GQA,
+    MLA,
     CrossAttention,
     check_backend,
     cross_attn_apply,
     gqa_decode,
     gqa_full,
+    mla_decode,
+    mla_full,
 )
 from .common import ModelConfig
 from .layers import (
@@ -99,16 +107,14 @@ def layer_pattern(cfg: ModelConfig) -> Tuple[List[str], int, bool]:
     if cfg.family == "encdec":
         return ["dec"], cfg.n_layers, False
     if cfg.family == "moe":
-        if cfg.mla is not None:
-            raise NotImplementedError(
-                "multi-head latent attention (the moe family with mla, "
-                "deepseek-v3) is not ported yet (ROADMAP.md Queue 1 item 9b)")
-        return ["attn_moe"], cfg.n_layers, False
+        return ["mla_moe" if cfg.mla is not None else "attn_moe"], cfg.n_layers, False
     raise ValueError(cfg.family)
 
 
 #: The families whose forward pass and decode read a memory.
 MEMORY_FAMILIES = ("vlm", "encdec")
+#: The layers whose MLP is a mixture of experts.
+MOE_LAYERS = ("attn_moe", "mla_moe")
 
 
 # ---------------------------------------------------------------- init
@@ -117,10 +123,11 @@ MEMORY_FAMILIES = ("vlm", "encdec")
 class Block(nn.Module):
     """One layer, with the reference's parameter names: ``attn`` and
     ``enc`` (``ln1``, ``attn``, ``ln2``, ``mlp``: SwiGLU, or GELU in the
-    encoder), ``attn_moe`` (``ln1``, ``attn``, ``ln2``, ``moe``), ``ssm``
-    (``ln1``, ``ssm``), ``xattn`` (``ln1``, ``xattn``, ``gate`` [1] f32
-    zeros, ``ln2``, a SwiGLU ``mlp``) or ``dec`` (``ln1``, ``attn``,
-    ``lnx``, ``xattn``, ``ln2``, a GELU ``mlp``)."""
+    encoder), ``attn_moe`` and ``mla_moe`` (``ln1``, ``attn``: GQA or
+    MLA, ``ln2``, ``moe``), ``ssm`` (``ln1``, ``ssm``), ``xattn``
+    (``ln1``, ``xattn``, ``gate`` [1] f32 zeros, ``ln2``, a SwiGLU
+    ``mlp``) or ``dec`` (``ln1``, ``attn``, ``lnx``, ``xattn``, ``ln2``,
+    a GELU ``mlp``)."""
 
     def __init__(self, gen: torch.Generator, typ: str, cfg: ModelConfig, dtype,
                  device=None):
@@ -133,6 +140,8 @@ class Block(nn.Module):
             return
         if typ in ("attn", "enc", "dec", "attn_moe"):
             self.attn = GQA(gen, cfg, dtype, dev)
+        elif typ == "mla_moe":
+            self.attn = MLA(gen, cfg, dtype, dev)
         elif typ != "xattn":
             raise ValueError(typ)
         if typ == "dec":
@@ -142,7 +151,7 @@ class Block(nn.Module):
         if typ == "xattn":
             self.gate = param(torch.zeros((1,), dtype=torch.float32, device=dev))
         self.ln2 = init_rms_norm(d, dev)
-        if typ == "attn_moe":
+        if typ in MOE_LAYERS:
             self.moe = MoE(gen, cfg, dtype, dev)
             return
         mlp = GeluMLP if typ in ("enc", "dec") else SwiGLU
@@ -153,7 +162,8 @@ class Model(nn.Module):
     """``embed`` [V, d], ``ln_f``, ``unembed`` [V, d] (None when tied), the
     layers in execution order, the hybrid family's ``shared_attn``, the
     encdec family's encoder ``enc`` (``encoder_layers`` blocks) and
-    ``enc_ln_f``, and the vlm family's ``img_proj`` [d, d]."""
+    ``enc_ln_f``, the vlm family's ``img_proj`` [d, d], and with
+    ``cfg.mtp`` the ``attn`` block ``mtp`` and ``mtp_proj`` [2d, d]."""
 
     def __init__(self, cfg: ModelConfig, gen: torch.Generator, device=None):
         super().__init__()
@@ -174,6 +184,10 @@ class Model(nn.Module):
             self.enc_ln_f = init_rms_norm(cfg.d_model, dev)
         if cfg.family == "vlm":
             self.img_proj = embed_init(gen, cfg.d_model, cfg.d_model, dtype, dev)
+        self.mtp = self.mtp_proj = None
+        if cfg.mtp:
+            self.mtp = Block(gen, "attn", cfg, dtype, dev)
+            self.mtp_proj = embed_init(gen, 2 * cfg.d_model, cfg.d_model, dtype, dev)
 
 
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None, *,
@@ -217,16 +231,17 @@ def _gated_cross(p: Block, x, memory, cfg: ModelConfig, backend: str):
 
 def _apply_layer(p: Block, x, cfg: ModelConfig, positions, memory, backend: str):
     """One layer over the whole sequence -> (x, the layer's aux loss: a
-    tensor for ``attn_moe``, else None)."""
+    tensor for ``attn_moe`` and ``mla_moe``, else None)."""
     if p.typ == "ssm":
         return x + ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
                              backend=backend), None
     if p.typ == "xattn":
         return _gated_cross(p, x, memory, cfg, backend), None
-    h, _ = gqa_full(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
-                    causal=p.typ != "enc", backend=backend)
+    attn = mla_full if p.typ == "mla_moe" else gqa_full
+    h, _ = attn(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg, positions,
+                causal=p.typ != "enc", backend=backend)
     x = x + h
-    if p.typ == "attn_moe":
+    if p.typ in MOE_LAYERS:
         h, aux = moe_apply(p.moe, rms_norm(x, p.ln2, cfg.norm_eps), cfg)
         return x + h, aux
     if p.typ == "dec":
@@ -288,8 +303,8 @@ def forward_hidden(params: Model, cfg: ModelConfig, tokens, *,
                    memory_embeds=None, backend: str = "cuda",
                    remat: str = "none") -> Tuple[torch.Tensor, torch.Tensor]:
     """Backbone forward: tokens [B, S] -> (hidden [B, S, d], aux_loss):
-    the f32 sum of the ``attn_moe`` layers' load-balancing losses (0
-    without them).
+    the f32 sum of the moe layers' load-balancing losses (0 without
+    them).
     ``memory_embeds`` [B, T, d]: the stub frontend's image (vlm) or audio
     frame (encdec) embeddings, which those families need.
     ``backend="cuda"`` runs attention and the SSD scan in the CUDA kernels
@@ -344,17 +359,33 @@ def loss_fn(params: Model, cfg: ModelConfig, batch, *, remat: str = "none",
     """The training loss of ``batch`` ({"tokens", "labels"}, [B, S] each;
     label -100 is ignored; "memory_embeds" for the vlm and encdec
     families): ``(ce + 0.01 * aux, {"ce", "aux"})``, the cross entropy
-    through the chunked LM head.  ``backend="torch"`` (the
-    default) differentiates; the CUDA kernels have no backward."""
-    if cfg.mtp:
-        raise NotImplementedError(
-            "multi-token prediction (deepseek-v3) is not ported yet "
-            "(ROADMAP.md Queue 1 item 9c)")
-    hidden, aux = forward_hidden(params, cfg, batch["tokens"],
+    through the chunked LM head.  With ``cfg.mtp`` the loss adds 0.3 x
+    the depth-1 multi-token-prediction term, ``metrics["mtp"]``: the
+    ``mtp`` block, run on ``mtp_proj`` of the final hidden state beside
+    the next token's embedding (each through ``ln_f`` again, as the
+    reference does), predicts the token after next.
+    ``backend="torch"`` (the default) differentiates; the CUDA kernels
+    have no backward."""
+    tokens, labels = batch["tokens"], batch["labels"]
+    hidden, aux = forward_hidden(params, cfg, tokens,
                                  memory_embeds=batch.get("memory_embeds"),
                                  backend=backend, remat=remat)
-    loss = chunked_softmax_xent(hidden, _table(params), batch["labels"])
-    return loss + 0.01 * aux, {"ce": loss, "aux": aux}
+    table = _table(params)
+    loss = chunked_softmax_xent(hidden, table, labels)
+    metrics = {"ce": loss, "aux": aux}
+    if cfg.mtp:
+        B, S = tokens.shape
+        emb_next = embed_apply(params.embed, F.pad(tokens[:, 1:], (0, 1)))
+        h_in = torch.cat([rms_norm(hidden, params.ln_f, cfg.norm_eps),
+                          rms_norm(emb_next, params.ln_f, cfg.norm_eps)],
+                         dim=-1) @ params.mtp_proj
+        positions = torch.arange(S, device=hidden.device).expand(B, S)
+        h_mtp, _ = _apply_layer(params.mtp, h_in, cfg, positions, None, backend)
+        labels_mtp = F.pad(labels[:, 1:], (0, 1), value=-100)
+        mtp_loss = chunked_softmax_xent(h_mtp, table, labels_mtp)
+        loss = loss + 0.3 * mtp_loss
+        metrics["mtp"] = mtp_loss
+    return loss + 0.01 * aux, metrics
 
 
 def prefill(params: Model, cfg: ModelConfig, tokens, *, memory_embeds=None,
@@ -373,6 +404,8 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
                device=None) -> Dict[str, torch.Tensor]:
     """Decode cache, stacked [R, ...] per pattern position: ``pos{i}_k`` /
     ``pos{i}_v`` [R, B, seq, Hkv, hd] (``attn``, ``attn_moe``, ``dec``),
+    ``pos{i}_ckv`` [R, B, seq, kv_lora] and ``pos{i}_kr`` [R, B, seq, rope]
+    (``mla_moe``: the compressed latent and the shared RoPE key),
     ``pos{i}_conv`` [R, B, d_conv-1, channels] and ``pos{i}_ssd``
     [R, B, H, N, P] f32 (ssm), nothing for ``xattn``, ``shared_k``/
     ``shared_v`` (hybrid), ``pos_idx`` [B] int32, each slot's next
@@ -394,6 +427,9 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
     for i, typ in enumerate(pattern):
         if typ in ("attn", "attn_moe", "dec"):
             cache[f"pos{i}_k"], cache[f"pos{i}_v"] = kv(), kv()
+        elif typ == "mla_moe":
+            cache[f"pos{i}_ckv"] = zeros((R, batch, seq, cfg.mla.kv_lora_rank))
+            cache[f"pos{i}_kr"] = zeros((R, batch, seq, cfg.mla.qk_rope_dim))
         elif typ == "ssm":
             d_in = s.expand * cfg.d_model
             cch = d_in + 2 * s.n_groups * s.d_state
@@ -410,9 +446,10 @@ def init_cache(cfg: ModelConfig, batch: int, seq: int, *, memory=None,
 def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos,
                   memory):
     """One-token decode through one layer, its cache rows updated in place.
-    Cross-attention runs the flash attention kernel on a CUDA tensor.  An
-    ``attn_moe`` layer routes the step's B tokens together: its capacity
-    follows B, and the slots compete for it."""
+    Cross-attention runs the flash attention kernel on a CUDA tensor.  A
+    moe layer routes the step's B tokens together: its capacity follows
+    B, and the slots compete for it.  An ``mla_moe`` layer attends its
+    compressed cache in the absorbed form."""
     if p.typ == "ssm":
         y, _, _ = ssm_block(p.ssm, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
                             conv_state=cache[f"{prefix}_conv"][r],
@@ -420,10 +457,14 @@ def _decode_layer(p: Block, x, cfg: ModelConfig, cache, prefix: str, r: int, pos
         return x + y
     if p.typ == "xattn":
         return _gated_cross(p, x, memory, cfg, "cuda")
-    h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
-                         cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
+    if p.typ == "mla_moe":
+        h, _, _ = mla_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                             cache[f"{prefix}_ckv"][r], cache[f"{prefix}_kr"][r], pos)
+    else:
+        h, _, _ = gqa_decode(p.attn, rms_norm(x, p.ln1, cfg.norm_eps), cfg,
+                             cache[f"{prefix}_k"][r], cache[f"{prefix}_v"][r], pos)
     x = x + h
-    if p.typ == "attn_moe":
+    if p.typ in MOE_LAYERS:
         h, _ = moe_apply(p.moe, rms_norm(x, p.ln2, cfg.norm_eps), cfg)
         return x + h
     if p.typ == "dec":

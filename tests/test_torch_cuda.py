@@ -644,9 +644,10 @@ def test_flash_attention_mma_edges(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("window", [None, 90], ids=["causal", "window"])
 def test_flash_attention_wide_head_cuda_cores(gen, dtype, window):
-    """bf16/f16 heads wider than 128 run the CUDA-core kernel."""
-    q = torch.randn((1, 230, 4, 192), generator=gen, device="cuda").to(dtype)
-    k = torch.randn((1, 230, 2, 192), generator=gen, device="cuda").to(dtype)
+    """bf16/f16 heads wider than 128 run the CUDA-core kernel (but MLA's
+    192/128 pair, which the tensor cores take: here heads of 160)."""
+    q = torch.randn((1, 230, 4, 160), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((1, 230, 2, 160), generator=gen, device="cuda").to(dtype)
     v = torch.randn((1, 230, 2, 128), generator=gen, device="cuda").to(dtype)
     before = fa.LAUNCHES["flash_attention"]
     out = fa.flash_attention(q, k, v, causal=True, window=window)
@@ -654,6 +655,31 @@ def test_flash_attention_wide_head_cuda_cores(gen, dtype, window):
     assert fa.LAUNCHES["flash_attention"] - before == 1
     assert out.dtype == dtype and out.shape == (1, 230, 4, 128)
     want = fa.blocked_attention(q, k, v, True, window, q_chunk=64, kv_chunk=32)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,hd_v,causal,window", [
+    (1, 64, 2, 2, 192, 128, True, None),     # one block
+    (2, 300, 4, 4, 192, 128, True, None),    # ragged sequence
+    (1, 257, 4, 2, 192, 128, False, None),   # non-causal, GQA, ragged
+    (1, 333, 2, 2, 192, 128, True, 70),      # window straddling tiles
+    (1, 150, 3, 3, 184, 120, True, None),    # narrower widths, same tiles
+])
+def test_flash_attention_mla_widths(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
+                                    window):
+    """MLA's widths (q and k heads of 192 = 128 nope + 64 rope, v heads of
+    128) on the tensor-core instance sized to them."""
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd_v), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd_v)
+    want = fa.blocked_attention(q, k, v, causal, window, q_chunk=128, kv_chunk=64)
     atol, rtol = _ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
 
@@ -870,6 +896,36 @@ def test_moe_model_cuda_matches_torch(gen):
         logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1])
         want, plain = decode_step(cpu_params, cfg, plain, tok[:, i:i + 1].cpu())
         torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_mla_model_cuda_matches_torch(gen):
+    """deepseek-v3-smoke in f32: prefill launches one kernel a layer (at
+    MLA's q/k width, nope + rope) and equals the "torch" backend and the
+    CPU; absorbed decode steps over 4 slots (C = 1) equal the CPU's."""
+    cfg = replace(get_config("deepseek-v3-671b", smoke=True), dtype="float32")
+    m = cfg.mla
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    cpu_params = copy.deepcopy(params).cpu()
+    tok = torch.randint(0, cfg.vocab, (4, 70), generator=gen, device="cuda")
+    fa.reset_launches()
+    got = prefill(params, cfg, tok)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES_BY_SHAPE == {
+        (True, 70, 70, cfg.n_heads, cfg.n_heads, m.qk_nope_dim + m.qk_rope_dim):
+        cfg.n_layers}
+    torch.testing.assert_close(got, prefill(params, cfg, tok, backend="torch"),
+                               atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(got.cpu(), prefill(cpu_params, cfg, tok.cpu()),
+                               atol=1e-4, rtol=1e-4)
+    cache = init_cache(cfg, 4, 16)
+    assert set(cache) == {"pos_idx", "pos0_ckv", "pos0_kr"}
+    plain = {k: v.cpu() for k, v in cache.items()}
+    for i in range(4):
+        logits, cache = decode_step(params, cfg, cache, tok[:, i:i + 1])
+        want, plain = decode_step(cpu_params, cfg, plain, tok[:, i:i + 1].cpu())
+        torch.testing.assert_close(logits.cpu(), want, atol=1e-4, rtol=1e-4)
+    for key, value in plain.items():
+        torch.testing.assert_close(cache[key].cpu(), value, atol=1e-5, rtol=1e-5)
 
 
 def test_serve_loop_on_the_card(gen):

@@ -40,7 +40,7 @@ from repro_torch.models.convert import params_from_jax, to_tensor
 
 ARCHS = all_arch_names()
 SERVED = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b", "deepseek-moe-16b",
-          "llama-3.2-vision-11b", "whisper-small"]
+          "llama-3.2-vision-11b", "whisper-small", "deepseek-v3-671b"]
 RNG = np.random.default_rng(11)
 
 
@@ -102,11 +102,7 @@ def test_shapes_match():
 @pytest.mark.parametrize("arch", ARCHS)
 def test_layer_pattern(arch):
     cfg = get_config(arch, smoke=True)
-    if cfg.mla is not None:     # deepseek-v3: MLA waits for a later slice
-        with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 9b"):
-            tt.layer_pattern(cfg)
-    else:
-        assert tt.layer_pattern(cfg) == jt.layer_pattern(jax_config(arch, smoke=True))
+    assert tt.layer_pattern(cfg) == jt.layer_pattern(jax_config(arch, smoke=True))
 
 
 def test_full_zamba2_is_two_point_four_billion_parameters():

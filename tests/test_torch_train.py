@@ -155,12 +155,6 @@ def test_remat_modes_are_bit_equal(arch):
         _port_loss_and_grads(tc, jp, batch, "some")
 
 
-def test_loss_refuses_mtp():
-    tc = replace(get_config("qwen2-0.5b", smoke=True), mtp=True)
-    with pytest.raises(NotImplementedError, match="multi-token"):
-        tt.loss_fn(None, tc, {})
-
-
 @pytest.mark.parametrize("S,chunk", [(24, 512), (37, 16), (64, 16)])
 def test_cross_entropy_matches_reference(S, chunk):
     rng = np.random.default_rng(S)

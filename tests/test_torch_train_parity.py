@@ -1,9 +1,10 @@
 """The port's trainer against the JAX package's.
 
 ``make_train_step`` on ``qwen2-smoke`` in f32 over a ``StackedGroup`` of
-p in {2, 4} ranks (and on ``deepseek-moe-smoke``, auto and compressed, at
-p = 2: its loss carries the experts' aux loss, and each rank's shard
-routes its own tokens), against the reference's ``make_train_step`` on a
+p in {2, 4} ranks (and on ``deepseek-moe-smoke`` and ``deepseek-v3-smoke``,
+auto and compressed, at p = 2: their loss carries the experts' aux loss,
+deepseek-v3's also its multi-token-prediction term through MLA, and each
+rank's shard routes its own tokens), against the reference's ``make_train_step`` on a
 p-device host mesh (a subprocess a p, both started together, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=p`` and
 ``JAX_PLATFORMS=cpu``; the reference's initial parameters and losses come
@@ -45,9 +46,9 @@ STEPS = 5
 TRAIN_CASES = [("auto", 1, False, "none"), ("auto", 2, False, "full"),
                ("compressed", 1, False, "none"), ("compressed", 2, False, "full"),
                ("compressed", 1, True, "dots"), ("compressed", 2, True, "full")]
-#: the cases of the moe family, at p = 2 only
+#: the cases of the moe family (deepseek-moe and deepseek-v3), at p = 2 only
 MOE_CASES = [("auto", 1, False, "none"), ("compressed", 2, False, "full")]
-ARCHS = {"dense": "qwen2-0.5b", "moe": "deepseek-moe-16b"}
+ARCHS = {"dense": "qwen2-0.5b", "moe": "deepseek-moe-16b", "mla": "deepseek-v3-671b"}
 
 RUNNER = r'''
 import pickle, sys
@@ -116,7 +117,7 @@ def reference_training(tmp_path_factory):
             src, dst = work / f"in{p}.pkl", work / f"out{p}.pkl"
             cases = [(ARCHS["dense"], *c) for c in TRAIN_CASES]
             if p == 2:
-                cases += [(ARCHS["moe"], *c) for c in MOE_CASES]
+                cases += [(ARCHS[a], *c) for a in ("moe", "mla") for c in MOE_CASES]
             with open(src, "wb") as f:
                 pickle.dump({"p": p, "steps": STEPS, "cases": cases,
                              "batches": {a: _train_batches(p, a)
@@ -178,5 +179,17 @@ def test_moe_trainer_matches_reference(reference_training, case):
     route their own shard (their own capacity)."""
     init, want = reference_training[2][(ARCHS["moe"], *case)]
     losses = _port_losses(ARCHS["moe"], 2, case, init)
+    diff = np.abs(np.array(losses) - np.array(want))
+    assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=lambda c: "-".join(map(str, c)))
+def test_mla_trainer_matches_reference(reference_training, case):
+    """deepseek-v3-smoke at p = 2, at the same bound: MLA layers with
+    experts, the loss with 0.01 x aux and 0.3 x the MTP term, whose
+    block and projection train with the rest."""
+    init, want = reference_training[2][(ARCHS["mla"], *case)]
+    assert "mtp_proj" in init and "mtp" in init
+    losses = _port_losses(ARCHS["mla"], 2, case, init)
     diff = np.abs(np.array(losses) - np.array(want))
     assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)

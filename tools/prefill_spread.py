@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
 """Spread over seeds of the bf16 prefill's "cuda" vs "torch" difference.
 
-    python3 tools/prefill_spread.py [--arch zamba2-2.7b]
+    python3 tools/prefill_spread.py [--arch zamba2-2.7b] [--layers N]
 
 Runs the prefill that ``chip_smoke.py`` gates, a FULL config in bf16 on
 2 prompts of 4096 tokens (zamba2-2.7b by default; ``--arch
-deepseek-moe-16b`` for the moe prefill), once for each of seeds 0-7:
+deepseek-moe-16b`` for the moe prefill; ``--arch deepseek-v3-671b
+--layers 2`` for the MLA prefill, cut in depth to the first N layers as
+the smoke run cuts it, every layer at full width), once for each of
+seeds 0-7:
 weights from a ``torch.Generator`` seeded s, prompts from
 ``numpy.random.default_rng(s)`` (seed 0 is the smoke run's).  For each
 seed it prints, as one JSON line, max |logits_cuda - logits_torch| over
@@ -14,7 +17,8 @@ tokens agree; for a moe config also, layer by layer, the share of
 tokens whose top-K experts differ between the two backends and the
 share of (token, k) slots kept by one and dropped by the other.  Then a
 line with the largest ratio.  ``chip_smoke.py``'s ``PREFILL_RTOL``
-(zamba2) and ``MOE_PREFILL_RTOL`` are set from that line.  Needs one
+(zamba2), ``MOE_PREFILL_RTOL`` and ``MLA_PREFILL_RTOL`` are set from that
+line.  Needs one
 CUDA card; TF32 is off, as in ``chip_smoke.py``.
 """
 
@@ -24,6 +28,7 @@ import argparse
 import json
 import subprocess
 import sys
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -58,7 +63,10 @@ def main() -> None:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", default="zamba2-2.7b")
-    arch = ap.parse_args().arch
+    ap.add_argument("--layers", type=int, default=None,
+                    help="run the first N layers only (default: all)")
+    args = ap.parse_args()
+    arch = args.arch
     if not torch.cuda.is_available():
         sys.exit("prefill_spread: needs a CUDA device")
     sys.path.insert(0, str(ROOT / "src"))
@@ -72,6 +80,8 @@ def main() -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     cfg = get_config(arch)
+    if args.layers is not None:
+        cfg = replace(cfg, n_layers=args.layers)
     step = make_prefill_step(cfg)
     plain_step = make_prefill_step(cfg, backend="torch")
     worst = 0.0
@@ -97,7 +107,8 @@ def main() -> None:
         print(json.dumps(line), flush=True)
         del params, got, want, got_routes, want_routes
         torch.cuda.empty_cache()
-    print(json.dumps({"arch": arch, "dtype": cfg.dtype, "batch": BATCH, "seq": SEQ,
+    print(json.dumps({"arch": arch, "dtype": cfg.dtype, "n_layers": cfg.n_layers,
+                      "batch": BATCH, "seq": SEQ,
                       "seeds": list(SEEDS), "max_cuda_vs_torch_rel": worst,
                       "card": card}), flush=True)
 
