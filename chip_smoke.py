@@ -105,6 +105,37 @@ weights from the seed) over ``StackedGroup(4)``:
     and the peak memory.  Training runs attention through its plain
     version, as the reference trains through jnp: an auto step launches
     no kernel.
+  * train_launch: the same configuration through the training
+    launcher's entry point, ``repro_torch.launch.train.main`` with the
+    reference's flags (``--mesh 4x1 --grad-sync compressed --global-batch
+    8 --seq 1024 --microbatches 2``) and a temporary checkpoint
+    directory: run 1 trains 4 steps and saves at step 4 (13.8 GB: bf16
+    stored as f32, the [4, bucket] error buckets), run 2 (``--steps 6``)
+    must print "resumed from step 4" and "done: 2 steps", a third call
+    restores the checkpoint into a template on the card that must equal
+    run 1's final state bit for bit, and run 2's step-5 and step-6 losses
+    must lie within 1e-3 x max(1, loss_0) of an uninterrupted 6-step
+    run's (and whether they are bit-equal is reported); each run's
+    round-step launches must be its steps times a compressed step's over
+    its dp ranks, which at 4x1 is the train phase's step; ms a step, tokens/s, the checkpoint's bytes written
+    and read, the host copy's, the write's and the restores' seconds, and
+    the peaks.  With under twice the checkpoint's bytes free under the
+    temporary directory it runs at ``--mesh 2x1`` (one round fewer a
+    sync, so its own launch counts) and says so;
+  * train_encdec: whisper-small at full width trains 2 auto steps and 2
+    compressed steps over ``StackedGroup(4)`` on 8 utterances of 1500
+    frames (seeded f32 normal stub-frontend embeddings) and 8 x 448
+    decoder tokens from ``SyntheticLM``, AdamW at lr 1e-3 with one warm-up
+    step: losses finite, compressed within 1e-3 x max(1, loss_0) of auto,
+    every leaf under ``enc`` and every cross-attention leaf moved by the
+    first step; ms a step, the sync's ms, tokens/s and the peak;
+  * train_vlm: llama-3.2-vision-11b at full width cut to one 5-layer
+    super-block (4 self-attention layers, 1 gated cross-attention layer,
+    gate 0.5; 40 layers with AdamW state would not fit), 2 auto steps on
+    2 prompts of 4096 tokens over 2 x 1601 image embeddings (halved, and
+    said, past a 75 GB peak): losses finite, ``img_proj``, the
+    cross-attention projections and the gate moved by the first step; ms
+    a step, tokens/s and the peak.
 
 Then the serving path of zamba2-2.7b at its full published configuration
 (54 Mamba2 layers and one shared attention block applied after every 6,
@@ -372,6 +403,22 @@ MLA_PREFILL_RTOL = 0.3
 #: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
 #: 32 GB at 4 ranks, twice that at 8, beside the model.
 TRAIN_ARCH, TRAIN_P, TRAIN_B, TRAIN_S, TRAIN_STEPS = "qwen2-0.5b", 4, 8, 1024, 3
+#: The training launcher's mesh for the same configuration (the train
+#: phase's 4 ranks as --mesh 4x1).  Its checkpoint is the state with bf16
+#: stored as f32: 494 M parameters (1.98 GB), two f32 moments (3.95 GB)
+#: and the [4, bucket] f32 error buckets (7.9 GB), 13.8 GB.  With under
+#: twice that free under the temporary directory it runs at 2x1.
+LAUNCH_MESH = "4x1"
+#: The memory families' training: 2 steps each, AdamW at lr 1e-3 with one
+#: warm-up step, so the first step moves every leaf with a gradient (an
+#: f32 norm scale by ~1e-3, a bf16 weight of ~0.02 by ~8 of its steps).
+#: whisper-small trains on ENC_B utterances of 1500 frames and ENC_S
+#: decoder tokens; llama-3.2-vision-11b on PREFILL_B prompts of PREFILL_S
+#: tokens over 1601 image rows, cut to one super-block: 40 layers with
+#: AdamW's f32 moments would be 9.79 B x 12 bytes and more, the super-block
+#: is 2.16 B parameters.  Past a peak of VLM_TRAIN_PEAK bytes the vlm's
+#: tokens are halved.
+MEM_TRAIN_STEPS, MEM_TRAIN_LR, VLM_TRAIN_LAYERS, VLM_TRAIN_PEAK = 2, 1e-3, 5, 75e9
 
 
 def emit(obj) -> None:
@@ -2454,6 +2501,330 @@ def train_phases(torch, np, card, kmods, g) -> dict:
     return launches
 
 
+def launch_train(args):
+    """``repro_torch.launch.train.main(args)`` with its printed lines caught
+    -> (result, lines)."""
+    import io
+
+    from repro_torch.launch import train as launch
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = launch.main(args)
+    return res, buf.getvalue().splitlines()
+
+
+def state_bytes(torch, state) -> int:
+    """The bytes of a state as the checkpoint stores it (bf16 as f32)."""
+    from repro_torch.core.tree import tree_flatten
+
+    return sum(x.numel() * (4 if x.dtype == torch.bfloat16 else x.element_size())
+               for x in tree_flatten(state)[0])
+
+
+def train_launch_phase(torch, np, card, kmods, step_launches) -> dict:
+    """Qwen2-0.5B at full width through ``python -m repro_torch.launch.train``'s
+    ``main`` and the reference's flags: run 1 trains 4 compressed steps over
+    4 stacked ranks and saves at step 4; run 2 (``--steps 6``) resumes from
+    it; a third call restores the checkpoint into a template on the card,
+    which must equal run 1's final state bit for bit; an uninterrupted
+    6-step run without saves gives the losses run 2's must match.  Each
+    run's launches are its steps times a compressed sync's over the mesh's
+    dp ranks; at 4x1 that is ``step_launches``, the train phase's step.
+    Returns the launches a step of the round-step kernels."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_flatten, tree_unflatten
+    from repro_torch.train import CheckpointManager, TrainConfig, train_state_shape
+
+    cfg = get_config(TRAIN_ARCH)
+    work = tempfile.mkdtemp(prefix="train_launch_")
+    try:
+        mesh, note = LAUNCH_MESH, None
+        ckpt_bytes = state_bytes(torch, train_state_shape(
+            cfg, TrainConfig(grad_sync="compressed"), dp=int(mesh.split("x")[0])))
+        free = shutil.disk_usage(work).free
+        if free < 2 * ckpt_bytes:
+            mesh = "2x1"
+            note = (f"{free} bytes free under {work}, under twice the 4x1 "
+                    f"checkpoint's {ckpt_bytes}: run at --mesh 2x1")
+            ckpt_bytes = state_bytes(torch, train_state_shape(
+                cfg, TrainConfig(grad_sync="compressed"), dp=2))
+        dp = int(mesh.split("x")[0])
+        per_step = quantized_launches_of(torch, cfg, dp)
+        check(dp != TRAIN_P or per_step == step_launches,
+              f"train_launch: a step's launches {per_step} != the train phase's "
+              f"{step_launches}")
+        base = ["--arch", TRAIN_ARCH, "--mesh", mesh, "--grad-sync", "compressed",
+                "--global-batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                "--microbatches", "2"]
+        ckdir = str(Path(work) / "ckpt")
+        runs = {}
+
+        def run(name, argv, steps):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            (res, lines), got = counted_run(torch, kmods, lambda: launch_train(argv))
+            expect = {k: v * steps for k, v in per_step.items()}
+            check(got == expect, f"train_launch {name}: launches {got} != {expect} "
+                                 f"({steps} x a compressed step over {dp} ranks)")
+            res["peak"] = torch.cuda.max_memory_allocated()
+            res["lines"] = lines
+            runs[name] = res
+            return res
+
+        first = run("run_1", base + ["--steps", "4", "--ckpt-every", "4",
+                                     "--ckpt-dir", ckdir], 4)
+        check(first["resumed_from"] is None and "done: 4 steps" in first["lines"][-1],
+              f"train_launch run 1: {first['lines']}")
+        leaves, treedef = tree_flatten(first.pop("state"))
+        final1 = [x.cpu() for x in leaves]          # run 1's final state
+        del leaves
+        torch.cuda.empty_cache()
+        written = (Path(ckdir) / "step_0000000004" / "arrays.npz").stat().st_size
+        second = run("run_2", base + ["--steps", "6", "--ckpt-every", "4",
+                                      "--ckpt-dir", ckdir], 2)
+        check("resumed from step 4" in second["lines"]
+              and second["lines"][-1].startswith("done: 2 steps"),
+              f"train_launch run 2 did not resume: {second['lines']}")
+        second.pop("state")
+        torch.cuda.empty_cache()
+        straight = run("uninterrupted", base + ["--steps", "6", "--ckpt-every", "1000",
+                                                "--ckpt-dir", str(Path(work) / "none")], 6)
+        straight.pop("state")
+        torch.cuda.empty_cache()
+
+        # the third call: the checkpoint into a template on the card
+        template = tree_unflatten(treedef, [torch.empty_like(x, device="cuda")
+                                            for x in final1])
+        mgr = CheckpointManager(ckdir, keep=2)
+        step, restored, extra = mgr.restore_latest(template)
+        del template
+        check((step, extra) == (4, {"data_step": 4}),
+              f"train_launch restore: step {step}, extra {extra}")
+        back = tree_flatten(restored)[0]
+        check(all(y.is_cuda and y.dtype == x.dtype and y.shape == x.shape
+                  and torch.equal(bits(torch, x), bits(torch, y.cpu()))
+                  for x, y in zip(final1, back)),
+              "train_launch: the restored state is not run 1's final state")
+        del restored, back, final1
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    loss0 = straight["losses"][1]
+    bound = 1e-3 * max(1.0, loss0)
+    gaps = {s: abs(second["losses"][s] - straight["losses"][s]) for s in (5, 6)}
+    losses = [v for r in runs.values() for v in r["losses"].values()]
+    check(all(math.isfinite(x) for x in losses), f"train_launch: non-finite loss {losses}")
+    check(max(gaps.values()) <= bound,
+          f"train_launch: resumed losses {second['losses']} leave the uninterrupted "
+          f"{straight['losses']} by {gaps}")
+    tokens = TRAIN_B * TRAIN_S
+    ck = first["checkpoint"]
+    out = {"phase": "train_launch", "arch": TRAIN_ARCH, "entry":
+           "repro_torch.launch.train.main", "mesh": mesh, "dp": dp,
+           "note": note, "global_batch": TRAIN_B, "seq": TRAIN_S, "microbatches":
+           first["microbatches"], "remat": "full",
+           "printed": {k: r["lines"] for k, r in runs.items()},
+           "losses": {k: r["losses"] for k, r in runs.items()},
+           "resumed_losses_gap": gaps, "bound": bound,
+           "resumed_equal_uninterrupted_bits": all(
+               second["losses"][s] == straight["losses"][s] for s in (5, 6)),
+           "restored_equal_run_1_final_state": True,
+           "ms_per_step": {k: r["ms_per_step"] for k, r in runs.items()},
+           "tokens_per_s": {k: tokens / (r["ms_per_step"] / 1e3) for k, r in runs.items()},
+           "checkpoint_bytes": ck["save_bytes"], "checkpoint_file_bytes": written,
+           "checkpoint_bytes_from_shapes": ckpt_bytes,
+           "host_copy_s": ck["save_host_copy_s"], "write_s": ck["save_write_s"],
+           "wait_s": ck.get("wait_s"),
+           "restore_s": {"run_2": second["checkpoint"]["restore_s"],
+                         "into_template": mgr.stats["restore_s"]},
+           "bytes_read": second["checkpoint"]["restore_bytes"],
+           "launches_per_step": per_step,
+           "launches_equal_train_phase": per_step == step_launches,
+           "max_memory_allocated": {k: r["peak"] for k, r in runs.items()},
+           "card": card}
+    emit(out)
+    return dict(per_step)
+
+
+def unmoved(torch, before, after, names) -> list:
+    """The names of the leaves whose values did not change."""
+    return [n for n, a, b in zip(names, before, after)
+            if torch.equal(a, b.to(a.device))]
+
+
+def memory_batches(torch, cfg, B, S, steps):
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B, seed=SEED,
+                                  memory_tokens=memory_len(cfg), d_model=cfg.d_model))
+    return [{k: torch.from_numpy(v).cuda() for k, v in data.batch_at(i).items()}
+            for i in range(steps)]
+
+
+def memory_train_run(torch, kmods, cfg, tcfg, group, params, batches, watch,
+                     sync_times):
+    """``make_train_step`` over ``batches`` from a copy of ``params`` ->
+    (per-step records, the watched leaves that did not move in step 1)."""
+    from repro_torch.core.tree import path_key, tree_flatten_with_path
+    from repro_torch.train import init_train_state, make_train_step
+
+    state = init_train_state(cfg, tcfg, params=params, group=group)
+    step = make_train_step(cfg, tcfg, group=group)
+    pairs = [(path_key(p), x) for p, x in tree_flatten_with_path(state["params"])[0]
+             if watch(path_key(p))]
+    names = [n for n, _ in pairs]
+    first = [x.detach().clone() for _, x in pairs]
+    recs, still = [], None
+    for i, batch in enumerate(batches):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sync_times.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (state, m), got = counted_run(torch, kmods, lambda: step(state, batch))
+        ms = (time.perf_counter() - t0) * 1e3
+        rec = {"step": i + 1, "ms": ms, "loss": float(m["loss"]),
+               "grad_norm": float(m["grad_norm"]), "launches": got,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if sync_times:
+            rec["sync_ms"] = sum(sync_times)
+        recs.append(rec)
+        if i == 0:
+            now = [x for n, x in tree_flatten_with_path(state["params"])[0]
+                   if watch(path_key(n))]
+            still = unmoved(torch, first, now, names)
+            del first, now
+    del state
+    torch.cuda.empty_cache()
+    return recs, still, names
+
+
+def memory_train_phases(torch, np, card, kmods) -> dict:
+    """whisper-small at full width (auto and compressed over
+    StackedGroup(TRAIN_P)) and llama-3.2-vision-11b at full width cut to
+    one super-block (auto), trained on the card through
+    ``make_train_step`` with seeded frontend embeddings; every vlm gate
+    0.5.  Returns the round-step launches of a compressed whisper step."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.comm import StackedGroup
+    from repro_torch.optim.adamw import AdamWConfig
+    from repro_torch.train import TrainConfig
+    from repro_torch.train import trainer as trainer_mod
+    from repro_torch.models import init_params
+
+    sync_times = []
+    real_sync = trainer_mod.compressed_grad_sync
+
+    def timed_sync(*a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real_sync(*a, **kw)
+        torch.cuda.synchronize()
+        sync_times.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    opt = AdamWConfig(lr=MEM_TRAIN_LR, warmup_steps=1)
+
+    # --- whisper-small: auto and compressed from the same weights
+    cfg = get_config(ENC_ARCH)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    batches = memory_batches(torch, cfg, ENC_B, ENC_S, MEM_TRAIN_STEPS)
+
+    def enc_watch(name):
+        return name.startswith("enc/") or "/xattn/" in name
+
+    tcfg = TrainConfig(microbatches=2, remat="full", opt=opt)
+    trainer_mod.compressed_grad_sync = timed_sync
+    try:
+        auto, auto_still, watched = memory_train_run(
+            torch, kmods, cfg, tcfg, None, params, batches, enc_watch, sync_times)
+        comp, comp_still, _ = memory_train_run(
+            torch, kmods, cfg, replace(tcfg, grad_sync="compressed"),
+            StackedGroup(TRAIN_P), params, batches, enc_watch, sync_times)
+    finally:
+        trainer_mod.compressed_grad_sync = real_sync
+    del params, batches
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in auto + comp]
+    check(all(math.isfinite(x) for x in losses), f"train_encdec: non-finite loss {losses}")
+    bound = 1e-3 * max(1.0, auto[0]["loss"])
+    gap = max(abs(a["loss"] - c["loss"]) for a, c in zip(auto, comp))
+    check(gap <= bound, f"train_encdec: compressed {[r['loss'] for r in comp]} leave "
+                        f"auto {[r['loss'] for r in auto]} by {gap}")
+    check(not auto_still and not comp_still,
+          f"train_encdec: leaves that did not move in step 1: {auto_still or comp_still}")
+    check(all(not r["launches"] for r in auto), "train_encdec: an auto step launched")
+    expect = quantized_launches_of(torch, cfg, TRAIN_P)
+    check(all(r["launches"] == expect for r in comp),
+          f"train_encdec: compressed launches {[r['launches'] for r in comp]} != {expect}")
+    tokens, frames = ENC_B * ENC_S, ENC_B * memory_len(cfg)
+    for r in auto + comp:
+        r.update(tokens_per_s=tokens / (r["ms"] / 1e3),
+                 frames_per_s=frames / (r["ms"] / 1e3))
+    emit({"phase": "train_encdec", "arch": ENC_ARCH, "params": sum(
+              x.numel() for x in init_params(cfg, device="meta").parameters()),
+          "batch": {"utterances": ENC_B, "frames": memory_len(cfg), "tokens": ENC_S},
+          "microbatches": 2, "remat": "full", "opt": {"lr": opt.lr, "warmup_steps": 1},
+          "p": TRAIN_P, "auto": auto, "compressed": comp, "max_loss_gap": gap,
+          "bound": bound, "watched_leaves": len(watched),
+          "every_enc_and_cross_attention_leaf_moved": True, "card": card})
+
+    # --- llama-3.2-vision-11b, one super-block at full width, auto
+    cfg = replace(get_config(VLM_ARCH), n_layers=VLM_TRAIN_LAYERS)
+    params = gated_params(torch, init_params, cfg)
+    n_params = sum(x.numel() for x in params.parameters())
+
+    def vlm_watch(name):
+        return name == "img_proj" or "/xattn/" in name or name.endswith("/gate")
+
+    S, cut = PREFILL_S, None
+    while True:
+        batches = memory_batches(torch, cfg, PREFILL_B, S, MEM_TRAIN_STEPS)
+        recs, still, watched = memory_train_run(
+            torch, kmods, cfg, TrainConfig(microbatches=1, remat="full", opt=opt),
+            None, params, batches, vlm_watch, sync_times)
+        del batches
+        peak = max(r["max_memory_allocated"] for r in recs)
+        if peak <= VLM_TRAIN_PEAK or S <= 512:
+            break
+        cut = f"peak {peak} bytes at {S} tokens a prompt: halved"
+        S //= 2
+    del params
+    torch.cuda.empty_cache()
+    losses = [r["loss"] for r in recs]
+    check(all(math.isfinite(x) for x in losses), f"train_vlm: non-finite loss {losses}")
+    check(not still, f"train_vlm: leaves that did not move in step 1: {still}")
+    check(all(not r["launches"] for r in recs), "train_vlm: a step launched a kernel")
+    for r in recs:
+        r["tokens_per_s"] = PREFILL_B * S / (r["ms"] / 1e3)
+    emit({"phase": "train_vlm", "arch": VLM_ARCH, "layers": VLM_TRAIN_LAYERS,
+          "cut": f"{VLM_TRAIN_LAYERS} of 40 layers (4 self-attention, 1 gated "
+                 f"cross-attention) at full width: 40 layers with AdamW state "
+                 f"would not fit", "tokens_cut": cut, "params": n_params,
+          "batch": {"prompts": PREFILL_B, "tokens": S, "image_rows": memory_len(cfg)},
+          "microbatches": 1, "remat": "full", "opt": {"lr": opt.lr, "warmup_steps": 1},
+          "gate": XATTN_GATE, "steps": recs, "watched_leaves": watched,
+          "img_proj_and_cross_attention_moved": True, "card": card})
+    return dict(expect)
+
+
+def quantized_launches_of(torch, cfg, p) -> dict:
+    """The round-step launches of one compressed_grad_sync of ``cfg``'s
+    gradient over StackedGroup(p)."""
+    from repro_torch.core.comm import StackedGroup, get_comm
+    from repro_torch.train import TrainConfig, grad_bucket_spec
+
+    spec = grad_bucket_spec(cfg, TrainConfig())
+    plan = get_comm(StackedGroup(p)).plan("quantized_allreduce", [
+        torch.empty((p, s), device="meta") for s in spec.bucket_sizes])
+    return quantized_launches(plan, spec.num_buckets)
+
+
 def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     """The model kernels against their plain versions, then zamba2-2.7b's
     prefill and a continuous-batching serve loop at full width, and the
@@ -3992,6 +4363,16 @@ def main() -> None:
     #        at p = 1152) are not used past this point
     plan_cache_clear()
     torch.cuda.empty_cache()
+
+    # 9c. Qwen2-0.5B through the training launcher: train, save, resume
+    train["train_launch"] = train_launch_phase(torch, np, card, kmods,
+                                               train["train_step"])
+    torch.cuda.empty_cache()
+
+    # 9d. whisper-small and llama-3.2-vision-11b (one super-block) train
+    train["train_encdec"] = memory_train_phases(torch, np, card, kmods)
+    torch.cuda.empty_cache()
+
     model_phases(torch, np, card, kmods, g, launches, kern, ptx)
 
     # 13b. llama-3.2-vision-11b and whisper-small: prefill and decode

@@ -16,6 +16,10 @@ JAX's rules:
   * anything else is a leaf.
 
 A :class:`TreeDef` is hashable and prints as JAX's ``PyTreeDef`` does.
+:func:`tree_flatten_with_path` gives each leaf its key path in the same
+order, of :class:`DictKey`, :class:`SequenceKey` and :class:`GetAttrKey`
+entries that print as ``jax.tree_util``'s; :func:`path_key` renders a
+path as the checkpoint's ``"a/b/0"``.
 """
 
 from __future__ import annotations
@@ -25,7 +29,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, List, Optional, Tuple
 
 __all__ = ["TreeDef", "tree_flatten", "tree_unflatten", "tree_structure",
-           "tree_leaves"]
+           "tree_leaves", "DictKey", "SequenceKey", "GetAttrKey",
+           "tree_flatten_with_path", "path_key"]
 
 _LEAF = "*"
 
@@ -150,3 +155,73 @@ def tree_unflatten(treedef: TreeDef, leaves) -> Any:
         raise ValueError(f"{treedef} takes {treedef.num_leaves} leaves, "
                          f"got {len(leaves)}")
     return _build(treedef.node, iter(leaves))
+
+
+@dataclass(frozen=True)
+class DictKey:
+    """A dict (or ``OrderedDict``, ``defaultdict``) key on a key path."""
+
+    key: Any
+
+    def __str__(self) -> str:
+        return f"[{self.key!r}]"
+
+
+@dataclass(frozen=True)
+class SequenceKey:
+    """A list or tuple index on a key path."""
+
+    idx: int
+
+    def __str__(self) -> str:
+        return f"[{self.idx}]"
+
+
+@dataclass(frozen=True)
+class GetAttrKey:
+    """A namedtuple field on a key path."""
+
+    name: str
+
+    def __str__(self) -> str:
+        return f".{self.name}"
+
+
+def _entries(node) -> list:
+    """The key entries of a node's children, in flatten order."""
+    kind = node[0]
+    if kind in ("dict", "odict"):
+        return [DictKey(k) for k in node[1]]
+    if kind == "ddict":
+        return [DictKey(k) for k in node[2]]
+    if kind == "ntuple":
+        return [GetAttrKey(f) for f in node[1]._fields]
+    return [SequenceKey(i) for i in range(len(node[-1]))]
+
+
+def _paths(node, prefix: tuple, out: list) -> None:
+    if node == _LEAF:
+        out.append(prefix)
+    elif node[0] != "none":
+        for entry, child in zip(_entries(node), node[-1]):
+            _paths(child, prefix + (entry,), out)
+
+
+def tree_flatten_with_path(tree, is_leaf: Optional[Callable[[Any], bool]] = None
+                           ) -> Tuple[List[Tuple[tuple, Any]], TreeDef]:
+    """``([(path, leaf), ...], treedef)`` in :func:`tree_flatten`'s order,
+    as ``jax.tree_util.tree_flatten_with_path``: a path is a tuple of key
+    entries from the root to the leaf."""
+    leaves, treedef = tree_flatten(tree, is_leaf)
+    paths: list = []
+    _paths(treedef.node, (), paths)
+    return list(zip(paths, leaves)), treedef
+
+
+def path_key(path) -> str:
+    """A key path as the checkpoint names its array: each dict key as
+    ``str(key)``, each index as ``str(i)`` (a namedtuple field by its
+    name), joined by ``/``."""
+    return "/".join(str(k.key) if isinstance(k, DictKey) else
+                    str(k.idx) if isinstance(k, SequenceKey) else k.name
+                    for k in path)

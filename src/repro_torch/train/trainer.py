@@ -56,7 +56,7 @@ from ..optim.compression import (
 )
 
 __all__ = ["TrainConfig", "grad_bucket_spec", "init_train_state",
-           "make_train_step", "make_eval_step"]
+           "train_state_shape", "make_train_step", "make_eval_step"]
 
 
 @dataclass(frozen=True)
@@ -118,6 +118,18 @@ def init_train_state(cfg: ModelConfig, tcfg: TrainConfig, generator=None, *,
     if tcfg.grad_sync == "compressed":
         state["gsync_err"] = init_grad_sync_state(
             grad_bucket_spec(cfg, tcfg), _held(group), device=dev)
+    return state
+
+
+def train_state_shape(cfg: ModelConfig, tcfg: TrainConfig, dp: int = 1):
+    """The train state as ``meta`` tensors (shapes and dtypes, no storage;
+    the dry-run path): ``init_train_state`` on ``device="meta"``, the
+    error buckets ``[dp, bucket]``."""
+    state = init_train_state(cfg, tcfg, device="meta")
+    if tcfg.grad_sync == "compressed":
+        state["gsync_err"] = tuple(torch.empty((dp, s), dtype=torch.float32,
+                                               device="meta")
+                                   for s in grad_bucket_spec(cfg, tcfg).bucket_sizes)
     return state
 
 

@@ -1187,3 +1187,84 @@ def test_train_step_sync_backends_agree_on_the_card(gen):
             states[be] = state
         for a, b in zip(tree_flatten(states["cuda"])[0], tree_flatten(states["torch"])[0]):
             assert _same_bits(a, b)
+
+
+def test_checkpoint_round_trip_on_the_card(gen, tmp_path):
+    """A compressed train state on the card (bf16 parameters, f32 moments,
+    an int32 step, [2, bucket] error buckets) saved and restored into a
+    template on the card: every leaf on the card, its dtype, bit-equal."""
+    from repro_torch.train import CheckpointManager, TrainConfig, init_train_state
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    tcfg = TrainConfig(grad_sync="compressed")
+    state = init_train_state(cfg, tcfg, torch.Generator("cuda").manual_seed(0),
+                             group=StackedGroup(2))
+    for e in state["gsync_err"]:
+        e.normal_(generator=gen)
+    state["opt"]["step"].fill_(7)
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(7, state, extra={"data_step": 7})
+    mgr.wait()
+    template = init_train_state(cfg, tcfg, torch.Generator("cuda").manual_seed(1),
+                                group=StackedGroup(2))
+    step, back, extra = mgr.restore_latest(template)
+    assert (step, extra) == (7, {"data_step": 7})
+    a, b = tree_flatten(state)[0], tree_flatten(back)[0]
+    assert any(x.dtype == torch.bfloat16 for x in a)
+    for x, y in zip(a, b):
+        assert y.is_cuda and y.dtype == x.dtype and _same_bits(x, y)
+
+
+def test_train_launcher_resumes_on_the_card(tmp_path, capsys):
+    """``launch.train.main`` at --smoke on the card (its default device):
+    4 compressed steps over 2 stacked ranks, then a resume to 6, which
+    gives the 6-step run's state bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.launch import train as launch
+
+    args = ["--smoke", "--mesh", "2x1", "--grad-sync", "compressed", "--ckpt-every", "4"]
+    first = launch.main(args + ["--steps", "4", "--ckpt-dir", str(tmp_path / "a")])
+    assert first["device"] == torch.cuda.get_device_name(0)
+    second = launch.main(args + ["--steps", "6", "--ckpt-dir", str(tmp_path / "a")])
+    out = capsys.readouterr().out
+    assert "resumed from step 4" in out and "done: 2 steps" in out
+    straight = launch.main(args + ["--steps", "6", "--ckpt-dir", str(tmp_path / "b")])
+    assert second["losses"] == {k: v for k, v in straight["losses"].items() if k > 4}
+    for x, y in zip(tree_flatten(second["state"])[0], tree_flatten(straight["state"])[0]):
+        assert x.is_cuda and _same_bits(x, y)
+
+
+@pytest.mark.parametrize("arch", ["llama-3.2-vision-11b", "whisper-small"])
+def test_memory_train_step_cuda_matches_cpu(gen, arch):
+    """A compressed step of the vlm and encdec SMOKE configs in f32 over
+    StackedGroup(2) on the card, against the same step on the CPU (the
+    same weights, gates 0.5, batch and memory_embeds): losses within
+    1e-3 x max(1, loss_0), the round-step kernels launched."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    T = cfg.n_image_tokens if cfg.family == "vlm" else cfg.n_audio_frames
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4,
+                                  memory_tokens=T, d_model=cfg.d_model))
+    tcfg = TrainConfig(grad_sync="compressed", microbatches=2)
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for layer in getattr(params, "layers", []):
+        if hasattr(layer, "gate"):
+            layer.gate.data.fill_(0.5)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(params).to(dev)
+        group = StackedGroup(2, device=dev)
+        state = init_train_state(cfg, tcfg, params=model, group=group)
+        step = make_train_step(cfg, tcfg, group=group)
+        before = dict(bp.LAUNCHES)
+        losses[dev] = []
+        for i in range(2):
+            state, m = step(state, data.batch_at(i))
+            losses[dev].append(float(m["loss"]))
+        assert (_launched(before).get("block_qacc_shuffle", 0) > 0) == (dev == "cuda")
+    assert all(np.isfinite(losses["cuda"]))
+    gap = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
+    assert gap <= 1e-3 * max(1.0, losses["cpu"][0]), losses

@@ -1,5 +1,5 @@
-"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and
-``tools/prefill_spread.py`` import neither JAX nor the JAX package, its entry points do not fall back to
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the
+scripts under ``tools/`` import neither JAX nor the JAX package, its entry points do not fall back to
 the CPU, and the ``"cuda"`` path leaves the kernels' work to the
 kernels."""
 
@@ -30,8 +30,8 @@ from repro_torch.core import (
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
-PORT_FILES = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py",
-                                           ROOT / "tools" / "prefill_spread.py"]
+PORT_FILES = (sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+              + sorted((ROOT / "tools").glob("*.py")))
 _FORBIDDEN = re.compile(r"^(jax|jaxlib|repro)(\.|$)")
 
 
@@ -186,3 +186,11 @@ def test_prefill_spread_fails_without_a_card():
                          env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
     assert res.returncode != 0 and "needs a CUDA device" in res.stderr
     assert '"seed"' not in res.stdout
+
+
+def test_train_launch_fallback_fails_without_a_card():
+    res = subprocess.run([sys.executable, "tools/train_launch_fallback.py"], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert res.returncode != 0 and "needs a CUDA device" in res.stderr
+    assert '"phase"' not in res.stdout

@@ -4,7 +4,10 @@ Held on the same inputs (weights from the reference's ``init_params`` or
 ``init_train_state``, batches from a seed):
 
   * ``loss_fn`` and its gradients against ``jax.value_and_grad`` of the
-    reference's, jitted, on the dense, ssm and hybrid SMOKE configs in
+    reference's, jitted, on the dense, ssm and hybrid SMOKE configs (and
+    the vlm and encdec ones, their batches carrying seeded
+    ``memory_embeds``, every vlm cross-attention gate 0.5: the gradients
+    reach ``img_proj`` and the encoder stack through the memory) in
     f32 (loss within rtol 1e-5; gradients, in the reference's stacked
     layout, within rtol 1e-4 / atol 1e-6) and in the bf16 default (loss
     within 1e-2 relative: bf16 rounds at other places in the two
@@ -25,7 +28,9 @@ Held on the same inputs (weights from the reference's ``init_params`` or
 ``tests/test_torch_train_parity.py``.)
 
 Also: the buckets of Qwen2-0.5B's gradient come from the reference's tree
-(14 leaves in 10 buckets of 4 MiB); the CUDA wrappers refuse operands that
+(14 leaves in 10 buckets of 4 MiB), and those of the memory families'
+stacked trees (``enc``, ``xattn`` and ``img_proj`` leaves) at SMOKE and
+FULL; the CUDA wrappers refuse operands that
 require grad (their ``_check`` monkeypatched to claim a card).
 """
 
@@ -69,6 +74,8 @@ from repro_torch.train import (
 )
 
 ARCHS = ["qwen2-0.5b", "mamba2-780m", "zamba2-2.7b"]
+MEMORY_ARCHS = ["llama-3.2-vision-11b", "whisper-small"]
+GATE = 0.5
 
 
 def _t(a):
@@ -88,7 +95,21 @@ def _batch(cfg, B, S, seed=0):
     tokens = rng.integers(0, cfg.vocab, size=(B, S)).astype(np.int32)
     labels = np.concatenate([tokens[:, 1:], np.full((B, 1), -100, np.int32)], 1)
     labels[0, 3] = -100
-    return {"tokens": tokens, "labels": labels}
+    batch = {"tokens": tokens, "labels": labels}
+    T = {"vlm": cfg.n_image_tokens, "encdec": cfg.n_audio_frames}.get(cfg.family)
+    if T:
+        batch["memory_embeds"] = rng.standard_normal((B, T, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def _init(jc, seed):
+    """The reference's parameters, every vlm cross-attention gate 0.5 (at
+    its init value 0 the cross-attention drops out of the loss)."""
+    params = jt.init_params(jc, jax.random.PRNGKey(seed))
+    for sub in params.values():
+        if isinstance(sub, dict) and "gate" in sub:
+            sub["gate"] = jnp.full_like(sub["gate"], GATE)
+    return params
 
 
 def _port_loss_and_grads(tc, jparams, batch, remat="none"):
@@ -105,11 +126,11 @@ def _port_loss_and_grads(tc, jparams, batch, remat="none"):
     return loss.detach(), metrics, grads
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MEMORY_ARCHS)
 def test_loss_and_grads_match_reference_f32(arch):
     jc = replace(jax_config(arch, smoke=True), dtype="float32")
     tc = replace(get_config(arch, smoke=True), dtype="float32")
-    jp = jt.init_params(jc, jax.random.PRNGKey(3))
+    jp = _init(jc, 3)
     batch = _batch(tc, 2, 24, seed=1)
 
     def jloss(params):
@@ -140,11 +161,10 @@ def test_bf16_loss_matches_reference(arch):
     assert all(bool(torch.isfinite(g.float()).all()) for g in grads)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + MEMORY_ARCHS)
 def test_remat_modes_are_bit_equal(arch):
     tc = replace(get_config(arch, smoke=True), dtype="float32")
-    jp = jt.init_params(replace(jax_config(arch, smoke=True), dtype="float32"),
-                        jax.random.PRNGKey(5))
+    jp = _init(replace(jax_config(arch, smoke=True), dtype="float32"), 5)
     batch = _batch(tc, 2, 20, seed=3)
     base = _port_loss_and_grads(tc, jp, batch, "none")
     for remat in ("full", "dots"):
@@ -257,6 +277,23 @@ def test_qwen2_buckets_follow_the_reference_tree():
     assert (len(spec.leaf_sizes), spec.num_buckets) == (14, 10)
     assert sum(spec.leaf_sizes) == 494_032_768
     assert max(spec.leaf_sizes) == 136_134_656
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+@pytest.mark.parametrize("arch", MEMORY_ARCHS)
+def test_memory_family_buckets_follow_the_reference_tree(arch, smoke):
+    """The vlm and encdec gradients bucket as the reference's: the same
+    leaves (img_proj; the encoder stack ``enc`` and the ``xattn`` blocks)
+    in the same buckets."""
+    spec = grad_bucket_spec(get_config(arch, smoke=smoke), TrainConfig())
+    shapes = jax.eval_shape(lambda k: jt.init_params(jax_config(arch, smoke=smoke), k),
+                            jax.random.PRNGKey(0))
+    want = jax_bucket_spec(shapes, 4 << 20)
+    assert (spec.leaf_sizes, spec.assignment, spec.offsets, spec.bucket_sizes) == (
+        want.leaf_sizes, want.assignment, want.offsets, want.bucket_sizes)
+    names = [jax.tree_util.keystr(p) for p, _ in jax.tree_util.tree_flatten_with_path(shapes)[0]]
+    assert any("img_proj" in n for n in names) or any("'enc'" in n for n in names)
+    assert any("xattn" in n for n in names)
 
 
 def test_stacked_layout_round_trips_and_binds():

@@ -4,7 +4,10 @@
 p in {2, 4} ranks (and on ``deepseek-moe-smoke`` and ``deepseek-v3-smoke``,
 auto and compressed, at p = 2: their loss carries the experts' aux loss,
 deepseek-v3's also its multi-token-prediction term through MLA, and each
-rank's shard routes its own tokens), against the reference's ``make_train_step`` on a
+rank's shard routes its own tokens; and on ``llama-vision-smoke`` and
+``whisper-smoke``, auto and compressed at p = 2, their batches carrying
+seeded ``memory_embeds`` split with the tokens, every vlm cross-attention
+gate set to 0.5 in the reference's initial state), against the reference's ``make_train_step`` on a
 p-device host mesh (a subprocess a p, both started together, with
 ``XLA_FLAGS=--xla_force_host_platform_device_count=p`` and
 ``JAX_PLATFORMS=cpu``; the reference's initial parameters and losses come
@@ -48,7 +51,11 @@ TRAIN_CASES = [("auto", 1, False, "none"), ("auto", 2, False, "full"),
                ("compressed", 1, True, "dots"), ("compressed", 2, True, "full")]
 #: the cases of the moe family (deepseek-moe and deepseek-v3), at p = 2 only
 MOE_CASES = [("auto", 1, False, "none"), ("compressed", 2, False, "full")]
-ARCHS = {"dense": "qwen2-0.5b", "moe": "deepseek-moe-16b", "mla": "deepseek-v3-671b"}
+ARCHS = {"dense": "qwen2-0.5b", "moe": "deepseek-moe-16b", "mla": "deepseek-v3-671b",
+         "vlm": "llama-3.2-vision-11b", "encdec": "whisper-small"}
+#: the vlm cross-attention gate of every comparison (0 at init drops the
+#: cross-attention out of the loss)
+GATE = 0.5
 
 RUNNER = r'''
 import pickle, sys
@@ -72,6 +79,9 @@ for arch, gs, mb, stream, remat in job["cases"]:
                        stream_grad_sync=stream, dp_axes=("data",),
                        opt=AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=job["steps"]))
     state = init_train_state(cfg, tcfg, jax.random.PRNGKey(0), mesh=mesh)
+    for sub in state["params"].values():
+        if isinstance(sub, dict) and "gate" in sub:
+            sub["gate"] = jnp.full_like(sub["gate"], job["gate"])
     init = jax.tree.map(np.asarray, state["params"])
     step = jax.jit(make_train_step(cfg, tcfg, mesh=mesh))
     losses = []
@@ -88,9 +98,12 @@ with open(dst, "wb") as f:
 
 
 def _train_batches(p, arch=ARCHS["dense"]):
+    """5 batches of 2p rows of 32 tokens; a memory family's also carry
+    [2p, T, d] f32 normal ``memory_embeds`` (its stub frontend's T)."""
     cfg = get_config(arch, smoke=True)
+    T = {"vlm": cfg.n_image_tokens, "encdec": cfg.n_audio_frames}.get(cfg.family, 0)
     data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2 * p,
-                                  seed=p))
+                                  seed=p, memory_tokens=T, d_model=cfg.d_model))
     return [data.batch_at(i) for i in range(STEPS)]
 
 
@@ -108,38 +121,43 @@ def _reference_slot():
             fcntl.flock(f, fcntl.LOCK_UN)
 
 
+#: the reference's runs, each its own process, all started together:
+#: (p, the ARCHS keys it trains, the cases of each)
+REFERENCE_JOBS = [(2, ("dense",), TRAIN_CASES), (4, ("dense",), TRAIN_CASES),
+                  (2, ("moe", "mla"), MOE_CASES), (2, ("vlm", "encdec"), MOE_CASES)]
+
+
 @pytest.fixture(scope="module")
 def reference_training(tmp_path_factory):
+    """{p: {(arch, *case): (initial params, losses)}} from the reference."""
     with _reference_slot():
         work = tmp_path_factory.mktemp("train_reference")
-        procs = {}
-        for p in (2, 4):
-            src, dst = work / f"in{p}.pkl", work / f"out{p}.pkl"
-            cases = [(ARCHS["dense"], *c) for c in TRAIN_CASES]
-            if p == 2:
-                cases += [(ARCHS[a], *c) for a in ("moe", "mla") for c in MOE_CASES]
+        procs = []
+        for j, (p, keys, job_cases) in enumerate(REFERENCE_JOBS):
+            src, dst = work / f"in{j}.pkl", work / f"out{j}.pkl"
+            cases = [(ARCHS[a], *c) for a in keys for c in job_cases]
             with open(src, "wb") as f:
-                pickle.dump({"p": p, "steps": STEPS, "cases": cases,
-                             "batches": {a: _train_batches(p, a)
-                                         for a in ARCHS.values()}}, f)
+                pickle.dump({"p": p, "steps": STEPS, "cases": cases, "gate": GATE,
+                             "batches": {ARCHS[a]: _train_batches(p, ARCHS[a])
+                                         for a in keys}}, f)
             env = dict(os.environ)
             env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={p}"
             env["JAX_PLATFORMS"] = "cpu"
             env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-            procs[p] = (subprocess.Popen([sys.executable, "-c", RUNNER, str(src), str(dst)],
-                                         env=env, stdout=subprocess.PIPE,
-                                         stderr=subprocess.PIPE, text=True), dst)
+            procs.append((p, subprocess.Popen(
+                [sys.executable, "-c", RUNNER, str(src), str(dst)], env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), dst))
         out = {}
-        for p, (proc, dst) in procs.items():
+        for p, proc, dst in procs:
             try:
                 _, err = proc.communicate(timeout=240)
             except subprocess.TimeoutExpired:
-                for q, _ in procs.values():
+                for _, q, _ in procs:
                     q.kill()
                 raise
             assert proc.returncode == 0, f"reference trainer at p={p} failed:\n{err}"
             with open(dst, "rb") as f:
-                out[p] = pickle.load(f)
+                out.setdefault(p, {}).update(pickle.load(f))
         return out
 
 
@@ -191,5 +209,23 @@ def test_mla_trainer_matches_reference(reference_training, case):
     init, want = reference_training[2][(ARCHS["mla"], *case)]
     assert "mtp_proj" in init and "mtp" in init
     losses = _port_losses(ARCHS["mla"], 2, case, init)
+    diff = np.abs(np.array(losses) - np.array(want))
+    assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)
+
+
+@pytest.mark.parametrize("case", MOE_CASES, ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("family", ["vlm", "encdec"])
+def test_memory_trainer_matches_reference(reference_training, family, case):
+    """llama-vision-smoke and whisper-smoke at p = 2, at the same bound:
+    the gradients reach img_proj (vlm) and the encoder stack (encdec)
+    through memory_embeds, whose rows each rank's shard takes with its
+    tokens; every vlm gate 0.5 in both packages."""
+    init, want = reference_training[2][(ARCHS[family], *case)]
+    if family == "vlm":
+        gates = [v["gate"] for v in init.values() if isinstance(v, dict) and "gate" in v]
+        assert gates and all(np.all(g == GATE) for g in gates)
+    else:
+        assert "enc" in init
+    losses = _port_losses(ARCHS[family], 2, case, init)
     diff = np.abs(np.array(losses) - np.array(want))
     assert diff.max() <= 1e-3 * max(1.0, want[0]), (losses, want)
