@@ -122,6 +122,28 @@ weights from the seed) over ``StackedGroup(4)``:
     the peaks.  With under twice the checkpoint's bytes free under the
     temporary directory it runs at ``--mesh 2x1`` (one round fewer a
     sync, so its own launch counts) and says so;
+  * analysis (after the collectives and the compressed sync, before
+    their cached plans are dropped): ``python -m repro_torch.analysis``'s
+    four passes in this process on the card (plans with their device
+    tables on the card, the kernel records' replay and their launch grids
+    against the compiled launcher, lint, the cache), each with 0
+    findings and ``checked > 0``; ``audit_plan`` on every plan object the
+    run above executed and left in the plan cache (the p = 1152 host
+    plans, sequential and overlapped, the communicator's plans over
+    ``StackedGroup(1152)``, the 36 x 32 ``HierComm`` and host plans, the
+    quantized allreduce, the compressed sync's), its ``device-table``
+    check reading back every device slot table they index and
+    ``audit_cache`` every cached tensor's version; the write-set probe of
+    the seven round-step kernels (every operand filled with sentinels,
+    each kernel launched at every grid shape it has, at 16-byte and
+    narrower units, over every launch of the schedules of p = 2, 3, 5, 8
+    and n = 1, 4: the elements that changed must be its record's write
+    set, with the plain version's bits, and its launch grid the one
+    ``block_pack_launch_shape`` reports); and the negative control, each
+    record with one write dropped, which the comparison of what the
+    kernel changed must report (the plain version's comparison, which
+    would catch it first, is skipped for it).  Its launches count on no
+    path: every path's counts are set to 0 just before it runs;
   * train_encdec: whisper-small at full width trains 2 auto steps and 2
     compressed steps over ``StackedGroup(4)`` on 8 utterances of 1500
     frames (seeded f32 normal stub-frontend embeddings) and 8 x 448
@@ -432,6 +454,92 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def analysis_phase(torch, card) -> None:
+    """The static analysis on the card (see the module docstring): the
+    CLI's passes, the run's own plans, the write-set probe and its
+    negative control; any finding fails the run."""
+    from repro_torch.analysis import audit_cache, audit_plan
+    from repro_torch.analysis import kernelaudit as ka
+    from repro_torch.analysis.__main__ import PASSES
+    from repro_torch.core import engine
+    from repro_torch.kernels import block_pack as bp
+
+    t_phase = time.perf_counter()
+    # (b)'s plans are those the run executed: taken before (a) adds its own
+    ran = [(key, v) for key, v in list(engine._plan_cache.items())
+           if hasattr(v, "statics") and hasattr(v, "kind")]
+    passes = {}
+    for name, fn in PASSES:                                  # (a)
+        t0 = time.perf_counter()
+        rep = fn(torch.device("cuda"))
+        torch.cuda.synchronize()
+        passes[name] = {"checked": rep.checked, "findings": len(rep.findings),
+                        "seconds": time.perf_counter() - t0}
+        check(rep.ok and rep.checked > 0,
+              f"analysis: the {name} pass on the card: {rep.summary()[:2000]}")
+    t0 = time.perf_counter()                                 # (b)
+    plans, tables, table_bytes, kinds = 0, 0, 0, {}
+    for key, plan in ran:
+        rep = audit_plan(plan)
+        check(rep.ok and rep.checked > 1,
+              f"analysis: audit_plan({key!r}): {rep.summary()[:2000]}")
+        plans += 1
+        flats = [plan] if hasattr(plan, "device_tables") else []
+        for level in (getattr(plan, "inter", None), getattr(plan, "intra", None)):
+            flats += [f for f in (level if isinstance(level, tuple) else (level,))
+                      if f is not None and hasattr(f, "device_tables")]
+        for flat in flats:
+            tables += len(flat.device_tables)
+            table_bytes += sum(t.tensor.numel() * 4 for t in flat.device_tables)
+        label = f"{type(plan).__name__}:{plan.kind}"
+        kinds[label] = kinds.get(label, 0) + 1
+    cache = audit_cache()
+    torch.cuda.synchronize()
+    check(cache.ok and cache.checked > 0,
+          f"analysis: audit_cache: {cache.summary()[:2000]}")
+    own = {"plans": plans, "by_class_and_kind": kinds, "device_tables": tables,
+           "device_table_bytes": table_bytes,
+           "max_p": max((getattr(pl, "p", 0) for _, pl in ran), default=0),
+           "cache_checked": cache.checked,
+           "seconds": time.perf_counter() - t0}
+    check(plans > 0 and tables > 0, "analysis: the run left no plan to audit")
+    t0 = time.perf_counter()                                 # (c)
+    probe = ka.probe_kernels("cuda")
+    torch.cuda.synchronize()
+    check(probe.ok and probe.checked > 0,
+          f"analysis: the write-set probe: {probe.summary()[:3000]}")
+    shapes = {}
+    for name, geoms in ka.GEOMETRIES.items():
+        for g in geoms:
+            sh = bp.launch_shape(name, **g.shape_args(8))
+            shapes.setdefault(name, []).append(
+                {"bs": g.bs, "qb": g.qb, "route": ["row x chunk", "short rows",
+                                                   "warp per block"][sh.route],
+                 "unit": sh.unit, "grid_y": sh.grid_y, "steps": sh.steps})
+    probe_s = time.perf_counter() - t0
+    t0 = time.perf_counter()                                 # (d)
+    caught = {}
+    for name, spec in bp.KERNEL_AUDITS.items():
+        # the plain version's comparison is skipped, so that the dropped
+        # write reaches the comparison of what the kernel changed
+        bad = ka.probe_kernels("cuda", names=[name], ps=(5,), ns=(4,),
+                               geometries={name: ka.GEOMETRIES[name][:1]},
+                               specs={name: ka.dropped_write(spec)},
+                               sides=("kernel",))
+        caught[name] = sum(f.check == "write-set"
+                           and f.message.startswith("the kernel ")
+                           for f in bad.findings)
+        check(caught[name] > 0 and caught[name] == len(bad.findings),
+              f"analysis: the kernel's write set missed {name}'s record "
+              f"with a dropped write: {bad.summary()[:2000]}")
+    emit({"phase": "analysis", "passes": passes, "own_plans": own,
+          "probe": {"launches_probed": probe.checked, "findings": 0,
+                    "seconds": probe_s, "grid_shapes": shapes},
+          "negative_control": {"write_set_findings": caught,
+                               "seconds": time.perf_counter() - t0},
+          "seconds": time.perf_counter() - t_phase, "card": card})
 
 
 def cuda_ms(torch, fn, reps: int, warm: int = 1) -> float:
@@ -4356,6 +4464,11 @@ def main() -> None:
 
     # 9b. Qwen2-0.5B: the compressed sync of its gradient, the trainer
     train = train_phases(torch, np, card, kmods, g)
+    torch.cuda.empty_cache()
+
+    # 9e. the static analysis: the CLI's passes, the plans above, the
+    #     kernels' write-set probe and its negative control
+    analysis_phase(torch, card)
     torch.cuda.empty_cache()
 
     # 10-13. the model kernels, zamba2-2.7b's prefill and the serve loop;

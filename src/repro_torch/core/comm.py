@@ -113,6 +113,7 @@ __all__ = [
     "CirculantComm",
     "get_comm",
     "check_devices",
+    "DeviceTable",
     "HostDataPlan",
     "host_plan",
     "resolve_device",
@@ -172,13 +173,48 @@ def _rotated_rows(table: np.ndarray, p: int, ranks: Sequence[int],
     r = torch.as_tensor(np.asarray(ranks, dtype=np.int64), device=device)
     j = torch.as_tensor(list(roots), device=device)
     base = (r[:, None] - j[None, :]).remainder(p).reshape(-1)
-    if shifts is None:
+    if shifts is None or len(table) == 0:
         return tab[:, base]
-    out = torch.empty((len(table), base.numel()), dtype=torch.int32,
-                      device=device)
-    for t, s in enumerate(shifts):
-        out[t] = tab[t][(base + s) % p]
-    return out
+    # stacked, not written row by row: a cached table stays at version 0
+    return torch.stack([tab[t][(base + s) % p] for t, s in enumerate(shifts)])
+
+
+@dataclass(frozen=True, eq=False)
+class DeviceTable:
+    """One slot table a plan's rounds index, on the device, beside the
+    cached host table it was built from.  Row ``(i, k)`` of round t
+    (held rank ``ranks[i]``, root ``roots[k]``; rank-major) holds
+    ``source[t][(ranks[i] - roots[k] + shifts[t]) % p]``, shift 0 where
+    ``shifts`` is None; with ``garbage`` set, one more round holds that
+    slot (the capture slot after the last round).  The plan auditor's
+    ``device-table`` check holds ``tensor`` to this, entry for entry."""
+
+    tensor: torch.Tensor = field(repr=False)
+    source: np.ndarray = field(repr=False)
+    ranks: Tuple[int, ...] = field(repr=False)
+    roots: Tuple[int, ...] = (0,)
+    shifts: Optional[Tuple[int, ...]] = None
+    garbage: Optional[int] = None
+
+
+def _device_table(source: np.ndarray, device: torch.device, ranks=None,
+                  roots: Sequence[int] = (0,),
+                  shifts: Optional[Sequence[int]] = None,
+                  garbage: Optional[int] = None) -> DeviceTable:
+    """The :class:`DeviceTable` of ``source``'s columns ``ranks`` (all of
+    them by default) for ``roots`` (:func:`_rotated_rows`), the garbage
+    round appended first where ``garbage`` is set."""
+    p = source.shape[1]
+    ranks = tuple(range(p)) if ranks is None else tuple(int(r) for r in ranks)
+    roots = tuple(int(j) for j in roots)
+    table = source if garbage is None else _with_garbage(source, garbage)
+    if roots == (0,) and shifts is None:
+        tensor = _upload(table[:, list(ranks)], device)
+    else:
+        tensor = _rotated_rows(table, p, ranks, roots, shifts, device)
+    return DeviceTable(tensor=tensor, source=source, ranks=ranks, roots=roots,
+                       shifts=None if shifts is None else tuple(int(s) for s in shifts),
+                       garbage=garbage)
 
 
 def _row_of(ranks: range, rank: int) -> slice:
@@ -294,16 +330,22 @@ class HostDataPlan:
     #: (reduce rounds, broadcast rounds).
     skips: Tuple = field(repr=False)
     step: RoundStep = field(repr=False)
-    #: The slot tables the rounds index, as int32 tensors on ``device``,
-    #: built once: broadcast ``(recv, send)`` [R, p]; allgather
-    #: ``(recv_rows, send_rows)`` [R, p*p]; reduce ``(fwd, acc)`` with
-    #: ``fwd`` [R+1, p], its last row the garbage slot n (the capture
-    #: slot after the last round); quantized_allreduce the reduce's two
-    #: and then the broadcast's two.
-    device_slots: Tuple[torch.Tensor, ...] = field(repr=False)
+    #: The slot tables the rounds index, on ``device``, beside the host
+    #: table each was built from (``device_slots`` are their tensors).
+    device_tables: Tuple[DeviceTable, ...] = field(repr=False)
     overlap: bool = False
     #: Elements per quantization block (quantized_allreduce only).
     qblock: Optional[int] = None
+
+    @property
+    def device_slots(self) -> Tuple[torch.Tensor, ...]:
+        """The slot tables the rounds index, int32 tensors on ``device``,
+        built once: broadcast ``(recv, send)`` [R, p]; allgather
+        ``(recv_rows, send_rows)`` [R, p*p]; reduce ``(fwd, acc)`` with
+        ``fwd`` [R+1, p], its last row the garbage slot n (the capture
+        slot after the last round); quantized_allreduce the reduce's two
+        and then the broadcast's two."""
+        return tuple(t.tensor for t in self.device_tables)
 
     @property
     def statics(self) -> Tuple[PhaseStatic, ...]:
@@ -496,29 +538,28 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
         if kind in ("reduce", "quantized_allreduce"):
             fwd, acc, ks = reduce_slot_plan(bundle, n)
             slots = (fwd, acc)
-            device_slots = (_upload(_with_garbage(fwd, n), dev),
-                            _upload(acc, dev))
+            tables = (_device_table(fwd, dev, garbage=n),
+                      _device_table(acc, dev))
         else:
             recv, send, ks = broadcast_slot_plan(bundle, n)
             slots = (recv, send) if kind == "broadcast" else (recv,)
         skips = tuple(int(bundle.skip[int(k)]) for k in ks)
         if kind == "broadcast":
-            device_slots = (_upload(recv, dev), _upload(send, dev))
+            tables = (_device_table(recv, dev), _device_table(send, dev))
         elif kind == "allgather":
             everyone = range(int(p))
-            device_slots = (
-                _rotated_rows(recv, int(p), everyone, everyone, None, dev),
-                _rotated_rows(recv, int(p), everyone, everyone, skips, dev))
+            tables = (_device_table(recv, dev, roots=everyone),
+                      _device_table(recv, dev, roots=everyone, shifts=skips))
         elif quantized:
             # one skip tuple per phase (reduce rounds, broadcast rounds)
             recv, send, ks_b = broadcast_slot_plan(bundle, n)
             slots += (recv, send)
             skips = (skips, tuple(int(bundle.skip[int(k)]) for k in ks_b))
-            device_slots += (_upload(recv, dev), _upload(send, dev))
+            tables += (_device_table(recv, dev), _device_table(send, dev))
         return HostDataPlan(
             kind=kind, p=int(p), n=int(n), root=root_key, op=op_key,
             backend=backend, device=dev, slots=slots, ks=ks, skips=skips,
-            step=get_round_step(backend), device_slots=device_slots,
+            step=get_round_step(backend), device_tables=tables,
             overlap=bool(overlap), qblock=qblock)
 
     return cached_plan(key, build)
@@ -773,8 +814,9 @@ def check_devices(group, leaves) -> None:
 # ranks, an ``exchange(msgs, shift)`` over the rows it holds, a
 # ``device``, and ``ranks``: the level rank of each held row.  A phase is
 # built once a plan, with the level's slot tables gathered per held row
-# (``table[:, ranks]``) and uploaded, and returns ``run(flats, ...)``
-# over ``[rows, m]`` flats on the level's device.  ``run`` empties
+# (``table[:, ranks]``) and uploaded, and returns ``(run, tables)``:
+# ``run(flats, ...)`` over ``[rows, m]`` flats on the level's device, and
+# the :class:`DeviceTable` records of the tables it indexes.  ``run`` empties
 # ``flats`` as it copies each leaf into its buffer, so that an earlier
 # level's buffer goes before the whole of the next is allocated.
 
@@ -784,7 +826,7 @@ def _rows2d(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bcast_phase(level, bundle, n: int, step: RoundStep,
-                 overlap: bool = False) -> Callable:
+                 overlap: bool = False) -> Tuple[Callable, tuple]:
     """The forward broadcast rounds over ``level`` -> ``run(flats, src)``:
     the rows of the slice ``src`` hold the level root's data (on a held
     root there is one; on a grid's intra level one a node), every other
@@ -794,7 +836,8 @@ def _bcast_phase(level, bundle, n: int, step: RoundStep,
     recv, send, ks = broadcast_slot_plan(bundle, n)
     shifts = [int(bundle.skip[int(k)]) for k in ks]
     cols, dev = np.asarray(level.ranks), level.device
-    tables = (_upload(recv[:, cols], dev), _upload(send[:, cols], dev))
+    records = (_device_table(recv, dev, cols), _device_table(send, dev, cols))
+    tables = tuple(t.tensor for t in records)
     rows = len(cols)
 
     def run(flats: list, src: slice) -> List[torch.Tensor]:
@@ -812,11 +855,11 @@ def _bcast_phase(level, bundle, n: int, step: RoundStep,
                                shifts, level.exchange)
         return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
-    return run
+    return run, records
 
 
 def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
-                  overlap: bool = False) -> Callable:
+                  overlap: bool = False) -> Tuple[Callable, tuple]:
     """The reversed (reduction) rounds over ``level`` -> ``run(flats)``:
     every row contributes its flat; the level root's row ends with the
     op-reduction, every other row drained -> ``[rows, m]`` views of the
@@ -825,8 +868,9 @@ def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
     fwd, acc, ks = reduce_slot_plan(bundle, n)
     shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
     cols, dev = np.asarray(level.ranks), level.device
-    tables = (_upload(_with_garbage(fwd, n)[:, cols], dev),
-              _upload(acc[:, cols], dev))
+    records = (_device_table(fwd, dev, cols, garbage=n),
+               _device_table(acc, dev, cols))
+    tables = tuple(t.tensor for t in records)
 
     def run(flats: list) -> List[torch.Tensor]:
         bufs, sizes = [], []
@@ -841,11 +885,11 @@ def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
                               shifts, level.exchange, op)
         return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
-    return run
+    return run, records
 
 
 def _allgather_phase(level, bundle, n: int, step: RoundStep,
-                     overlap: bool = False) -> Callable:
+                     overlap: bool = False) -> Tuple[Callable, tuple]:
     """The all-to-all broadcast rounds over ``level`` -> ``run(flats)``:
     every row contributes its flat and ends holding the level's p flats
     in level-rank order -> ``[rows, p, m]`` views of the ``[rows * p,
@@ -856,8 +900,9 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
     recv, _, ks = broadcast_slot_plan(bundle, n)
     shifts = [int(bundle.skip[int(k)]) for k in ks]
     cols, dev = np.asarray(level.ranks), level.device
-    tables = (_rotated_rows(recv, p, cols, range(p), None, dev),
-              _rotated_rows(recv, p, cols, range(p), shifts, dev))
+    records = (_device_table(recv, dev, cols, range(p)),
+               _device_table(recv, dev, cols, range(p), shifts))
+    tables = tuple(t.tensor for t in records)
     rows = len(cols)
     own = torch.as_tensor(np.arange(rows) * p + cols, device=dev)  # row (r, rank r)
     exchange = _by_rank(level.exchange, rows)
@@ -878,18 +923,19 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
         return [b.view(rows, p, b.shape[1] * b.shape[2])[:, :, :size]
                 for b, size in zip(bufs, sizes)]
 
-    return run
+    return run, records
 
 
 # ------------------------------------------------------------ lowerings
 #
 # One lowering per collective kind: it builds its phases over the group
-# once and returns ``execute(leaves) -> leaves``.
+# once and returns ``(execute, tables)``: ``execute(leaves) -> leaves``
+# and the :class:`DeviceTable` records of every table its rounds index.
 
 
 def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
                      overlap: bool) -> Callable:
-    phase = _bcast_phase(group, bundle, n, step, overlap)
+    phase, tables = _bcast_phase(group, bundle, n, step, overlap)
     lr, src = len(group.ranks), _row_of(group.ranks, root)
 
     def execute(leaves):
@@ -898,7 +944,7 @@ def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
         outs = phase([x.reshape(lr, _leaf_elems(x.shape[1:])) for x in xs], src)
         return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
-    return execute
+    return execute, tables
 
 
 def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
@@ -906,7 +952,7 @@ def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
     """``drain``: every rank but the root returns zeros (the reference's
     result); the allreduce's broadcast reads only the root's rows, so it
     skips that."""
-    phase = _reduce_phase(group, bundle, n, op, step, overlap)
+    phase, tables = _reduce_phase(group, bundle, n, op, step, overlap)
     lr, keep, dev = len(group.ranks), _row_of(group.ranks, root), group.device
 
     def execute(leaves):
@@ -917,13 +963,13 @@ def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
                 _drain(o, keep)
         return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
-    return execute
+    return execute, tables
 
 
 def _lower_allgather(group, bundle, n: int, step: RoundStep,
                      overlap: bool) -> Callable:
     p = bundle.p
-    phase = _allgather_phase(group, bundle, n, step, overlap)
+    phase, tables = _allgather_phase(group, bundle, n, step, overlap)
     lr, dev = len(group.ranks), group.device
 
     def execute(leaves, copies=False):
@@ -936,7 +982,7 @@ def _lower_allgather(group, bundle, n: int, step: RoundStep,
                 for o, x in zip(outs, xs)]
         return outs if copies else [o[0] for o in outs]
 
-    return execute
+    return execute, tables
 
 
 def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
@@ -954,7 +1000,7 @@ def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
     ranks, dev = group.ranks, group.device
     lr = len(ranks)
     exchange = _by_rank(group.exchange, lr)
-    layouts, tables = [], {}
+    layouts, tables, records = [], {}, ()
     for sizes in sizes_canon:
         by_bs: dict = {}
         for j, s in enumerate(sizes):
@@ -965,9 +1011,10 @@ def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
             if roots not in tables:      # the row tables of these roots
                 own = [(r - ranks.start) * len(roots) + roots.index(r)
                        for r in ranks if r in roots]
+                records += (_device_table(recv, dev, ranks, roots),
+                            _device_table(recv, dev, ranks, roots, shifts))
                 tables[roots] = (
-                    _rotated_rows(recv, p, ranks, roots, None, dev),
-                    _rotated_rows(recv, p, ranks, roots, shifts, dev),
+                    records[-2].tensor, records[-1].tensor,
                     torch.as_tensor(own, dtype=torch.long, device=dev),
                     torch.as_tensor([r - ranks.start for r in ranks if r in roots],
                                     dtype=torch.long, device=dev),
@@ -1008,7 +1055,7 @@ def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
             outs.append(out)
         return outs if copies else [o[0] for o in outs]
 
-    return execute
+    return execute, records
 
 
 def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
@@ -1017,8 +1064,9 @@ def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
     fwd, acc, ks = scatter_slot_plan(bundle, n)
     shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
     ranks, dev = group.ranks, group.device
-    tables = (_rotated_rows(_with_garbage(fwd, n), p, ranks, range(p), None, dev),
-              _rotated_rows(acc, p, ranks, range(p), None, dev))
+    records = (_device_table(fwd, dev, ranks, range(p), garbage=n),
+               _device_table(acc, dev, ranks, range(p)))
+    tables = tuple(t.tensor for t in records)
     lr = len(ranks)
     exchange = _by_rank(group.exchange, lr)
 
@@ -1037,7 +1085,7 @@ def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
         return [_unblock(b[ranks.start::p + 1][:lr], n, shard).to(dt)
                 for b, (shard, dt) in zip(bufs, metas)]
 
-    return execute
+    return execute, records
 
 
 def _lower_quantized_allreduce(group, bundle, n: int, root: int,
@@ -1058,10 +1106,11 @@ def _lower_quantized_allreduce(group, bundle, n: int, root: int,
     red_shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks_r]
     bc_shifts = [int(bundle.skip[int(k)]) for k in ks_b]
     ranks, dev = group.ranks, group.device
-    cols = slice(ranks.start, ranks.stop)
-    fwd_d = _upload(_with_garbage(fwd, n)[:, cols], dev)
-    acc_d = _upload(acc[:, cols], dev)
-    bc_tables = (_upload(recv[:, cols], dev), _upload(send[:, cols], dev))
+    records = (_device_table(fwd, dev, ranks, garbage=n),
+               _device_table(acc, dev, ranks),
+               _device_table(recv, dev, ranks), _device_table(send, dev, ranks))
+    fwd_d, acc_d, *bc_tables = (t.tensor for t in records)
+    bc_tables = tuple(bc_tables)
     R = len(red_shifts)
     lr = len(ranks)
     at_root = root - ranks.start if root in ranks else None
@@ -1120,7 +1169,7 @@ def _lower_quantized_allreduce(group, bundle, n: int, root: int,
             out_errs.append(e[:, :size].reshape(shape))
         return sums, out_errs
 
-    return execute
+    return execute, records
 
 
 # ------------------------------------------------------------ plan objects
@@ -1156,6 +1205,9 @@ class CollectivePlan:
     #: executor was built from); () on the p == 1 fast path.
     statics: Tuple[PhaseStatic, ...] = field(repr=False, default=())
     _execute: Optional[Callable] = field(repr=False, default=None)
+    #: Every slot table the executor indexes, on the group's device, with
+    #: the host table it was built from; () on the p == 1 fast path.
+    device_tables: Tuple[DeviceTable, ...] = field(repr=False, default=())
 
     def __call__(self, payload: Any) -> Any:
         """Execute the collective -> one payload-shaped tree;
@@ -1481,29 +1533,33 @@ class CirculantComm:
         step = get_round_step(self.backend)
         rounds = bundle.rounds(n)
         if kind == "broadcast":
-            ex = _lower_broadcast(group, bundle, n, root, step, overlap)
+            ex, tables = _lower_broadcast(group, bundle, n, root, step, overlap)
         elif kind == "allgather":
-            ex = _lower_allgather(group, bundle, n, step, overlap)
+            ex, tables = _lower_allgather(group, bundle, n, step, overlap)
         elif kind == "allgatherv":
-            ex = _lower_allgatherv(group, bundle, n, step, spec, sizes_canon)
+            ex, tables = _lower_allgatherv(group, bundle, n, step, spec,
+                                           sizes_canon)
         elif kind == "reduce_scatter":
-            ex = _lower_reduce_scatter(group, bundle, n, step, overlap)
+            ex, tables = _lower_reduce_scatter(group, bundle, n, step, overlap)
         elif kind == "reduce":
-            ex = _lower_reduce(group, bundle, n, root, op, step, overlap)
+            ex, tables = _lower_reduce(group, bundle, n, root, op, step, overlap)
         elif kind == "quantized_allreduce":
-            ex = _lower_quantized_allreduce(group, bundle, n, root, step, qblock)
+            ex, tables = _lower_quantized_allreduce(group, bundle, n, root,
+                                                    step, qblock)
             rounds = bundle.allreduce_rounds(n)
         else:  # allreduce: reversed reduce then forward broadcast, one n
-            red = _lower_reduce(group, bundle, n, root, op, step, overlap,
-                                drain=False)
-            bcast = _lower_broadcast(group, bundle, n, root, step, overlap)
+            red, red_tables = _lower_reduce(group, bundle, n, root, op, step,
+                                            overlap, drain=False)
+            bcast, tables = _lower_broadcast(group, bundle, n, root, step,
+                                             overlap)
             ex = lambda leaves: bcast(red(leaves))  # noqa: E731
+            tables = red_tables + tables
             rounds = bundle.allreduce_rounds(n)
         return CollectivePlan(
             kind=kind, spec=spec, p=p, root=root, op=op, n_blocks=n,
             rounds=rounds, backend=self.backend, group=group, qblock=qblock,
             overlap=overlap, statics=_plan_statics(kind, bundle, n, overlap),
-            _execute=ex)
+            _execute=ex, device_tables=tables)
 
     # ------------------------------------------------ collective shorthands
     #

@@ -280,8 +280,9 @@ class DistGrid:
 
 
 def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
-                op: Optional[str], step) -> Callable:
-    """``execute(leaves, copies=False) -> leaves``: the levels' phases over
+                op: Optional[str], step) -> Tuple[Callable, tuple]:
+    """``(execute, tables)``, where ``execute(leaves, copies=False) ->
+    leaves`` runs the levels' phases over
     every rank of the grid, in the reference's order (one-rank levels
     compose away), each leaf split into its own blocks at every level.
 
@@ -296,7 +297,9 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
         replicated result, or (``copies``) every held rank's.
 
     A level's phase empties its input list as it copies each leaf in, so
-    at most two levels' buffers are alive at once."""
+    at most two levels' buffers are alive at once.  ``tables`` are the
+    :class:`~repro_torch.core.comm.DeviceTable` records of the levels'
+    slot tables, in the phases' run order."""
     N, C = bN.p, bC.p
     held, dev = grid.ranks, grid.device
     lr = len(held)
@@ -306,8 +309,15 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
     first = (rootC - held.start) % C
     src_intra = slice(first, lr, C)
 
+    tables: tuple = ()
+
     def level(p, make, lvl, b, n, *args):
-        return make(lvl, b, n, *args) if p > 1 else None
+        nonlocal tables
+        if p == 1:
+            return None
+        run, records = make(lvl, b, n, *args)
+        tables += records
+        return run
 
     intra_g = inter_g = intra_r = inter_r = inter_b = intra_b = None
     if kind == "allgather":
@@ -346,7 +356,7 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
             flats = intra_b(flats, src_intra)
         return [f.reshape(x.shape) for f, x in zip(flats, xs)]
 
-    return execute
+    return execute, tables
 
 
 def _hier_statics(kind: str, bN, bC, nN: int, nC: int, inter_axis: str,
@@ -408,6 +418,9 @@ class HierPlan:
     #: p == 1 fast path.
     statics: Tuple[PhaseStatic, ...] = field(repr=False, default=())
     _execute: Optional[Callable] = field(repr=False, default=None)
+    #: Every slot table the executor indexes, on the grid's device, with
+    #: the host table it was built from; () on the p == 1 fast path.
+    device_tables: Tuple[Any, ...] = field(repr=False, default=())
 
     @property
     def p(self) -> int:
@@ -608,9 +621,9 @@ class HierComm:
         rootN, rootC = divmod(root, cores)
         bN = get_bundle(nodes, rootN)
         bC = get_bundle(cores, rootC)
-        ex = _lower_hier(self.grid, kind, bN, bC, nN, nC, root, op,
-                         get_round_step(self.backend))
-        return HierPlan(_execute=ex,
+        ex, tables = _lower_hier(self.grid, kind, bN, bC, nN, nC, root, op,
+                                 get_round_step(self.backend))
+        return HierPlan(_execute=ex, device_tables=tables,
                         statics=_hier_statics(kind, bN, bC, nN, nC,
                                               self.inter_axis,
                                               self.intra_axis),

@@ -42,6 +42,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
             (_P, _P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _E, _P), _E),
         "block_qacc_shuffle_launch": (
             (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _E, _P), _E),
+        # kernel, buf, msg, pre, out, err, outq, outs, dtype, op, R, nslots,
+        # size, qb, device, shape[9]
+        "block_pack_launch_shape": (
+            (_E, _P, _P, _P, _P, _P, _P, _P, _E, _E, _I, _I, _I, _I, _E,
+             ctypes.POINTER(ctypes.c_int64)), _E),
         "block_pack_error_string": ((_E,), ctypes.c_char_p),
     },
     "flash_attention": {

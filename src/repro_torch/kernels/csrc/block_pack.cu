@@ -17,7 +17,9 @@
 // traps on an index outside [0, nslots) rather than touch another row.
 // All six data-plane kernels (the four copies and the two accumulating
 // steps) take another grid for rows of fewer than 32 units (see "short
-// rows" below); the launcher chooses by the units alone.
+// rows" below); the launcher chooses by the units alone.  Every launcher
+// takes its route, unit and grid from one function, launch_shape (see
+// "launch shape" below), which the C interface exports.
 //
 // What bounds them on an H100: bytes.  They do no arithmetic, so the least
 // time is the bytes they must move over the 3.35 TB/s of device memory:
@@ -34,7 +36,8 @@
 //
 // C interface (bound with ctypes): each entry point makes the given device
 // current, launches on the given stream (the caller's PyTorch stream), does
-// not synchronise, and returns cudaGetLastError() (0 = success).
+// not synchronise, and returns cudaGetLastError() (0 = success);
+// block_pack_launch_shape reports the shape a launch would take.
 
 #include <atomic>
 #include <cstdint>
@@ -47,6 +50,7 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kUnitsPerThread = 4;  // each thread block covers 256 * 4 units
 constexpr int64_t kMaxChunks = 65535;  // gridDim.y limit
+constexpr int kWarpsPerBlock = kThreads / 32;
 
 __device__ __forceinline__ int64_t load_slot(const int32_t* idx, int64_t r,
                                              int64_t nslots) {
@@ -99,6 +103,12 @@ unpack_kernel(V* __restrict__ buf, const V* __restrict__ msg,
 // another thread writes, so there is no cross-thread hazard and no barrier.
 // msg and out must not overlap buf or each other.  Rows of 32 units or more;
 // shorter rows take shuffle_short_kernel, with the same ownership.
+// repro_torch/analysis/kernelaudit.py checks this ownership: it replays the
+// record of each kernel (KERNEL_AUDITS in kernels/block_pack.py) over every
+// thread of a launch with the cached slot tables (no element written by two
+// threads, none read by a thread other than its writer, every output
+// element written), and on the card holds the record's write set to the
+// elements a launch changes and its grid to launch_shape's.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 shuffle_kernel(V* buf, const V* __restrict__ msg,
@@ -135,7 +145,8 @@ shuffle_kernel(V* buf, const V* __restrict__ msg,
 // buf[recv] and out: (4 * R - #{recv == send}) * row_bytes.  The simple
 // design is the shuffle's: one thread per unit, wide aligned unit copies.
 // msg, pre and out must not overlap buf or each other.  Rows of 32 units or
-// more; shorter rows take shuffle_staged_short_kernel.
+// more; shorter rows take shuffle_staged_short_kernel.  The ownership is
+// checked by the audit named at shuffle_kernel.
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
@@ -179,7 +190,8 @@ shuffle_staged_kernel(V* __restrict__ buf, const V* __restrict__ msg,
 // the range grid-stride; each thread loads kShortK units (kShortK
 // independent chains of index load, then data load) before it stores any,
 // to keep enough bytes in flight.  Ownership is as above: each unit
-// (r, j) belongs to one thread, which reads before it writes.
+// (r, j) belongs to one thread, which reads before it writes (checked by
+// the audit named at shuffle_kernel).
 // A launch covers at most kSlabRows rows, so every flat index fits in 31
 // bits; the launcher walks longer buffers slab by slab.
 constexpr int64_t kShortUnits = 32;
@@ -319,13 +331,117 @@ shuffle_staged_short_kernel(V* __restrict__ buf, const V* __restrict__ msg,
   }
 }
 
+// ------------------------------------------------------------ launch shape
+//
+// The grid choice of all seven kernels is this one function: every
+// *_launch below takes its route, unit and grid from launch_shape and
+// launches exactly that, and block_pack_launch_shape exports it, so the
+// audit (repro_torch/analysis/kernelaudit.py) can hold each kernel's
+// Python record (kernels/block_pack.py) to the compiled launcher.
+enum Kernel {
+  kPack = 0, kUnpack, kShuffle, kShuffleStaged, kAccShuffle,
+  kAccShuffleStaged, kQaccShuffle
+};
+enum Route { kRowChunk = 0, kShortRows = 1, kWarpBlock = 2 };
+
+struct LaunchShape {
+  int64_t route;     // Route
+  int64_t unit;      // bytes a thread moves per access of buf (qacc: V floats)
+  int64_t units;     // units a row (qacc: a quantization block)
+  int64_t grid_x, grid_y, block;
+  int64_t steps;     // units a thread loads before it stores (qacc: K)
+  int64_t launches;  // launches (short rows: slabs of kSlabRows rows)
+  int64_t resident;  // short rows: the grid's cap, blocks resident at once
+};
+constexpr int kShapeFields = 9;
+
+int unit_bytes(int64_t row_bytes, uintptr_t pointers_or) {
+  for (int w = 16; w > 1; w /= 2)
+    if (row_bytes % w == 0 && pointers_or % w == 0) return w;
+  return 1;
+}
+
+dim3 grid_for(int64_t R, int64_t units) {
+  const int64_t per_block = (int64_t)kThreads * kUnitsPerThread;
+  int64_t chunks = (units + per_block - 1) / per_block;
+  if (chunks > kMaxChunks) chunks = kMaxChunks;
+  return dim3((unsigned)R, (unsigned)chunks, 1);
+}
+
+// Blocks of the short-row grid for `rows` rows: kShortK units a thread,
+// at most `resident` blocks (0: no cap).
+int64_t short_grid(int64_t rows, int64_t units, int64_t resident) {
+  const int64_t per_block = (int64_t)kThreads * kShortK;
+  const int64_t grid = (rows * units + per_block - 1) / per_block;
+  return resident > 0 && grid > resident ? resident : grid;
+}
+
+// size: a row's bytes (qacc: bs, its elements); qb: qacc's quantization
+// block; itemsize: the accumulating kernels' element bytes; ptrs: the OR of
+// the addresses whose alignment picks the unit (qacc: buf | err), qptrs
+// qacc's int8 ones (qmsg | outq); resident: as in LaunchShape.
+LaunchShape launch_shape(int kernel, int64_t R, int64_t size, int64_t qb,
+                         int64_t itemsize, uintptr_t ptrs, uintptr_t qptrs,
+                         int64_t resident) {
+  LaunchShape s{kRowChunk, 1, 0, 0, 1, kThreads, 1, 1, 0};
+  if (kernel == kQaccShuffle) {
+    const int64_t V = qb % 4 == 0 && ptrs % 16 == 0 && qptrs % 4 == 0 ? 4 : 1;
+    s.route = kWarpBlock;
+    s.unit = 4 * V;
+    s.units = qb / V;
+    s.steps = s.units <= 32 ? 1 : s.units <= 64 ? 2 : s.units <= 128 ? 4 : 8;
+    s.grid_x = (R * (size / qb) + kWarpsPerBlock - 1) / kWarpsPerBlock;
+    return s;
+  }
+  if (kernel == kAccShuffle || kernel == kAccShuffleStaged) {
+    // the short rows go in packs of 16 bytes where the row and pointers
+    // allow; the row x chunk kernel goes element by element
+    const int64_t bs = size / itemsize;
+    const int64_t n = size % 16 == 0 && ptrs % 16 == 0 ? 16 / itemsize : 1;
+    const bool short_row = bs / n < kShortUnits;
+    s.unit = short_row ? n * itemsize : itemsize;
+    s.units = short_row ? bs / n : bs;
+    s.steps = kUnitsPerThread;
+  } else {
+    s.unit = unit_bytes(size, ptrs);
+    s.units = size / s.unit;
+  }
+  if (s.units < kShortUnits) {
+    s.route = kShortRows;
+    s.steps = kShortK;
+    s.grid_x = short_grid(R < kSlabRows ? R : kSlabRows, s.units, resident);
+    s.launches = (R + kSlabRows - 1) / kSlabRows;
+    s.resident = resident;
+  } else {
+    const dim3 g = grid_for(R, s.units);
+    s.grid_x = g.x;
+    s.grid_y = g.y;
+  }
+  return s;
+}
+
+// Set by block_pack_launch_shape: a launcher then writes the shape it would
+// launch with here, and launches nothing.
+thread_local LaunchShape* t_dry = nullptr;
+
+// Launches a row x chunk or warp grid, or records it in a dry run.
+template <typename F>
+int launch_grid(const LaunchShape& sh, F launch) {
+  if (t_dry) {
+    *t_dry = sh;
+    return 0;
+  }
+  launch(dim3((unsigned)sh.grid_x, (unsigned)sh.grid_y, 1));
+  return (int)cudaGetLastError();
+}
+
 // Calls launch(r0, total, grid) for each slab of at most kSlabRows rows
-// (total = its rows * units), with a grid of at most as many blocks as
-// fit on the SMs at once (`per_sm`, asked of the runtime once a kernel);
-// returns the first error.
+// (total = its rows * units), with the short-row grid capped at as many
+// blocks as fit on the SMs at once (`per_sm`, asked of the runtime once a
+// kernel); returns the first error.  A dry run records the first slab's.
 template <typename Kernel, typename F>
-int by_slabs(Kernel kernel, std::atomic<int>& per_sm, int64_t R, int64_t units,
-             F launch) {
+int by_slabs(Kernel kernel, std::atomic<int>& per_sm, LaunchShape sh,
+             int64_t R, F launch) {
   int occ = per_sm.load(std::memory_order_relaxed);
   if (occ < 1) {
     if (cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
@@ -338,12 +454,16 @@ int by_slabs(Kernel kernel, std::atomic<int>& per_sm, int64_t R, int64_t units,
   if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
   if (cudaError_t e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev))
     return (int)e;
-  const int64_t per_block = (int64_t)kThreads * kShortK;
+  sh.resident = (int64_t)sms * occ;
+  sh.grid_x = short_grid(R < kSlabRows ? R : kSlabRows, sh.units, sh.resident);
+  if (t_dry) {
+    *t_dry = sh;
+    return 0;
+  }
   for (int64_t r0 = 0; r0 < R; r0 += kSlabRows) {
     const int64_t rows = R - r0 < kSlabRows ? R - r0 : kSlabRows;
-    int64_t grid = (rows * units + per_block - 1) / per_block;
-    if (grid > (int64_t)sms * occ) grid = (int64_t)sms * occ;
-    launch(r0, (uint32_t)(rows * units), (unsigned)grid);
+    launch(r0, (uint32_t)(rows * sh.units),
+           (unsigned)short_grid(rows, sh.units, sh.resident));
     if (cudaError_t e = cudaGetLastError()) return (int)e;
   }
   return 0;
@@ -485,7 +605,8 @@ __device__ __forceinline__ T identity() {
 // anything, then writes buf[r, a, j] (only when a != f: the drain would
 // overwrite it) and buf[r, f, j].  No other thread reads or writes those
 // addresses, so no value depends on another thread's write and there is no
-// barrier.  msg, pre and out must not overlap buf or each other.
+// barrier (checked by the audit named at shuffle_kernel).  msg, pre and out
+// must not overlap buf or each other.
 // Bytes per row: read acc, msg and fwd (or pre), write acc, out and fwd;
 // a coincident row reads acc and msg and writes out and fwd:
 // (6 * R - 2 * #{a == f}) * row_bytes over 3.35 TB/s.  Two adds or compares
@@ -646,7 +767,6 @@ acc_shuffle_short_kernel(Pack<T, N>* buf, const Pack<T, N>* __restrict__ msg,
 // element are far below the arithmetic bound.
 constexpr float kInv127 = 0x1.020408p-7f;   // float(1) / float(127)
 constexpr float kScaleFloor = 0x1.197998p-40f;   // float(1e-12)
-constexpr int kWarpsPerBlock = kThreads / 32;
 
 template <int V>
 __device__ __forceinline__ void load_f(const float* p, float (&d)[V]) {
@@ -792,157 +912,147 @@ qacc_shuffle_kernel(float* buf, float* err, const int8_t* __restrict__ qmsg,
 }
 
 template <int V, int K>
-int qacc_typed(void* buf, void* err, const void* qmsg, const void* smsg,
-               const void* acc, const void* fwd, void* outq, void* outs,
-               int64_t R, int64_t nslots, int64_t bs, int64_t qb,
+int qacc_typed(const LaunchShape& sh, void* buf, void* err, const void* qmsg,
+               const void* smsg, const void* acc, const void* fwd, void* outq,
+               void* outs, int64_t R, int64_t nslots, int64_t bs, int64_t qb,
                cudaStream_t stream) {
-  const int64_t warps = R * (bs / qb);
-  const int64_t blocks = (warps + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  if (blocks > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
-  qacc_shuffle_kernel<V, K><<<(unsigned)blocks, kThreads, 0, stream>>>(
-      static_cast<float*>(buf), static_cast<float*>(err),
-      static_cast<const int8_t*>(qmsg), static_cast<const float*>(smsg),
-      static_cast<const int32_t*>(acc), static_cast<const int32_t*>(fwd),
-      static_cast<int8_t*>(outq), static_cast<float*>(outs), R, nslots, bs,
-      qb);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    qacc_shuffle_kernel<V, K><<<grid, (unsigned)sh.block, 0, stream>>>(
+        static_cast<float*>(buf), static_cast<float*>(err),
+        static_cast<const int8_t*>(qmsg), static_cast<const float*>(smsg),
+        static_cast<const int32_t*>(acc), static_cast<const int32_t*>(fwd),
+        static_cast<int8_t*>(outq), static_cast<float*>(outs), R, nslots, bs,
+        qb);
+  });
 }
 
-// The least K of 1, 2, 4, 8 whose 32 * K units hold a block (8 beyond).
+// K (sh.steps) is the least of 1, 2, 4, 8 whose 32 * K units hold a block
+// (8 beyond).
 template <int V>
-int qacc_dispatch(void* buf, void* err, const void* qmsg, const void* smsg,
-                  const void* acc, const void* fwd, void* outq, void* outs,
-                  int64_t R, int64_t nslots, int64_t bs, int64_t qb,
-                  cudaStream_t s) {
-  const int64_t units = qb / V;
-  if (units <= 32)
-    return qacc_typed<V, 1>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
-  if (units <= 64)
-    return qacc_typed<V, 2>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
-  if (units <= 128)
-    return qacc_typed<V, 4>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
-  return qacc_typed<V, 8>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
-}
-
-int unit_bytes(int64_t row_bytes, uintptr_t pointers_or) {
-  for (int w = 16; w > 1; w /= 2)
-    if (row_bytes % w == 0 && pointers_or % w == 0) return w;
-  return 1;
-}
-
-dim3 grid_for(int64_t R, int64_t units) {
-  const int64_t per_block = (int64_t)kThreads * kUnitsPerThread;
-  int64_t chunks = (units + per_block - 1) / per_block;
-  if (chunks > kMaxChunks) chunks = kMaxChunks;
-  return dim3((unsigned)R, (unsigned)chunks, 1);
+int qacc_dispatch(const LaunchShape& sh, void* buf, void* err,
+                  const void* qmsg, const void* smsg, const void* acc,
+                  const void* fwd, void* outq, void* outs, int64_t R,
+                  int64_t nslots, int64_t bs, int64_t qb, cudaStream_t s) {
+  switch (sh.steps) {
+    case 1: return qacc_typed<V, 1>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+    case 2: return qacc_typed<V, 2>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+    case 4: return qacc_typed<V, 4>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+    default: return qacc_typed<V, 8>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  }
 }
 
 template <typename V>
-int pack_typed(const void* buf, const void* idx, void* out, int64_t R,
-               int64_t nslots, int64_t row_bytes, cudaStream_t stream) {
-  const int64_t units = row_bytes / (int64_t)sizeof(V);
+int pack_typed(const LaunchShape& sh, const void* buf, const void* idx,
+               void* out, int64_t R, int64_t nslots, cudaStream_t stream) {
+  const int64_t units = sh.units;
   const V* b = static_cast<const V*>(buf);
   const int32_t* ix = static_cast<const int32_t*>(idx);
   V* o = static_cast<V*>(out);
-  if (units < kShortUnits) {
+  if (sh.route == kShortRows) {
     static std::atomic<int> per_sm{0};
-    return by_slabs(pack_short_kernel<V>, per_sm, R, units,
+    return by_slabs(pack_short_kernel<V>, per_sm, sh, R,
                     [&](int64_t r0, uint32_t total, unsigned grid) {
       pack_short_kernel<V><<<grid, kThreads, 0, stream>>>(
           b + r0 * nslots * units, ix + r0, o + r0 * units, nslots,
           (uint32_t)units, total);
     });
   }
-  pack_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      b, ix, o, nslots, units);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    pack_kernel<V><<<grid, (unsigned)sh.block, 0, stream>>>(
+        b, ix, o, nslots, units);
+  });
 }
 
 template <typename V>
-int unpack_typed(void* buf, const void* msg, const void* idx, int64_t R,
-                 int64_t nslots, int64_t row_bytes, cudaStream_t stream) {
-  const int64_t units = row_bytes / (int64_t)sizeof(V);
+int unpack_typed(const LaunchShape& sh, void* buf, const void* msg,
+                 const void* idx, int64_t R, int64_t nslots,
+                 cudaStream_t stream) {
+  const int64_t units = sh.units;
   V* b = static_cast<V*>(buf);
   const V* m = static_cast<const V*>(msg);
   const int32_t* ix = static_cast<const int32_t*>(idx);
-  if (units < kShortUnits) {
+  if (sh.route == kShortRows) {
     static std::atomic<int> per_sm{0};
-    return by_slabs(unpack_short_kernel<V>, per_sm, R, units,
+    return by_slabs(unpack_short_kernel<V>, per_sm, sh, R,
                     [&](int64_t r0, uint32_t total, unsigned grid) {
       unpack_short_kernel<V><<<grid, kThreads, 0, stream>>>(
           b + r0 * nslots * units, m + r0 * units, ix + r0, nslots,
           (uint32_t)units, total);
     });
   }
-  unpack_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      b, m, ix, nslots, units);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    unpack_kernel<V><<<grid, (unsigned)sh.block, 0, stream>>>(
+        b, m, ix, nslots, units);
+  });
 }
 
 template <typename V>
-int shuffle_typed(void* buf, const void* msg, const void* recv,
-                  const void* send, void* out, int64_t R, int64_t nslots,
-                  int64_t row_bytes, cudaStream_t stream) {
-  const int64_t units = row_bytes / (int64_t)sizeof(V);
+int shuffle_typed(const LaunchShape& sh, void* buf, const void* msg,
+                  const void* recv, const void* send, void* out, int64_t R,
+                  int64_t nslots, cudaStream_t stream) {
+  const int64_t units = sh.units;
   V* b = static_cast<V*>(buf);
   const V* m = static_cast<const V*>(msg);
   const int32_t* rv = static_cast<const int32_t*>(recv);
   const int32_t* sd = static_cast<const int32_t*>(send);
   V* o = static_cast<V*>(out);
-  if (units < kShortUnits) {
+  if (sh.route == kShortRows) {
     static std::atomic<int> per_sm{0};
-    return by_slabs(shuffle_short_kernel<V>, per_sm, R, units,
+    return by_slabs(shuffle_short_kernel<V>, per_sm, sh, R,
                     [&](int64_t r0, uint32_t total, unsigned grid) {
       shuffle_short_kernel<V><<<grid, kThreads, 0, stream>>>(
           b + r0 * nslots * units, m + r0 * units, rv + r0, sd + r0,
           o + r0 * units, nslots, (uint32_t)units, total);
     });
   }
-  shuffle_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      b, m, rv, sd, o, nslots, units);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    shuffle_kernel<V><<<grid, (unsigned)sh.block, 0, stream>>>(
+        b, m, rv, sd, o, nslots, units);
+  });
 }
 
 template <typename V>
-int shuffle_staged_typed(void* buf, const void* msg, const void* pre,
-                         const void* recv, const void* send, void* out,
-                         int64_t R, int64_t nslots, int64_t row_bytes,
+int shuffle_staged_typed(const LaunchShape& sh, void* buf, const void* msg,
+                         const void* pre, const void* recv, const void* send,
+                         void* out, int64_t R, int64_t nslots,
                          cudaStream_t stream) {
-  const int64_t units = row_bytes / (int64_t)sizeof(V);
+  const int64_t units = sh.units;
   V* b = static_cast<V*>(buf);
   const V* m = static_cast<const V*>(msg);
   const V* pr = static_cast<const V*>(pre);
   const int32_t* rv = static_cast<const int32_t*>(recv);
   const int32_t* sd = static_cast<const int32_t*>(send);
   V* o = static_cast<V*>(out);
-  if (units < kShortUnits) {
+  if (sh.route == kShortRows) {
     static std::atomic<int> per_sm{0};
-    return by_slabs(shuffle_staged_short_kernel<V>, per_sm, R, units,
+    return by_slabs(shuffle_staged_short_kernel<V>, per_sm, sh, R,
                     [&](int64_t r0, uint32_t total, unsigned grid) {
       shuffle_staged_short_kernel<V><<<grid, kThreads, 0, stream>>>(
           b + r0 * nslots * units, m + r0 * units, pr + r0 * units, rv + r0,
           sd + r0, o + r0 * units, nslots, (uint32_t)units, total);
     });
   }
-  shuffle_staged_kernel<V><<<grid_for(R, units), kThreads, 0, stream>>>(
-      b, m, pr, rv, sd, o, nslots, units);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    shuffle_staged_kernel<V><<<grid, (unsigned)sh.block, 0, stream>>>(
+        b, m, pr, rv, sd, o, nslots, units);
+  });
 }
 
 // The short-row accumulating step in units of N elements: rows r0 on of
 // each slab start at r0 * nslots * units units into buf, r0 * units into
 // msg, pre and out.
 template <typename T, int OP, bool STAGED, int N>
-int acc_short(void* buf, const void* msg, const void* pre, const int32_t* a,
-              const int32_t* f, void* out, int64_t R, int64_t nslots,
-              int64_t units, cudaStream_t stream) {
+int acc_short(const LaunchShape& sh, void* buf, const void* msg,
+              const void* pre, const int32_t* a, const int32_t* f, void* out,
+              int64_t R, int64_t nslots, cudaStream_t stream) {
   using V = Pack<T, N>;
+  const int64_t units = sh.units;
   V* b = static_cast<V*>(buf);
   const V* m = static_cast<const V*>(msg);
   const V* p = static_cast<const V*>(pre);
   V* o = static_cast<V*>(out);
   static std::atomic<int> per_sm{0};
-  return by_slabs(acc_shuffle_short_kernel<T, OP, STAGED, N>, per_sm, R, units,
+  return by_slabs(acc_shuffle_short_kernel<T, OP, STAGED, N>, per_sm, sh, R,
                   [&](int64_t r0, uint32_t total, unsigned grid) {
     acc_shuffle_short_kernel<T, OP, STAGED, N><<<grid, kThreads, 0, stream>>>(
         b + r0 * nslots * units, m + r0 * units, STAGED ? p + r0 * units : p,
@@ -954,35 +1064,36 @@ template <typename T, bool STAGED>
 int acc_typed(void* buf, const void* msg, const void* pre, const void* acc,
               const void* fwd, void* out, int op, int64_t R, int64_t nslots,
               int64_t row_bytes, cudaStream_t stream) {
-  const int64_t bs = row_bytes / (int64_t)sizeof(T);
   const int32_t* a = static_cast<const int32_t*>(acc);
   const int32_t* f = static_cast<const int32_t*>(fwd);
   constexpr int N = 16 / (int)sizeof(T);
   const uintptr_t ptrs =
       (uintptr_t)buf | (uintptr_t)msg | (uintptr_t)pre | (uintptr_t)out;
-  const bool wide = row_bytes % 16 == 0 && ptrs % 16 == 0;
-  const int64_t units = wide ? bs / N : bs;
-  if (units < kShortUnits) {
-    if (wide)
+  const LaunchShape sh =
+      launch_shape(STAGED ? kAccShuffleStaged : kAccShuffle, R, row_bytes, 0,
+                   (int64_t)sizeof(T), ptrs, 0, 0);
+  if (sh.route == kShortRows) {
+    if (sh.unit != (int64_t)sizeof(T))  // packs of N elements
       return op == 0
-          ? acc_short<T, 0, STAGED, N>(buf, msg, pre, a, f, out, R, nslots, units, stream)
-          : acc_short<T, 1, STAGED, N>(buf, msg, pre, a, f, out, R, nslots, units, stream);
+          ? acc_short<T, 0, STAGED, N>(sh, buf, msg, pre, a, f, out, R, nslots, stream)
+          : acc_short<T, 1, STAGED, N>(sh, buf, msg, pre, a, f, out, R, nslots, stream);
     return op == 0
-        ? acc_short<T, 0, STAGED, 1>(buf, msg, pre, a, f, out, R, nslots, units, stream)
-        : acc_short<T, 1, STAGED, 1>(buf, msg, pre, a, f, out, R, nslots, units, stream);
+        ? acc_short<T, 0, STAGED, 1>(sh, buf, msg, pre, a, f, out, R, nslots, stream)
+        : acc_short<T, 1, STAGED, 1>(sh, buf, msg, pre, a, f, out, R, nslots, stream);
   }
-  const dim3 grid = grid_for(R, bs);
+  const int64_t bs = sh.units;
   T* b = static_cast<T*>(buf);
   const T* m = static_cast<const T*>(msg);
   const T* p = static_cast<const T*>(pre);
   T* o = static_cast<T*>(out);
-  if (op == 0)
-    acc_shuffle_kernel<T, 0, STAGED><<<grid, kThreads, 0, stream>>>(
-        b, m, p, a, f, o, nslots, bs);
-  else
-    acc_shuffle_kernel<T, 1, STAGED><<<grid, kThreads, 0, stream>>>(
-        b, m, p, a, f, o, nslots, bs);
-  return (int)cudaGetLastError();
+  return launch_grid(sh, [&](dim3 grid) {
+    if (op == 0)
+      acc_shuffle_kernel<T, 0, STAGED><<<grid, (unsigned)sh.block, 0, stream>>>(
+          b, m, p, a, f, o, nslots, bs);
+    else
+      acc_shuffle_kernel<T, 1, STAGED><<<grid, (unsigned)sh.block, 0, stream>>>(
+          b, m, p, a, f, o, nslots, bs);
+  });
 }
 
 // dtype codes as in kernels/block_pack.py ACC_DTYPES.
@@ -1017,12 +1128,14 @@ int block_pack_launch(const void* buf, const void* idx, void* out, int64_t R,
   if (R <= 0 || row_bytes <= 0) return 0;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (unit_bytes(row_bytes, (uintptr_t)buf | (uintptr_t)out)) {
-    case 16: return pack_typed<uint4>(buf, idx, out, R, nslots, row_bytes, s);
-    case 8: return pack_typed<uint2>(buf, idx, out, R, nslots, row_bytes, s);
-    case 4: return pack_typed<uint32_t>(buf, idx, out, R, nslots, row_bytes, s);
-    case 2: return pack_typed<uint16_t>(buf, idx, out, R, nslots, row_bytes, s);
-    default: return pack_typed<uint8_t>(buf, idx, out, R, nslots, row_bytes, s);
+  const LaunchShape sh = launch_shape(
+      kPack, R, row_bytes, 0, 1, (uintptr_t)buf | (uintptr_t)out, 0, 0);
+  switch (sh.unit) {
+    case 16: return pack_typed<uint4>(sh, buf, idx, out, R, nslots, s);
+    case 8: return pack_typed<uint2>(sh, buf, idx, out, R, nslots, s);
+    case 4: return pack_typed<uint32_t>(sh, buf, idx, out, R, nslots, s);
+    case 2: return pack_typed<uint16_t>(sh, buf, idx, out, R, nslots, s);
+    default: return pack_typed<uint8_t>(sh, buf, idx, out, R, nslots, s);
   }
 }
 
@@ -1032,12 +1145,14 @@ int block_unpack_launch(void* buf, const void* msg, const void* idx, int64_t R,
   if (R <= 0 || row_bytes <= 0) return 0;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (unit_bytes(row_bytes, (uintptr_t)buf | (uintptr_t)msg)) {
-    case 16: return unpack_typed<uint4>(buf, msg, idx, R, nslots, row_bytes, s);
-    case 8: return unpack_typed<uint2>(buf, msg, idx, R, nslots, row_bytes, s);
-    case 4: return unpack_typed<uint32_t>(buf, msg, idx, R, nslots, row_bytes, s);
-    case 2: return unpack_typed<uint16_t>(buf, msg, idx, R, nslots, row_bytes, s);
-    default: return unpack_typed<uint8_t>(buf, msg, idx, R, nslots, row_bytes, s);
+  const LaunchShape sh = launch_shape(
+      kUnpack, R, row_bytes, 0, 1, (uintptr_t)buf | (uintptr_t)msg, 0, 0);
+  switch (sh.unit) {
+    case 16: return unpack_typed<uint4>(sh, buf, msg, idx, R, nslots, s);
+    case 8: return unpack_typed<uint2>(sh, buf, msg, idx, R, nslots, s);
+    case 4: return unpack_typed<uint32_t>(sh, buf, msg, idx, R, nslots, s);
+    case 2: return unpack_typed<uint16_t>(sh, buf, msg, idx, R, nslots, s);
+    default: return unpack_typed<uint8_t>(sh, buf, msg, idx, R, nslots, s);
   }
 }
 
@@ -1049,17 +1164,13 @@ int block_shuffle_launch(void* buf, const void* msg, const void* recv,
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uintptr_t ptrs = (uintptr_t)buf | (uintptr_t)msg | (uintptr_t)out;
-  switch (unit_bytes(row_bytes, ptrs)) {
-    case 16:
-      return shuffle_typed<uint4>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
-    case 8:
-      return shuffle_typed<uint2>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
-    case 4:
-      return shuffle_typed<uint32_t>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
-    case 2:
-      return shuffle_typed<uint16_t>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
-    default:
-      return shuffle_typed<uint8_t>(buf, msg, recv, send, out, R, nslots, row_bytes, s);
+  const LaunchShape sh = launch_shape(kShuffle, R, row_bytes, 0, 1, ptrs, 0, 0);
+  switch (sh.unit) {
+    case 16: return shuffle_typed<uint4>(sh, buf, msg, recv, send, out, R, nslots, s);
+    case 8: return shuffle_typed<uint2>(sh, buf, msg, recv, send, out, R, nslots, s);
+    case 4: return shuffle_typed<uint32_t>(sh, buf, msg, recv, send, out, R, nslots, s);
+    case 2: return shuffle_typed<uint16_t>(sh, buf, msg, recv, send, out, R, nslots, s);
+    default: return shuffle_typed<uint8_t>(sh, buf, msg, recv, send, out, R, nslots, s);
   }
 }
 
@@ -1072,17 +1183,14 @@ int block_shuffle_staged_launch(void* buf, const void* msg, const void* pre,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const uintptr_t ptrs =
       (uintptr_t)buf | (uintptr_t)msg | (uintptr_t)pre | (uintptr_t)out;
-  switch (unit_bytes(row_bytes, ptrs)) {
-    case 16:
-      return shuffle_staged_typed<uint4>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
-    case 8:
-      return shuffle_staged_typed<uint2>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
-    case 4:
-      return shuffle_staged_typed<uint32_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
-    case 2:
-      return shuffle_staged_typed<uint16_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
-    default:
-      return shuffle_staged_typed<uint8_t>(buf, msg, pre, recv, send, out, R, nslots, row_bytes, s);
+  const LaunchShape sh =
+      launch_shape(kShuffleStaged, R, row_bytes, 0, 1, ptrs, 0, 0);
+  switch (sh.unit) {
+    case 16: return shuffle_staged_typed<uint4>(sh, buf, msg, pre, recv, send, out, R, nslots, s);
+    case 8: return shuffle_staged_typed<uint2>(sh, buf, msg, pre, recv, send, out, R, nslots, s);
+    case 4: return shuffle_staged_typed<uint32_t>(sh, buf, msg, pre, recv, send, out, R, nslots, s);
+    case 2: return shuffle_staged_typed<uint16_t>(sh, buf, msg, pre, recv, send, out, R, nslots, s);
+    default: return shuffle_staged_typed<uint8_t>(sh, buf, msg, pre, recv, send, out, R, nslots, s);
   }
 }
 
@@ -1113,11 +1221,66 @@ int block_qacc_shuffle_launch(void* buf, void* err, const void* qmsg,
   if (qb <= 0 || bs % qb != 0) return (int)cudaErrorInvalidValue;
   if (cudaError_t e = cudaSetDevice(device)) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t f16 = (uintptr_t)buf | (uintptr_t)err;
-  const uintptr_t q4 = (uintptr_t)qmsg | (uintptr_t)outq;
-  if (qb % 4 == 0 && f16 % 16 == 0 && q4 % 4 == 0)
-    return qacc_dispatch<4>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
-  return qacc_dispatch<1>(buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  const LaunchShape sh = launch_shape(
+      kQaccShuffle, R, bs, qb, 4, (uintptr_t)buf | (uintptr_t)err,
+      (uintptr_t)qmsg | (uintptr_t)outq, 0);
+  if (sh.grid_x > 2147483647LL) return (int)cudaErrorInvalidConfiguration;
+  if (sh.unit == 16)
+    return qacc_dispatch<4>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+  return qacc_dispatch<1>(sh, buf, err, qmsg, smsg, acc, fwd, outq, outs, R, nslots, bs, qb, s);
+}
+
+// The launch shape the entry point of `kernel` (enum Kernel) would take for
+// these operands, written as kShapeFields int64 to `shape` in LaunchShape's
+// order; nothing is launched.  The operands are those of that entry point
+// (nullptr where it has none; size and qb as it takes them); their
+// addresses choose the unit and are not read.
+int block_pack_launch_shape(int kernel, void* buf, void* msg, void* pre,
+                            void* out, void* err, void* outq, void* outs,
+                            int dtype, int op, int64_t R, int64_t nslots,
+                            int64_t size, int64_t qb, int device,
+                            int64_t* shape) {
+  LaunchShape sh{};
+  t_dry = &sh;
+  int rc;
+  switch (kernel) {
+    case kPack:
+      rc = block_pack_launch(buf, nullptr, out, R, nslots, size, device, nullptr);
+      break;
+    case kUnpack:
+      rc = block_unpack_launch(buf, msg, nullptr, R, nslots, size, device, nullptr);
+      break;
+    case kShuffle:
+      rc = block_shuffle_launch(buf, msg, nullptr, nullptr, out, R, nslots,
+                                size, device, nullptr);
+      break;
+    case kShuffleStaged:
+      rc = block_shuffle_staged_launch(buf, msg, pre, nullptr, nullptr, out,
+                                       R, nslots, size, device, nullptr);
+      break;
+    case kAccShuffle:
+      rc = block_acc_shuffle_launch(buf, msg, nullptr, nullptr, out, dtype,
+                                    op, R, nslots, size, device, nullptr);
+      break;
+    case kAccShuffleStaged:
+      rc = block_acc_shuffle_staged_launch(buf, msg, pre, nullptr, nullptr,
+                                           out, dtype, op, R, nslots, size,
+                                           device, nullptr);
+      break;
+    case kQaccShuffle:
+      rc = block_qacc_shuffle_launch(buf, err, msg, nullptr, nullptr, nullptr,
+                                     outq, outs, R, nslots, size, qb, device,
+                                     nullptr);
+      break;
+    default:
+      rc = (int)cudaErrorInvalidValue;
+  }
+  t_dry = nullptr;
+  const int64_t fields[kShapeFields] = {sh.route, sh.unit, sh.units,
+                                        sh.grid_x, sh.grid_y, sh.block,
+                                        sh.steps, sh.launches, sh.resident};
+  for (int i = 0; i < kShapeFields; ++i) shape[i] = fields[i];
+  return rc;
 }
 
 const char* block_pack_error_string(int code) {

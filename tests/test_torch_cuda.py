@@ -1268,3 +1268,62 @@ def test_memory_train_step_cuda_matches_cpu(gen, arch):
     assert all(np.isfinite(losses["cuda"]))
     gap = max(abs(a - b) for a, b in zip(losses["cuda"], losses["cpu"]))
     assert gap <= 1e-3 * max(1.0, losses["cpu"][0]), losses
+
+
+# ------------------------------------------------- the kernels' audit records
+#
+# repro_torch.analysis.kernelaudit replays each round-step kernel's record
+# (kernels/block_pack.py KERNEL_AUDITS) on the CPU; these hold the records
+# to the compiled kernels: the elements a launch changes are the record's
+# write set, and the launch grid the record names is the launcher's.
+
+from repro_torch.analysis import kernelaudit as ka  # noqa: E402
+
+
+@pytest.mark.parametrize("name", list(bp.KERNEL_AUDITS))
+def test_write_set_probe_matches_records(gen, name):
+    """Every geometry of the kernel (each grid shape it has, at 16-byte
+    and narrower units) over every launch of the p = 5, n = 4 schedule;
+    then the negative control, a record with one write dropped, caught by
+    the comparison of what the kernel changed (the plain version's is
+    skipped)."""
+    rep = ka.probe_kernels("cuda", names=[name], ps=(5,), ns=(4,))
+    assert rep.ok and rep.checked > 0, rep.summary()
+    bad = ka.probe_kernels("cuda", names=[name], ps=(5,), ns=(4,),
+                           geometries={name: ka.GEOMETRIES[name][:1]},
+                           specs={name: ka.dropped_write(bp.KERNEL_AUDITS[name])},
+                           sides=("kernel",))
+    assert bad.findings and all(
+        f.check == "write-set" and f.message.startswith("the kernel ")
+        for f in bad.findings), bad.summary()
+
+
+@pytest.mark.parametrize("off", [0, 1])
+@pytest.mark.parametrize("name", list(bp.KERNEL_AUDITS))
+def test_compiled_launch_grid_matches_record(gen, name, off):
+    """The shape block_pack_launch_shape reports equals the record's at
+    every geometry, with aligned operands and with every operand one
+    element past an allocation's start (narrower units)."""
+    for geom in ka.GEOMETRIES[name]:
+        ops = ka._operands(name, 7, 5, geom, "cuda", gen)
+        ops = {k: _offset(v, off) for k, v in ops.items()}
+        ka._sentinels(name, ops, gen, "sum")
+        before = {k: v.clone() for k, v in ops.items()}
+        compiled = bp.compiled_launch_shape(name, ops)
+        want = bp.KERNEL_AUDITS[name].shape(
+            **{**bp.shape_args(name, ops), "resident": compiled.resident})
+        assert compiled == want, (geom, compiled, want)
+        torch.cuda.synchronize()
+        # a dry run launches nothing: every operand is as it was
+        assert all(torch.equal(ops[k], before[k]) for k in ops)
+
+
+def test_analysis_cli_on_the_card(gen, tmp_path):
+    from repro_torch.analysis.__main__ import main
+
+    bench = tmp_path / "bench.json"
+    assert main(["--all", "--bench", str(bench)]) == 0
+    import json
+
+    passes = json.loads(bench.read_text())["passes"]
+    assert all(p["checked"] > 0 and p["findings"] == 0 for p in passes.values())
