@@ -264,6 +264,24 @@ tensor-core instance for q/k heads of 192 and v heads of 128:
     not 0; its time and peak (no optimizer: AdamW's moments would not
     fit beside 55 GB of weights and gradients).
 
+Last, the dryrun phase (a budget of 90 s): the port's dry run
+(``python -m repro_torch.launch.dryrun --mesh single``, one process a
+cell, started together) of zamba2-2.7b x prefill_32k, qwen2-0.5b x
+train_4k, deepseek-v3-671b x decode_32k, llama-3.2-vision-11b x
+decode_32k and whisper-small x prefill_32k, each record and the
+roofline table (``repro_torch.launch.roofline`` with this card's
+constants) printed; the dry run's counts of the prefill and the auto
+train step this run measured, at their own sizes on meta on a 1 x 1
+mesh: each count's compute time (FLOPs over the bf16 peak) must not
+exceed the measured time of the same call, and its argument bytes must
+equal the real parameters' and the real train state's bytes on the card
+(memory time and the estimated peak printed beside the measured peak,
+unchecked); ALPHA, the median wall time of one round of a warm p = 2
+broadcast plan over many rounds (the roofline's latency term of this
+run); and the four ``examples/torch_*.py``,
+a subprocess each on the card, each of which must exit 0, report the
+kernel launches of ``EXAMPLE_LAUNCHES`` and end with ``OK``.
+
 Matrix products run with TF32 off (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 
@@ -278,12 +296,16 @@ result.  It imports nothing of JAX and nothing of the JAX package.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from dataclasses import replace
 from pathlib import Path
@@ -441,6 +463,29 @@ LAUNCH_MESH = "4x1"
 #: is 2.16 B parameters.  Past a peak of VLM_TRAIN_PEAK bytes the vlm's
 #: tokens are halved.
 MEM_TRAIN_STEPS, MEM_TRAIN_LR, VLM_TRAIN_LAYERS, VLM_TRAIN_PEAK = 2, 1e-3, 5, 75e9
+#: The dry run's cells on the single-pod mesh, the examples run on the card,
+#: the rounds of the p = 2 broadcast plan ALPHA is timed over, and the
+#: phase's budget in seconds.
+DRYRUN_CELLS = [("zamba2-2.7b", "prefill_32k"), ("qwen2-0.5b", "train_4k"),
+                ("deepseek-v3-671b", "decode_32k"),
+                ("llama-3.2-vision-11b", "decode_32k"), ("whisper-small", "prefill_32k")]
+EXAMPLES = ["torch_quickstart.py", "torch_collective_demo.py", "torch_serve_demo.py",
+            "torch_train_lm.py"]
+#: The kernel launches each example must report on the card (its inputs
+#: are fixed): rows 1-4's round-step kernels in the quickstart and the
+#: collective demo, the flash kernel in the serve demo's prefill and
+#: decode, none in the trainer (it trains on the plain path).
+EXAMPLE_LAUNCHES = {
+    "torch_quickstart.py": {"block_pack": 2, "block_unpack": 2, "block_shuffle": 10},
+    "torch_collective_demo.py": {"block_pack": 7, "block_unpack": 7,
+                                 "block_shuffle": 34, "block_acc_shuffle": 6},
+    "torch_serve_demo.py": {"flash_attention": 4},
+    "torch_train_lm.py": {},
+}
+ALPHA_BLOCKS, ALPHA_CALLS, DRYRUN_BUDGET_S = 256, 30, 90
+#: What the earlier phases measured of the calls the dryrun phase counts:
+#: "prefill" (model_phases) and "train_auto" (train_phases).
+MEASURED: dict = {}
 
 
 def emit(obj) -> None:
@@ -2531,6 +2576,9 @@ def train_phases(torch, np, card, kmods, g) -> dict:
         state = init_train_state(cfg, tcfg, params=tree0, group=group)
         step = make_train_step(cfg, tcfg, group=group)
         recs, evals = [], None
+        if tcfg.grad_sync == "auto":
+            MEASURED["train_auto"] = {"state_bytes": sum(
+                x.numel() * x.element_size() for x in tree_flatten(state)[0])}
         for i in range(n_steps):
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
@@ -2597,6 +2645,9 @@ def train_phases(torch, np, card, kmods, g) -> dict:
           f"streamed step launches {stream_steps[0]['launches']} != {expect_stream}")
     for rec in auto_steps:
         check(not rec["launches"], f"auto step launched {rec['launches']}")
+    MEASURED["train_auto"].update(
+        ms=min(r["ms"] for r in auto_steps),
+        max_memory_allocated=max(r["max_memory_allocated"] for r in auto_steps))
     launches["train_step"] = comp_steps[0]["launches"]
     launches["train_step_streamed"] = stream_steps[0]["launches"]
     emit({"phase": "train", "arch": TRAIN_ARCH, "p": TRAIN_P, "global_batch": TRAIN_B,
@@ -3065,6 +3116,8 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     torch.cuda.empty_cache()
     pre_ms, pre_runs = median_ms(torch, lambda: step(params, tok), 3)
     pre_peak = torch.cuda.max_memory_allocated()
+    MEASURED["prefill"] = {"ms": min(pre_runs), "weight_bytes": weight_bytes,
+                           "max_memory_allocated": pre_peak}
     plain_pre_ms, plain_pre_runs = median_ms(torch, lambda: plain_step(params, tok), 3)
     torch.cuda.empty_cache()
     attn_share = attn["ms"] * expect["flash_attention"] / pre_ms
@@ -3816,6 +3869,121 @@ def mtp_loss_phase(torch, np, card, kmods) -> None:
     torch.cuda.empty_cache()
 
 
+def alpha_s(torch) -> float:
+    """ALPHA: the median wall time of one round of a warm p = 2 broadcast
+    plan on the card (a plan of ALPHA_BLOCKS blocks, ALPHA_CALLS calls)."""
+    from repro_torch.core.comm import StackedGroup, get_comm
+
+    x = torch.zeros((2, 4 * ALPHA_BLOCKS), device="cuda")
+    plan = get_comm(StackedGroup(2)).plan("broadcast", x, n_blocks=ALPHA_BLOCKS)
+    for _ in range(3):
+        plan(x)
+    times = []
+    for _ in range(ALPHA_CALLS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan(x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / plan.rounds)
+    return sorted(times)[len(times) // 2]
+
+
+def dryrun_phase(torch, card) -> None:
+    """The dry run and the roofline on this card, the counts of two calls
+    this run measured, ALPHA and the examples (see the module docstring)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun, roofline
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.common import ShapeConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    t0 = time.perf_counter()
+    alpha = alpha_s(torch)
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    work = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    procs = {}
+    for arch, shape in DRYRUN_CELLS:
+        procs[(arch, shape)] = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", "single", "--out-dir", str(work)],
+            env=env, cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)
+    for script in EXAMPLES:
+        extra = ["--ckpt-dir", str(work / "ckpt")] if "train" in script else []
+        procs[script] = subprocess.Popen(
+            [sys.executable, str(ROOT / "examples" / script), *extra], env=env,
+            cwd=str(ROOT), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    # the dry run's counts of the two calls this run measured, at their
+    # own sizes, on a 1 x 1 mesh (one card)
+    const = {**roofline.card_constants(), "alpha": alpha}
+    one = Mesh((1, 1), ("data", "model"))
+    counts = {}
+    for name, arch, shape, tcfg in (
+            ("prefill", ARCH, ShapeConfig("smoke_prefill", "prefill", PREFILL_S,
+                                          PREFILL_B), None),
+            ("train_auto", TRAIN_ARCH, ShapeConfig("smoke_train", "train", TRAIN_S,
+                                                   TRAIN_B),
+             TrainConfig(grad_sync="auto", microbatches=2, remat="full"))):
+        rec = dryrun.trace_cell(get_config(arch), shape, one,
+                                microbatches=tcfg.microbatches if tcfg else None,
+                                tcfg=tcfg)
+        got, by = MEASURED[name], rec["memory"]["argument_bytes_by_input"]
+        terms = roofline.terms({"arch": arch, "shape": shape.name, **rec}, const)
+        real = got["weight_bytes"] if name == "prefill" else got["state_bytes"]
+        counted = by["params"] if name == "prefill" else by["state"]
+        counts[name] = {
+            "arch": arch, "batch": shape.global_batch, "seq": shape.seq_len,
+            "flops": rec["flops_weighted"], "bytes": rec["bytes_weighted"],
+            "trace_s": rec["lower_s"], "ops": rec["ops"],
+            "compute_s": terms["compute_s"], "memory_s": terms["memory_s"],
+            "measured_s": got["ms"] / 1e3,
+            "compute_share_of_measured": terms["compute_s"] / (got["ms"] / 1e3),
+            "argument_bytes": counted, "real_bytes": real,
+            "peak_estimate_bytes": rec["memory"]["peak_estimate_bytes"],
+            "max_memory_allocated": got["max_memory_allocated"]}
+        check(terms["compute_s"] <= got["ms"] / 1e3,
+              f"dryrun: {name} counts {rec['flops_weighted']} FLOPs, "
+              f"{terms['compute_s']} s at the peak, over its measured {got['ms']} ms")
+        check(counted == real, f"dryrun: {name} argument bytes {counted} on meta, "
+                               f"{real} on the card")
+
+    examples, records = {}, []
+    for key, proc in procs.items():
+        out, _ = proc.communicate(timeout=600)
+        if isinstance(key, str):
+            check(proc.returncode == 0 and out.strip().endswith("OK"),
+                  f"dryrun: example {key} exited {proc.returncode}:\n{out[-3000:]}")
+            said = [ln for ln in out.splitlines() if ln.startswith("kernel launches: ")]
+            check(len(said) == 1, f"dryrun: example {key} printed no launch counts")
+            examples[key] = ast.literal_eval(said[0].split(": ", 1)[1])
+            check(examples[key] == EXAMPLE_LAUNCHES[key],
+                  f"dryrun: example {key} launched {examples[key]}, "
+                  f"expected {EXAMPLE_LAUNCHES[key]}")
+            continue
+        check(proc.returncode == 0, f"dryrun: cell {key} exited {proc.returncode}:\n"
+                                    f"{out[-3000:]}")
+        with open(dryrun.cell_path(*key, "single", out_dir=str(work))) as f:
+            rec = json.load(f)
+        check(rec["flops_weighted"] > 0 and rec["memory"]["argument_bytes"] > 0,
+              f"dryrun: cell {key} counted nothing")
+        emit({"phase": "dryrun_cell", **rec})
+        records.append(rec)
+    shutil.rmtree(work, ignore_errors=True)
+    rows = [roofline.terms(r, const) for r in records]
+    for line in roofline.markdown_table(rows, const).splitlines():
+        print(line, flush=True)
+    seconds = time.perf_counter() - t0
+    emit({"phase": "dryrun", "seconds": seconds, "budget_s": DRYRUN_BUDGET_S,
+          "within_budget": seconds <= DRYRUN_BUDGET_S,
+          "alpha_us": alpha * 1e6, "alpha_rounds": ALPHA_BLOCKS,
+          "cells": {f"{r['arch']} x {r['shape']}": {
+              k: t[k] for k in ("compute_s", "memory_s", "bottleneck", "useful_ratio",
+                                "fits_hbm", "peak_gb")} | {"trace_s": r["lower_s"]}
+              for r, t in zip(records, rows)},
+          "counts": counts, "examples": examples, "card": card})
+
+
 def main() -> None:
     t_start = time.perf_counter()
     import numpy as np
@@ -4500,6 +4668,9 @@ def main() -> None:
                layers=MLA_LAYERS, f32_layers=MLA_F32_LAYERS, f32_seq=MLA_F32_SEQ,
                rtol=MLA_PREFILL_RTOL)
     mtp_loss_phase(torch, np, card, kmods)
+
+    # 13e. the dry run, its counts against this run's, ALPHA, the examples
+    dryrun_phase(torch, card)
 
     # 14. the whole run's wall time, then the kernels line, each kernel
     #     with the launch count of its path

@@ -230,6 +230,18 @@ def _drain(out: torch.Tensor, keep: slice) -> None:
     out[keep.stop:].zero_()
 
 
+#: Observers of the groups' exchange rounds: each is called with the
+#: group (or level) and the round's messages before they move.
+#: :func:`repro_torch.launch.op_analysis.collective_stats` holds one for
+#: the length of a call.
+EXCHANGE_OBSERVERS: List[Callable] = []
+
+
+def observe_exchange(level, msgs: List[torch.Tensor]) -> None:
+    for fn in EXCHANGE_OBSERVERS:
+        fn(level, msgs)
+
+
 def _roll(msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
     """The stacked exchange: rank r's row takes rank (r - shift)'s."""
     return [torch.roll(m, shift, dims=0) for m in msgs]
@@ -730,6 +742,7 @@ class StackedGroup:
     def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
         """Rank r's row of each ``[p, ...]`` message goes to rank
         ``(r + shift) % p``."""
+        observe_exchange(self, msgs)
         return _roll(msgs, shift)
 
 
@@ -780,6 +793,7 @@ class DistGroup:
     def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
         import torch.distributed as dist
 
+        observe_exchange(self, msgs)
         dst = self._peer((self.rank + shift) % self.p)
         src = self._peer((self.rank - shift) % self.p)
         got = [torch.empty_like(m) for m in msgs]

@@ -75,6 +75,7 @@ from .comm import (
     _row_of,
     check_devices,
     host_plan,
+    observe_exchange,
     payload_spec,
     resolve_device,
     validate_payload,
@@ -166,6 +167,7 @@ class _StackedLevel:
         return rows % self.cores if self.dim else rows // self.cores
 
     def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        observe_exchange(self, msgs)
         grid = (self.nodes, self.cores)
         return [torch.roll(m.view(grid + tuple(m.shape[1:])), shift,
                            dims=self.dim).view(m.shape) for m in msgs]

@@ -11,4 +11,11 @@ first launch."""
 from . import block_pack, flash_attention, quant_ops, reduce_ops, ref, ssd_scan
 
 __all__ = ["block_pack", "flash_attention", "quant_ops", "reduce_ops", "ref",
-           "ssd_scan"]
+           "ssd_scan", "launches"]
+
+
+def launches() -> dict:
+    """The CUDA kernels launched since their counts were last reset (each
+    wrapper module's ``reset_launches``), by name: those that ran."""
+    return {k: v for mod in (block_pack, flash_attention, ssd_scan)
+            for k, v in mod.LAUNCHES.items() if v}

@@ -8,7 +8,8 @@ is ``csrc/flash_attention.cu`` (CUDA C++ for sm_90a, built by
 
 :func:`flash_attention` keeps the wrapper's layout: q ``[B, Sq, H, hd]``,
 k/v ``[B, Skv, Hkv, hd(_v)]`` -> ``[B, Sq, H, hd_v]`` in q's dtype, with
-query head h reading kv head ``h // (H // Hkv)``.  On CPU tensors it runs
+query head h reading kv head ``h // (H // Hkv)``.  On CPU tensors (and
+on ``meta`` ones, which hold no data for a kernel: the dry run) it runs
 :func:`blocked_attention`, the plain version (the forward of
 ``repro.models.attention.blocked_attention``: the same online softmax in
 f32 over key chunks); on CUDA tensors it launches the kernel, adds one to
@@ -148,7 +149,7 @@ def _check(q, k, v, window) -> bool:
     for t in (k, v):
         if t.device != q.device:
             raise ValueError(f"operands on {t.device} and {q.device}")
-    if q.device.type not in ("cpu", "cuda"):
+    if q.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {q.device}")
     return q.device.type == "cuda"
 

@@ -9,7 +9,8 @@ wrapper ``repro.kernels.ops.mamba2_ssd``; the kernel is
 :func:`ssd_scan` keeps the wrapper's layout, all float32: x
 ``[B, S, H, P]``, B/C ``[B, S, G, N]`` (head h reads group
 ``h // (H // G)``), dt ``[B, S, H]``, A_log/D ``[H]`` -> y ``[B, S, H, P]``.
-On CPU tensors it runs :func:`ssd_chunked`, the plain version (a port of
+On CPU tensors (and on ``meta`` ones, which hold no data for a kernel:
+the dry run) it runs :func:`ssd_chunked`, the plain version (a port of
 ``repro.models.ssm.ssd_chunked``); on CUDA tensors it launches the kernel,
 adds one to :data:`LAUNCHES`, and raises if the launch failed.  There is
 no fallback from a CUDA tensor to the plain version.  The kernel has no
@@ -149,7 +150,7 @@ def _check(x, B_, C_, dt, A_log, D, chunk) -> bool:
             raise TypeError(f"scan operands must be float32, got {t.dtype}")
         if t.device != x.device:
             raise ValueError(f"operands on {t.device} and {x.device}")
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda", "meta"):
         raise ValueError(f"unsupported device {x.device}")
     return x.device.type == "cuda"
 

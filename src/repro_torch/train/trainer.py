@@ -34,6 +34,7 @@ as the reference trains through jnp: the CUDA kernels have no backward.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass, field
 from typing import Any, Dict, List
 
@@ -153,6 +154,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None):
     group (or p == 1) takes the plain step and passes the error state
     through.  Metrics: ``loss``, ``ce``, ``aux`` (their means over the
     ranks), ``grad_norm`` and ``lr``."""
+    return _build_step(cfg, tcfg, group)
+
+
+def _count_step(cfg: ModelConfig, tcfg: TrainConfig, counter):
+    """The plain step for counting its ops on ``meta`` leaves: with
+    microbatches it runs the first one inside ``counter.repeat(n)``, so it
+    is counted once for each of the n, then the update once.  It refuses
+    leaves that hold data, whose update this would get wrong."""
+    return _build_step(cfg, tcfg, None, counter)
+
+
+def _build_step(cfg: ModelConfig, tcfg: TrainConfig, group=None, counter=None):
     if tcfg.grad_sync not in ("auto", "compressed"):
         raise ValueError(f"unknown grad_sync {tcfg.grad_sync!r}")
     shell, _ = _shapes(cfg)
@@ -171,17 +184,20 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None):
         return loss.detach(), {k: v.detach() for k, v in metrics.items()}, list(grads)
 
     def accumulate(leaves, treedef, mbs):
-        """Raw gradient and loss sums over microbatches, in acc_dt."""
+        """Raw gradient and loss sums over microbatches, in acc_dt (with a
+        counter, the first microbatch counted for all of them)."""
         g_acc = [torch.zeros(tuple(x.shape), dtype=acc_dt, device=x.device)
                  for x in leaves]
         l_acc = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
         metrics = {}
-        for mb in mbs:
-            loss, metrics, g = grad_of(leaves, treedef, mb)
-            for a, b in zip(g_acc, g):
-                a += b.to(a.dtype)
-            l_acc = l_acc + loss
-            del g
+        scope = contextlib.nullcontext() if counter is None else counter.repeat(len(mbs))
+        with scope:
+            for mb in (mbs if counter is None else mbs[:1]):
+                loss, metrics, g = grad_of(leaves, treedef, mb)
+                for a, b in zip(g_acc, g):
+                    a += b.to(a.dtype)
+                l_acc = l_acc + loss
+                del g
         return g_acc, l_acc, metrics
 
     def compute_grads(leaves, treedef, batch):
@@ -205,6 +221,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, group=None):
 
     def plain_step(state, batch):
         leaves, treedef = tree_flatten(state["params"])
+        if counter is not None and any(x.device.type != "meta" for x in leaves):
+            raise ValueError("a counted step takes meta leaves only")
         batch = to_device(batch, leaves[0].device)
         loss, metrics, grads = compute_grads(leaves, treedef, batch)
         return finish(state, tree_unflatten(treedef, grads), loss, metrics)

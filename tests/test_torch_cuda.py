@@ -1327,3 +1327,40 @@ def test_analysis_cli_on_the_card(gen, tmp_path):
 
     passes = json.loads(bench.read_text())["passes"]
     assert all(p["checked"] > 0 and p["findings"] == 0 for p in passes.values())
+
+
+def test_cuda_operands_never_reach_the_plain_version(gen, monkeypatch):
+    """Every wrapper launches its kernel on a CUDA operand, counted, with
+    its plain version unreachable (a meta operand, the dry run's, runs the
+    plain version and loads nothing: ``tests/test_torch_dryrun.py``)."""
+    def refuse(*a, **k):
+        raise AssertionError("a CUDA operand reached a plain version")
+
+    for name in dir(ref):
+        if name.endswith("_ref"):
+            monkeypatch.setattr(ref, name, refuse)
+    monkeypatch.setattr(fa, "blocked_attention", refuse)
+    monkeypatch.setattr(ss, "ssd_chunked", refuse)
+    bp.reset_launches()
+    fa.reset_launches()
+    ss.reset_launches()
+    buf, msg, recv, send = _operands(gen, (8, 5, 64), torch.float32)
+    bp.block_pack(buf, send)
+    bp.block_unpack(buf, msg, recv)
+    bp.block_shuffle(buf, msg, recv, send)
+    bp.block_shuffle_staged(buf, msg, msg.clone(), recv, send)
+    bp.block_acc_shuffle(buf, msg, recv, send)
+    bp.block_acc_shuffle_staged(buf, msg, msg.clone(), recv, send)
+    qbuf = torch.randn((8, 5, 256), generator=gen, device="cuda")
+    err = torch.zeros_like(qbuf)
+    qmsg = torch.zeros((8, 256), dtype=torch.int8, device="cuda")
+    bp.block_qacc_shuffle(qbuf, err, qmsg, torch.ones((8, 1), device="cuda"), recv, send)
+    q = torch.randn((1, 64, 4, 32), generator=gen, device="cuda", dtype=torch.bfloat16)
+    fa.flash_attention(q, q[:, :, :2].contiguous(), q[:, :, :2].contiguous())
+    x = torch.randn((1, 64, 4, 16), generator=gen, device="cuda")
+    bc = torch.randn((1, 64, 1, 16), generator=gen, device="cuda")
+    ss.ssd_scan(x, bc, bc.clone(), torch.rand((1, 64, 4), generator=gen, device="cuda"),
+                torch.zeros(4, device="cuda"), torch.ones(4, device="cuda"), chunk=32)
+    torch.cuda.synchronize()
+    assert all(v == 1 for v in bp.LAUNCHES.values()), bp.LAUNCHES
+    assert fa.LAUNCHES["flash_attention"] == 1 and ss.LAUNCHES["ssd_scan"] == 1
