@@ -165,10 +165,9 @@ d_model 2560, 2.42 B parameters in bf16, random weights from a seeded
 ``torch.Generator``):
 
   * model_kernels: flash attention held against its plain version at
-    zamba2's prefill (B 2, S 4096, 32 heads of 80, causal),
-    qwen2-0.5b's GQA (14 / 2 heads of 64) and h2o-danube-1.8b's sliding
-    window (32 / 8 heads of 80, window 4096, S 8192), each in bf16 (timed)
-    and in f32, and a small odd shape in f32 and bf16, causal and not,
+    zamba2's prefill (B 2, S 4096, 32 heads of 80, causal) and
+    h2o-danube-1.8b's sliding window at B 1 (32 / 8 heads of 80, window
+    4096, S 8192), each in bf16 (timed) and in f32, and a small odd shape in f32 and bf16, causal and not,
     each case with its tolerance and max |plain|; the SSD scan at zamba2's shape
     (80 heads of 64, N 64, chunk 256), mamba2-780m's (48 heads, N 128)
     and a small odd shape with two groups and a ragged last chunk, each
@@ -182,6 +181,37 @@ d_model 2560, 2.42 B parameters in bf16, random weights from a seeded
     16-64 prompt tokens with 16 greedy tokens each;
   * prefill_f32: the same prefill with the model in f32, where "cuda"
     must equal "torch" within 1e-3 of the logits' scale.
+
+Then the dense and ssm configurations at their full published widths,
+one after the other, each freed before the next (random bf16 weights
+from the seed): qwen2-0.5b (24 layers, 14 / 2 heads of 64, tied
+embeddings, vocab 151,936), granite-3-2b (40 layers, 32 / 8 heads of
+64, vocab 49,155), h2o-danube-1.8b (24 layers, 32 / 8 heads of 80, a
+4096-wide sliding window), mamba2-780m (48 Mamba2 layers, 48 heads of
+64, state 128, no attention) and stablelm-12b (40 layers, 32 / 8 heads
+of 160, 12.1 B parameters):
+
+  * model_kernels (the same line) also holds flash attention against its
+    plain version at their prefill shapes, timed in bf16 beside SDPA and
+    the bound and checked again in f32: qwen2-0.5b's GQA [2, 4096, 14 / 2,
+    64], granite-3-2b's [2, 4096, 32 / 8, 64], h2o-danube-1.8b's window at [2, 8192, 32 / 8, 80] (SDPA given
+    the window as a boolean mask, with the backend it picks) and
+    stablelm-12b's [2, 4096, 32 / 8, 160], in bf16 on the tensor-core
+    instance sized to heads of 160 (with its registers and spills) and
+    in f32 on the CUDA-core kernel, both timed;
+  * prefill_zoo: 2 prompts of 4096 tokens (h2o-danube-1.8b 8192, where
+    its window leaves keys out; its logits must move without the window)
+    must launch exactly 24, 40, 24, 0 and 40 flash attentions (and
+    mamba2-780m 48 SSD scans, nothing else), and give last-position
+    logits within ZOO_PREFILL_RTOL of the "torch" backend's scale; its
+    greedy tokens, time, tokens/s, the kernel's share, peak, parameters
+    and weight bytes;
+  * decode_zoo: the serve loop above (4 slots, 8 requests, 16 greedy
+    tokens each), which must launch no kernel;
+  * prefill_zoo_f32: the same prefill in f32 within 1e-3, at full depth
+    where twice the bf16 prefill's peak stays under 75 GB, else on the
+    layers that fit (printed);
+  * zoo: the group's seconds.
 
 Then the two memory families at their full published widths (random
 weights from the seed, every cross-attention gate set to 0.5: at the
@@ -442,6 +472,38 @@ MLA_INSTANCE = "flash_fwd_mma_kernelI13__nv_bfloat16Li12ELi16ELb1EE"
 #: 0.7-1.1 % at layer 0, 5.3-6.0 % at layer 1) on an NVIDIA H100 80GB
 #: HBM3 at 700 W; the limit is twice the largest, rounded up.
 MLA_PREFILL_RTOL = 0.3
+#: The dense and ssm configurations at full width, random bf16 weights from
+#: the seed, in the order the prefill_zoo, decode_zoo and prefill_zoo_f32
+#: phases run them: arch -> (key of its kernels-line entry, tokens a
+#: prompt of its 2, the prefill's exact launches: one a layer).
+#: h2o-danube-1.8b prefills 8192 tokens: at 4096 its 4096-wide window
+#: covers every key and would never bite.
+ZOO = {
+    "qwen2-0.5b": ("qwen2_0p5b", 4096, {"flash_attention": 24}),
+    "granite-3-2b": ("granite_3_2b", 4096, {"flash_attention": 40}),
+    "h2o-danube-1.8b": ("h2o_danube_1p8b", 8192, {"flash_attention": 24}),
+    "mamba2-780m": ("mamba2_780m", 4096, {"ssd_scan": 48}),
+    "stablelm-12b": ("stablelm_12b", 4096, {"flash_attention": 40}),
+}
+#: "cuda" vs "torch" bf16 prefill of each, as PREFILL_RTOL: twice the
+#: largest max |logits - plain| / max |plain| that tools/prefill_spread.py
+#: (--arch <arch>, danube --seq 8192) measured over seeds 0-7 on an NVIDIA
+#: H100 80GB HBM3 at 700 W, rounded up (the largest, then seed 0's, this
+#: run's, in the comment).
+ZOO_PREFILL_RTOL = {
+    "qwen2-0.5b": 0.04,         # 0.0198; 0.0190
+    "granite-3-2b": 0.045,      # 0.0223; 0.0195
+    "h2o-danube-1.8b": 0.039,   # 0.0191; 0.0162 (2 x 8192 tokens)
+    "mamba2-780m": 0.11,        # 0.0512; 0.0426
+    "stablelm-12b": 0.044,      # 0.0215; 0.0194
+}
+#: zamba2's and the zoo's f32 prefill runs at full depth where twice the
+#: bf16 prefill's peak (f32 weights and activations) stays under this many
+#: bytes, else on the first layers that do.
+F32_PEAK = 75e9
+#: The flash attention instance stablelm-12b's bf16 prefill runs (q, k and
+#: v heads of 160), by its ptxas name.
+W160_INSTANCE = "flash_fwd_mma_kernelI13__nv_bfloat16Li10ELi20ELb1EE"
 #: The training path: Qwen2-0.5B at full width over 4 stacked ranks, global
 #: batch 8 of 1024 tokens, 3 steps.  By the shapes, the sync holds about 4
 #: f32 copies of the 494 M-element gradient a rank: 4 x 494 M x 4 B x 4 =
@@ -1137,7 +1199,7 @@ def scan_work(B, S, H, P, G, N, chunk):
     return B * per_row, 4 * (2 * B * S * H * P + 2 * B * S * G * N + B * S * H + 2 * H)
 
 
-def sdpa_backend(torch, q, k, v, causal: bool, gqa: bool):
+def sdpa_backend(torch, q, k, v, causal: bool, gqa: bool, mask=None):
     """The backend ``scaled_dot_product_attention`` picks for these
     operands (its dispatcher's own choice), or None where this torch does
     not say."""
@@ -1145,19 +1207,21 @@ def sdpa_backend(torch, q, k, v, causal: bool, gqa: bool):
         from torch.nn.attention import SDPBackend
 
         names = {int(m.value): n for n, m in SDPBackend.__members__.items()}
-        return names.get(int(torch._fused_sdp_choice(q, k, v, is_causal=causal,
+        return names.get(int(torch._fused_sdp_choice(q, k, v, attn_mask=mask,
+                                                      is_causal=causal,
                                                       enable_gqa=gqa)))
     except (AttributeError, ImportError, RuntimeError, TypeError):
         return None
 
 
 def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
-                      timed: bool, Skv=None, hd_v=None):
+                      timed: bool, Skv=None, hd_v=None, masked_library=False):
     """flash_attention of S queries over Skv keys (default S), values of
     hd_v (default hd), vs its plain version on the same random q, k, v;
     timed: also kernel, plain and library (scaled_dot_product_attention,
-    no window only, with the backend it picks) times and the bound.
-    Returns the record."""
+    with the backend it picks: no window only, or with
+    ``masked_library`` the causal window as an explicit boolean mask)
+    times and the bound.  Returns the record."""
     import torch.nn.functional as F
 
     Skv = S if Skv is None else Skv
@@ -1197,6 +1261,15 @@ def compare_attention(torch, fa, g, B, S, H, Hkv, hd, causal, window, dtype,
         rec["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal, enable_gqa=H != Hkv), 10)
         rec["library_backend"] = sdpa_backend(torch, qt, kt, vt, causal, H != Hkv)
+    elif masked_library:
+        # query i sees keys i - window < j <= i, as a [S, Skv] boolean mask
+        i, j = torch.arange(S, device="cuda")[:, None], torch.arange(Skv, device="cuda")
+        mask = (j <= i) & (i - j < window)
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rec["library_ms"] = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=H != Hkv), 10)
+        rec["library_backend"] = sdpa_backend(torch, qt, kt, vt, False, H != Hkv, mask)
+        rec["library_mask"] = "boolean [S, Skv]"
     return rec
 
 
@@ -2992,8 +3065,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
-    from repro_torch.models import decode_step, init_cache, init_params, layer_pattern
-    from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
+    from repro_torch.models import layer_pattern
 
     cfg = get_config(ARCH)
     s = cfg.ssm
@@ -3005,17 +3077,14 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     attn = compare_attention(torch, fa, g, PREFILL_B, PREFILL_S, cfg.n_heads,
                              cfg.n_kv_heads, cfg.hd, True, None, bf16, timed=True)
     attn_cases = [dict(attn, case="zamba2-2.7b prefill")]
-    for case, args in (
-            ("qwen2-0.5b gqa", (2, 4096, 14, 2, 64, True, None)),
-            ("h2o-danube-1.8b window", (1, 8192, 32, 8, 80, True, 4096))):
-        attn_cases.append(dict(compare_attention(torch, fa, g, *args, bf16,
-                                                 timed=True), case=case))
-        torch.cuda.empty_cache()
+    attn_cases.append(dict(compare_attention(torch, fa, g, 1, 8192, 32, 8, 80, True,
+                                             4096, bf16, timed=True),
+                           case="h2o-danube-1.8b window"))
+    torch.cuda.empty_cache()
     # the main shapes again in f32, where the limit is 2e-5
     for case, args in (
             ("zamba2-2.7b prefill", (PREFILL_B, PREFILL_S, cfg.n_heads,
                                      cfg.n_kv_heads, cfg.hd, True, None)),
-            ("qwen2-0.5b gqa", (2, 4096, 14, 2, 64, True, None)),
             ("h2o-danube-1.8b window", (1, 8192, 32, 8, 80, True, 4096))):
         attn_cases.append(dict(compare_attention(torch, fa, g, *args, f32,
                                                  timed=False), case=case))
@@ -3065,13 +3134,45 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     torch.cuda.empty_cache()
     simt = dict(compare_attention(torch, fa, g, *mla_args, f32, timed=True,
                                   hd_v=mla.mla.v_head_dim),
-                case=f"{MLA_ARCH} prefill", instance="flash_fwd_simt_kernelIfEE")
+                case=f"{MLA_ARCH} prefill", instance="flash_fwd_simt_kernelIfLi8EE")
     attn_cases.append(simt)
     kern["flash_attention@mla_self"] = dict(
         rec, kernel="flash_attention", path="prefill_mla", f32_simt_ms=simt["ms"],
         f32_plain_ms=simt["plain_ms"], f32_library_ms=simt["library_ms"],
         f32_library_backend=simt["library_backend"])
     torch.cuda.empty_cache()
+    # the dense configurations' self-attention at their prefill_zoo shapes,
+    # timed in bf16 beside SDPA and the bound, checked again in f32:
+    # qwen2-0.5b's GQA of 14 / 2 heads of 64, granite-3-2b's 32 / 8 of 64,
+    # h2o-danube-1.8b's 32 / 8 of 80 with its window over B 2 x 8192 (SDPA
+    # given the window as a boolean mask) and stablelm-12b's 32 / 8 of 160:
+    # bf16 on the tensor-core instance sized to them, f32 on the CUDA-core
+    # kernel, both timed
+    check(W160_INSTANCE in ptx, f"the build reports no {W160_INSTANCE}")
+    for arch, (key, S, expect) in ZOO.items():
+        c = get_config(arch)
+        if "flash_attention" not in expect:
+            continue
+        args = (PREFILL_B, S, c.n_heads, c.n_kv_heads, c.hd, True, c.sliding_window)
+        wide = c.hd > 128
+        rec = dict(compare_attention(torch, fa, g, *args, bf16, timed=True,
+                                     masked_library=c.sliding_window is not None),
+                   case=f"{arch} prefill",
+                   **({"instance": W160_INSTANCE, **ptx[W160_INSTANCE]} if wide else {}))
+        attn_cases.append(rec)
+        torch.cuda.empty_cache()
+        rec32 = dict(compare_attention(torch, fa, g, *args, f32, timed=wide),
+                     case=f"{arch} prefill")
+        attn_cases.append(rec32)
+        torch.cuda.empty_cache()
+        kern[f"flash_attention@{key}"] = dict(rec, kernel="flash_attention",
+                                              path="prefill_zoo")
+        if wide:
+            rec32["instance"] = "flash_fwd_simt_kernelIfLi10EE"
+            kern[f"flash_attention@{key}"].update(
+                f32_simt_ms=rec32["ms"], f32_plain_ms=rec32["plain_ms"],
+                f32_library_ms=rec32["library_ms"],
+                f32_library_backend=rec32["library_backend"])
     scan = compare_scan(torch, ss, g, PREFILL_B, PREFILL_S, H_ssm, s.head_dim,
                         s.n_groups, s.d_state, s.chunk, timed=True)
     scan_cases = [dict(scan, case="zamba2-2.7b prefill"),
@@ -3079,14 +3180,46 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
                                     timed=True), case="mamba2-780m"),
                   dict(compare_scan(torch, ss, g, 1, 333, 6, 24, 2, 20, 64,
                                     timed=False), case="odd, 2 groups, ragged")]
+    kern["ssd_scan@mamba2_780m"] = dict(scan_cases[1], kernel="ssd_scan",
+                                        path="prefill_zoo")
     torch.cuda.empty_cache()
     emit({"phase": "model_kernels", "flash_attention": attn_cases,
           "ssd_scan": scan_cases, "peak_flops": PEAK_FLOPS,
           "hbm_bytes_per_s": HBM_BYTES_PER_S,
           "seconds": time.perf_counter() - t0, "card": card})
 
-    # 11. prefill: zamba2-2.7b FULL, 2 x 4096 tokens
+    # 11-13. prefill, serve and prefill_f32: zamba2-2.7b FULL, 2 x 4096 tokens
     pattern, R, shared = layer_pattern(cfg)
+    expect = {"flash_attention": R * shared, "ssd_scan": R * len(pattern)}
+    MEASURED["prefill"] = serve_model(
+        torch, np, card, kmods, cfg, PREFILL_B, PREFILL_S, expect, PREFILL_RTOL,
+        {"flash_attention": attn["ms"], "ssd_scan": scan["ms"]},
+        ("prefill", "serve", "prefill_f32"))
+    launches.update(expect)
+    kern["flash_attention"], kern["ssd_scan"] = attn, scan
+
+
+def serve_model(torch, np, card, kmods, cfg, B, S, expect, rtol, kernel_ms, phases,
+                zoo=False) -> dict:
+    """``cfg`` at full width, random bf16 weights from the seed: the prefill
+    of B prompts of S tokens (launches exactly ``expect``, last-position
+    logits within ``rtol`` of the "torch" backend's scale), a
+    ``ServeLoop`` of SERVE_SLOTS slots answering SERVE_REQUESTS requests
+    (no launch), then the prefill in f32 within PREFILL_RTOL_F32: at full
+    depth where its estimated peak (twice the bf16 prefill's) stays under
+    F32_PEAK, else on the first layers that do.  ``kernel_ms``: each launched kernel's
+    time alone at its prefill shape, for its share; ``phases``: the three
+    lines' names; ``zoo``: the lines also give each phase's seconds, the
+    greedy tokens and the f32 depth and peak.  With a sliding window
+    shorter than S the prefill line also gives how far the logits move
+    without it, which must be more than 0 (the window reached the
+    kernel).  Frees its parameters.
+    Returns what the dry run reads of the prefill."""
+    from repro_torch.models import decode_step, init_cache, init_params
+    from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
+
+    pre_name, serve_name, f32_name = phases
+    t_phase = time.perf_counter()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -3095,47 +3228,58 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     n_params = sum(p.numel() for p in params.parameters())
     weight_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
     rng = np.random.default_rng(SEED)
-    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (PREFILL_B, PREFILL_S))).cuda()
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (B, S))).cuda()
     step = make_prefill_step(cfg)
     plain_step = make_prefill_step(cfg, backend="torch")
     logits, got = counted_run(torch, kmods, lambda: step(params, tok))
-    expect = {"flash_attention": R * shared, "ssd_scan": R * len(pattern)}
-    check(got == expect, f"prefill launches {got} != {expect}")
-    launches.update(got)
-    check(tuple(logits.shape) == (PREFILL_B, 1, cfg.vocab)
+    check(got == expect, f"{cfg.name} prefill launches {got} != {expect}")
+    check(tuple(logits.shape) == (B, 1, cfg.vocab)
           and bool(torch.isfinite(logits.float()).all()),
-          f"prefill logits {tuple(logits.shape)} not finite or misshapen")
+          f"{cfg.name} prefill logits {tuple(logits.shape)} not finite or misshapen")
     plain_logits, got = counted_run(torch, kmods, lambda: plain_step(params, tok))
     check(got == {}, f"the torch backend launched {got}")
     diff = float((logits.float() - plain_logits.float()).abs().max())
     scale = float(plain_logits.float().abs().max())
-    check(diff <= PREFILL_RTOL * scale,
-          f"prefill: cuda backend differs from torch by {diff} (scale {scale})")
+    check(diff <= rtol * scale,
+          f"{cfg.name} prefill: cuda backend differs from torch by {diff} (scale {scale})")
     same_top = (logits.argmax(-1) == plain_logits.argmax(-1)).tolist()
+    pre_extra = {}
+    if zoo:
+        pre_extra["greedy_tokens"] = logits.argmax(-1).flatten().tolist()
+    if cfg.sliding_window is not None and S > cfg.sliding_window:
+        wide = make_prefill_step(replace(cfg, sliding_window=None))(params, tok)
+        moved = float((wide.float() - logits.float()).abs().max())
+        check(moved > 0, f"{cfg.name} prefill: the logits do not move without the "
+                         f"window {cfg.sliding_window} at {S} tokens")
+        pre_extra.update(window=cfg.sliding_window, no_window_vs_window_max_abs=moved)
+        del wide
     del plain_logits
     torch.cuda.empty_cache()
     pre_ms, pre_runs = median_ms(torch, lambda: step(params, tok), 3)
     pre_peak = torch.cuda.max_memory_allocated()
-    MEASURED["prefill"] = {"ms": min(pre_runs), "weight_bytes": weight_bytes,
-                           "max_memory_allocated": pre_peak}
     plain_pre_ms, plain_pre_runs = median_ms(torch, lambda: plain_step(params, tok), 3)
     torch.cuda.empty_cache()
-    attn_share = attn["ms"] * expect["flash_attention"] / pre_ms
-    scan_share = scan["ms"] * expect["ssd_scan"] / pre_ms
-    emit({"phase": "prefill", "arch": ARCH, "batch": PREFILL_B, "seq": PREFILL_S,
+    shares = {f"{k}_share": kernel_ms[k] * expect[k] / pre_ms for k in expect}
+    rest = 1
+    for v in shares.values():
+        rest -= v
+    emit({"phase": pre_name, "arch": cfg.name, "batch": B, "seq": S,
           "params": n_params, "param_count": cfg.param_count(),
           "weight_bytes": weight_bytes, "init_s": init_s,
           "launches": expect, "finite": True,
           "cuda_vs_torch_max_abs": diff, "torch_logits_max_abs": scale,
-          "tolerance_rel": PREFILL_RTOL, "same_greedy_token": same_top,
+          "tolerance_rel": rtol, "same_greedy_token": same_top,
           "ms": pre_ms, "ms_runs": pre_runs,
-          "tokens_per_s": PREFILL_B * PREFILL_S / pre_ms * 1e3,
+          "tokens_per_s": B * S / pre_ms * 1e3,
           "plain_ms": plain_pre_ms, "plain_ms_runs": plain_pre_runs,
-          "flash_attention_share": attn_share, "ssd_scan_share": scan_share,
-          "rest_share": 1 - attn_share - scan_share,
-          "max_memory_allocated": pre_peak, "card": card})
+          **shares, "rest_share": rest,
+          "max_memory_allocated": pre_peak, **pre_extra,
+          **({"phase_seconds": time.perf_counter() - t_phase} if zoo else {}),
+          "card": card})
+    del logits
 
-    # 12. serve: ServeLoop answers 8 requests, 16 greedy tokens each
+    # serve: ServeLoop answers 8 requests, 16 greedy tokens each
+    t_phase = time.perf_counter()
     prompts = [rng.integers(0, cfg.vocab, int(n)).tolist()
                for n in rng.integers(16, 65, SERVE_REQUESTS)]
     reqs = [Request(i, p, max_new=SERVE_NEW) for i, p in enumerate(prompts)]
@@ -3154,8 +3298,8 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
     steps, got = counted_run(torch, kmods, serve)
     serve_s = time.perf_counter() - t0
     check(all(r.done and len(r.out) == SERVE_NEW for r in reqs),
-          "serve: a request did not finish with its tokens")
-    check(got == {}, f"serve (decode only) launched {got}")
+          f"{cfg.name} serve: a request did not finish with its tokens")
+    check(got == {}, f"{cfg.name} serve (decode only) launched {got}")
     serve_peak = torch.cuda.max_memory_allocated()
     # the greedy first token of two prompts: prefill step vs the loop, and
     # prefill logits vs token-by-token decode logits (a finding, no gate)
@@ -3178,7 +3322,7 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
         params, cfg, cache, torch.ones((SERVE_SLOTS, 1), dtype=torch.long,
                                        device="cuda")))
     del cache
-    emit({"phase": "serve", "arch": ARCH, "batch_slots": SERVE_SLOTS,
+    emit({"phase": serve_name, "arch": cfg.name, "batch_slots": SERVE_SLOTS,
           "max_seq": SERVE_MAX_SEQ, "requests": SERVE_REQUESTS,
           "prompt_lens": [len(p) for p in prompts], "max_new": SERVE_NEW,
           "all_done": True, "engine_steps": steps, "seconds": serve_s,
@@ -3186,29 +3330,62 @@ def model_phases(torch, np, card, kmods, g, launches, kern, ptx) -> None:
           "generated_tok_per_s": SERVE_REQUESTS * SERVE_NEW / serve_s,
           "kernel_launches": got, "first_tokens": agree,
           "torch_ops_per_decode_step": ops_per_step,
-          "max_memory_allocated": serve_peak, "card": card})
-    kern["flash_attention"], kern["ssd_scan"] = attn, scan
+          "max_memory_allocated": serve_peak,
+          **({"phase_seconds": time.perf_counter() - t_phase} if zoo else {}),
+          "card": card})
     del params, loop
     torch.cuda.empty_cache()
 
-    # 13. the same prefill in f32: "cuda" against "torch" at a tight tolerance
+    # the same prefill in f32: "cuda" against "torch" at a tight tolerance
+    t_phase = time.perf_counter()
     cfg32 = replace(cfg, dtype="float32")
+    expect32 = expect
+    if 2 * pre_peak > F32_PEAK:
+        layers = max(1, int(cfg.n_layers * F32_PEAK / (2 * pre_peak)))
+        cfg32 = replace(cfg32, n_layers=layers)
+        expect32 = {k: v * layers // cfg.n_layers for k, v in expect.items()}
+    if zoo:
+        torch.cuda.reset_peak_memory_stats()
     params = init_params(cfg32, torch.Generator(device="cuda").manual_seed(SEED))
     step32 = make_prefill_step(cfg32)
     logits, got = counted_run(torch, kmods, lambda: step32(params, tok))
-    check(got == expect, f"f32 prefill launches {got} != {expect}")
+    check(got == expect32, f"{cfg.name} f32 prefill launches {got} != {expect32}")
     plain_logits = make_prefill_step(cfg32, backend="torch")(params, tok)
     diff = float((logits - plain_logits).abs().max())
     scale = float(plain_logits.abs().max())
     check(bool(torch.isfinite(logits).all()) and diff <= PREFILL_RTOL_F32 * scale,
-          f"f32 prefill: cuda backend differs from torch by {diff} (scale {scale})")
-    emit({"phase": "prefill_f32", "arch": ARCH, "batch": PREFILL_B, "seq": PREFILL_S,
+          f"{cfg.name} f32 prefill: cuda backend differs from torch by {diff} "
+          f"(scale {scale})")
+    f32_extra = ({"n_layers": cfg32.n_layers, "published_layers": cfg.n_layers,
+                  "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                  "phase_seconds": time.perf_counter() - t_phase} if zoo else {})
+    emit({"phase": f32_name, "arch": cfg.name, "batch": B, "seq": S,
           "launches": got, "cuda_vs_torch_max_abs": diff,
           "torch_logits_max_abs": scale, "tolerance_rel": PREFILL_RTOL_F32,
           "same_greedy_token": (logits.argmax(-1) == plain_logits.argmax(-1)).tolist(),
-          "card": card})
+          **f32_extra, "card": card})
     del params, logits, plain_logits
     torch.cuda.empty_cache()
+    return {"ms": min(pre_runs), "weight_bytes": weight_bytes,
+            "max_memory_allocated": pre_peak}
+
+
+def zoo_phases(torch, np, card, kmods, launches, kern) -> None:
+    """The five configurations of ZOO at full width, one after the other,
+    each freed before the next: prefill_zoo, decode_zoo and
+    prefill_zoo_f32 (``serve_model``), each kernel's share from its time
+    alone at the same shape in model_kernels; then the group's seconds."""
+    from repro_torch.configs import get_config
+
+    t0 = time.perf_counter()
+    for arch, (key, S, expect) in ZOO.items():
+        name = next(iter(expect))
+        serve_model(torch, np, card, kmods, get_config(arch), PREFILL_B, S, expect,
+                    ZOO_PREFILL_RTOL[arch], {name: kern[f"{name}@{key}"]["ms"]},
+                    ("prefill_zoo", "decode_zoo", "prefill_zoo_f32"), zoo=True)
+        launches[f"{name}@{key}"] = expect[name]
+    emit({"phase": "zoo", "configs": list(ZOO), "seconds": time.perf_counter() - t0,
+          "card": card})
 
 
 def torch_calls(torch, fn) -> int:
@@ -4655,6 +4832,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     model_phases(torch, np, card, kmods, g, launches, kern, ptx)
+
+    # 13a. qwen2-0.5b, granite-3-2b, h2o-danube-1.8b, mamba2-780m and
+    #      stablelm-12b: prefill, decode and the f32 check
+    zoo_phases(torch, np, card, kmods, launches, kern)
 
     # 13b. llama-3.2-vision-11b and whisper-small: prefill and decode
     memory_model_phases(torch, np, card, kmods, launches, kern)

@@ -21,13 +21,13 @@
 // block owns a block of 64 query rows of one (head, batch row) and walks the
 // key blocks in a loop, with m, l and acc in registers.  Two kernels:
 //
-// flash_fwd_mma_kernel, bf16 and f16 with hd <= 128, or hd 192 with hd_v
-// 128 (multi-head latent attention: 128 nope + 64 rope columns of q and k,
-// 128 of v), the model's path.  Four warps, 16 query rows each.  Q is
-// loaded once and kept in registers as mma A fragments; K and V tiles of 64
-// keys arrive through a ring of two stages in shared memory, filled by
-// 16-byte cp.async copies, the next tile in flight while the current one is
-// consumed.  Q.K^T and P.V are
+// flash_fwd_mma_kernel, bf16 and f16 with hd, hd_v <= 128, hd 192 with
+// hd_v 128 (multi-head latent attention: 128 nope + 64 rope columns of q
+// and k, 128 of v), or hd = hd_v = 160 (stablelm-12b), the model's path.
+// Four warps, 16 query rows each.  Q is loaded once and kept in registers
+// as mma A fragments; K and V tiles of 64 keys arrive through a ring of two
+// stages in shared memory, filled by 16-byte cp.async copies, the next tile
+// in flight while the current one is consumed.  Q.K^T and P.V are
 // mma.sync.m16n8k16 with f32 accumulators, fed by ldmatrix (.trans for V)
 // from rows padded by 16 bytes, so the eight rows of each 8 x 8 matrix fall
 // in distinct banks.  The scores stay in registers: the online softmax takes
@@ -41,22 +41,28 @@
 // is exact in the f32 sum.  Ragged head widths (5, 40, 72, 80) are zero
 // padded in shared memory to a multiple of 16; a row past the sequence
 // reads as zero.  Causal query blocks are issued last block first, so the
-// longest start first.  Heads of 64 and 80, and MLA's 192/128, get kernels
-// whose tile counts are compile-time constants; registers are bounded for
-// three blocks an SM, or for two at MLA's widths, whose Q fragments (12
-// tiles of 16 columns) do not fit the three-block bound of ~170 registers.
-// MLA's two stages of K [64][200] and V [64][136] with Q [64][200] take
-// 109 KB of shared memory, two blocks an SM.
+// longest start first.  Heads of 64 and 80, MLA's 192/128 and heads of 160
+// (stablelm-12b's) get kernels whose tile counts are compile-time
+// constants; registers are bounded for three blocks an SM, or for two at
+// MLA's widths and at 160, whose Q fragments (12 or 10 tiles of 16
+// columns) and accumulators (16 or 20 tiles of 8) do not fit the
+// three-block bound of ~170 registers; at 160 Q is read from shared
+// memory each key block, as its 30 tiles in registers would spill.  MLA's
+// two stages of K [64][200] and V [64][136] with Q [64][200] take 109 KB
+// of shared memory, and 160's Q, K and V of [64][168] 107,520 B: two
+// blocks an SM.
 // Rows that are not a multiple of 8 elements, or operands not on 16-byte
 // boundaries, take a plain load path into the same tiles.
 //
-// flash_fwd_simt_kernel, f32 (and bf16/f16 heads wider than 128 but MLA's
-// pair): products in f32 FMAs on the CUDA cores, from f32 copies of the
-// tiles in shared memory.  A single TF32 pass cannot hold the f32 tolerance (2e-5).  256
-// threads as a 16 x 16 grid: thread (ty, tx) owns query rows ty + 16r
-// (r < 4), the score columns tx + 16c (c < 4) of each 64-key block, and the
-// output columns tx + 16c (c < 8, so hd_v <= 128).  A row's 16 owners sit in
-// one half-warp and reduce its max and sum with __shfl_xor_sync.
+// flash_fwd_simt_kernel, f32 (and bf16/f16 heads wider than 128 but the
+// 192/128 and 160/160 pairs): products in f32 FMAs on the CUDA cores, from
+// f32 copies of the tiles in shared memory.  A single TF32 pass cannot hold
+// the f32 tolerance (2e-5).  256 threads as a 16 x 16 grid: thread (ty, tx)
+// owns query rows ty + 16r (r < 4), the score columns tx + 16c (c < 4) of
+// each 64-key block, and the output columns tx + 16c (c < NC): NC = 8 for
+// hd_v <= 128, 10 for hd_v <= 160, so the narrower widths keep their
+// registers.  A row's 16 owners sit in one half-warp and reduce its max
+// and sum with __shfl_xor_sync.
 //
 // What bounds it on an H100: operations.  Causal attention at zamba2's
 // prefill (B 2, S 4096, 32 heads of 80) is 172 GFLOP against 84 MB of q, k,
@@ -80,7 +86,7 @@ namespace {
 constexpr int kBQ = 64;                   // query rows per thread block
 constexpr int kBK = 64;                   // keys per block of the loop
 constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;               // output columns a thread: hd_v <= 128
+constexpr int kMaxCols = 10;              // output columns a thread: hd_v <= 160
 constexpr float kNegInf = -1e30f;
 static_assert(kBQ == kBK, "load_tile stages 64-row tiles of q, k and v");
 
@@ -125,7 +131,8 @@ __device__ __forceinline__ void load_tile(float* dst, int64_t ld, const T* src,
   }
 }
 
-template <typename T>
+// NC: output columns a thread (hd_v <= 16 NC).
+template <typename T, int NC>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out, Dims d) {
@@ -143,13 +150,13 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   load_tile(sQ, ldq, q, b, q0, d.Sq, d.H, h, d.hd);
 
-  float m[4], l[4], acc[4][kMaxCols];
+  float m[4], l[4], acc[4][NC];
 #pragma unroll
   for (int r = 0; r < 4; ++r) {
     m[r] = kNegInf;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < NC; ++c) acc[r][c] = 0.f;
   }
 
   // The key blocks this query block visits (repro/models/attention.py
@@ -223,7 +230,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
       l[r] = l[r] * alpha + sum;
       m[r] = m_new;
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) acc[r][c] *= alpha;
+      for (int c = 0; c < NC; ++c) acc[r][c] *= alpha;
     }
     __syncthreads();                      // sP complete
 
@@ -232,7 +239,7 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < 4; ++r) pv[r] = sP[(ty + 16 * r) * ldp + j];
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) {
+      for (int c = 0; c < NC; ++c) {
         const int64_t col = tx + 16 * c;
         if (col < d.hd_v) {
           const float vv = sV[j * d.hd_v + col];
@@ -250,25 +257,34 @@ flash_fwd_simt_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float inv = 1.f / fmaxf(l[r], 1e-30f);
     T* dst = out + ((b * d.Sq + qpos) * d.H + h) * d.hd_v;
 #pragma unroll
-    for (int c = 0; c < kMaxCols; ++c) {
+    for (int c = 0; c < NC; ++c) {
       const int64_t col = tx + 16 * c;
       if (col < d.hd_v) dst[col] = from_f32<T>(acc[r][c] * inv);
     }
   }
 }
 
-template <typename T>
-int launch_simt(const void* q, const void* k, const void* v, void* out, int64_t B,
-           const Dims& d, cudaStream_t stream) {
+template <typename T, int NC>
+int launch_simt_nc(const void* q, const void* k, const void* v, void* out, int64_t B,
+                   const Dims& d, cudaStream_t stream) {
   const size_t smem = smem_bytes(d.hd, d.hd_v);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_simt_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_fwd_simt_kernel<T, NC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((d.Sq + kBQ - 1) / kBQ), (unsigned)d.H, (unsigned)B);
-  flash_fwd_simt_kernel<T><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_simt_kernel<T, NC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(out), d);
   return (int)cudaGetLastError();
+}
+
+// 8 output columns a thread up to hd_v 128, 10 above.
+template <typename T>
+int launch_simt(const void* q, const void* k, const void* v, void* out, int64_t B,
+                const Dims& d, cudaStream_t stream) {
+  return d.hd_v <= 128 ? launch_simt_nc<T, 8>(q, k, v, out, B, d, stream)
+                       : launch_simt_nc<T, kMaxCols>(q, k, v, out, B, d, stream);
 }
 
 
@@ -370,8 +386,7 @@ __device__ __forceinline__ void load_rows(T* dst, int ld, const T* __restrict__ 
 // KT: 16-column tiles of hd kept as Q fragments; NT: 8-column tiles of the
 // output.  EXACT: hd and hd_v take exactly KT and NT tiles, so every loop has
 // a compile-time count; else loops run to these bounds with runtime guards.
-// Blocks an SM: three up to KT 8, two above (MLA's KT 12 takes 255
-// registers with no spill).
+// Blocks an SM: three up to KT 8, two above.
 template <typename T, int KT, int NT, bool EXACT>
 __global__ void __launch_bounds__(kMmaThreads, KT > 8 ? 2 : 3)
 flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -422,7 +437,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_rows(sV, ldv, vh, d.Hkv * hd_v, lo * kBK, d.Skv, hd_v, nts * 8, vec);
   cp_async_commit();
 
-  uint32_t qf[KT][4];
+  // Q fragments (4 registers a 16-column tile) stay in registers beside the
+  // output accumulators (4 a tile of 8) up to 28 tiles together (MLA's
+  // 12 + 16 take 255 registers with no spill); above (160's 10 + 20) they
+  // spill at the two-block bound, so Q is read again from shared memory
+  // (10 ldmatrix a key block; 241 registers, no spill).
+  constexpr bool QREG = KT + NT <= 28;
+  uint32_t qf[QREG ? KT : 1][4];
   float o[NT][4];
 #pragma unroll
   for (int j = 0; j < NT; ++j)
@@ -446,12 +467,13 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
     cp_async_commit();
     cp_async_wait_one();                  // this block's tile kb has landed
     __syncthreads();                      // ... and every thread's copies too
-    if (kb == lo) {
+    if (QREG && kb == lo) {
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt)
         if (kt < kts)
-          ldsm_x4(qf[kt], sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldq +
-                              kt * 16 + 8 * (lane >> 4));
+          ldsm_x4(qf[QREG ? kt : 0],
+                  sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldq +
+                      kt * 16 + 8 * (lane >> 4));
     }
     const int64_t k0 = kb * kBK;
     bool skip = !rows_live || k0 >= d.seq_kv;
@@ -475,13 +497,17 @@ flash_fwd_mma_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int kt = 0; kt < KT; ++kt) {
         if (kt < kts) {
+          if (!QREG)
+            ldsm_x4(qf[0], sQ + (warp * 16 + (lane & 7) + 8 * ((lane >> 3) & 1)) * ldq +
+                               kt * 16 + 8 * (lane >> 4));
+          const uint32_t(&qa)[4] = qf[QREG ? kt : 0];
 #pragma unroll
           for (int np = 0; np < 4; ++np) {
             uint32_t bk[4];
             ldsm_x4(bk, tK + (np * 16 + (lane & 7) + 8 * (lane >> 4)) * ldq + kt * 16 +
                             8 * ((lane >> 3) & 1));
-            mma16816<T>(s[2 * np], qf[kt], bk[0], bk[1]);
-            mma16816<T>(s[2 * np + 1], qf[kt], bk[2], bk[3]);
+            mma16816<T>(s[2 * np], qa, bk[0], bk[1]);
+            mma16816<T>(s[2 * np + 1], qa, bk[2], bk[3]);
           }
         }
       }
@@ -608,9 +634,20 @@ bool mla_widths(int64_t hd, int64_t hd_v) {
   return (hd + 15) / 16 == 12 && (hd_v + 15) / 16 * 2 == 16;
 }
 
-// The tensor-core kernel for hd, hd_v <= 128 and for MLA's widths: widths of
-// 64 and 80 (the model zoo's) and MLA's get kernels sized to them, any other
-// the widest of hd <= 128.
+// stablelm-12b's widths: q, k and v heads of 145-160 (its 160), which the
+// tensor-core kernel takes in 10 and 20 tiles.
+bool w160_widths(int64_t hd, int64_t hd_v) {
+  return (hd + 15) / 16 == 10 && (hd_v + 15) / 16 * 2 == 20;
+}
+
+// The widths the tensor-core kernel takes.
+bool tc_widths(int64_t hd, int64_t hd_v) {
+  return (hd <= 128 && hd_v <= 128) || mla_widths(hd, hd_v) || w160_widths(hd, hd_v);
+}
+
+// The tensor-core kernel for hd, hd_v <= 128 and for MLA's and 160's
+// widths: widths of 64 and 80 (the model zoo's), MLA's and 160 get kernels
+// sized to them, any other the widest of hd, hd_v <= 128.
 template <typename T>
 int launch_tc(const void* q, const void* k, const void* v, void* out, int64_t B,
               const Dims& d, cudaStream_t stream) {
@@ -619,6 +656,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, int64_t B,
   if (kts == 5 && nts == 10) return launch_mma<T, 5, 10, true>(q, k, v, out, B, d, stream);
   if (mla_widths(d.hd, d.hd_v))
     return launch_mma<T, 12, 16, true>(q, k, v, out, B, d, stream);
+  if (w160_widths(d.hd, d.hd_v))
+    return launch_mma<T, 10, 20, true>(q, k, v, out, B, d, stream);
   return launch_mma<T, 8, 16, false>(q, k, v, out, B, d, stream);
 }
 
@@ -642,7 +681,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   const Dims d{Sq, Skv, H, Hkv, hd, hd_v, seq_kv, window, causal,
                (float)(1.0 / sqrt((double)hd))};  // as the reference's scale
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool tc = hd <= 128 || mla_widths(hd, hd_v);
+  const bool tc = tc_widths(hd, hd_v);
   switch (dtype) {
     case 0: return launch_simt<float>(q, k, v, out, B, d, s);
     case 1: return tc ? launch_tc<__nv_bfloat16>(q, k, v, out, B, d, s)

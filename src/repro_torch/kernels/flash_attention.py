@@ -35,7 +35,10 @@ LAUNCHES_BY_SHAPE: dict = {}
 
 #: Element types the kernel reads and writes, by the code it switches on.
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-MAX_HEAD_DIM_V = 128          # output columns a thread block keeps in registers
+#: The widest v head the kernel's instances cover (stablelm-12b's 160); a
+#: wider one is refused on every device, so no CPU run passes on a width
+#: the card refuses.
+MAX_HEAD_DIM_V = 160
 NEG_INF = -1e30
 
 

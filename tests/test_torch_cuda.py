@@ -644,8 +644,9 @@ def test_flash_attention_mma_edges(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
 @pytest.mark.parametrize("window", [None, 90], ids=["causal", "window"])
 def test_flash_attention_wide_head_cuda_cores(gen, dtype, window):
-    """bf16/f16 heads wider than 128 run the CUDA-core kernel (but MLA's
-    192/128 pair, which the tensor cores take: here heads of 160)."""
+    """bf16/f16 heads wider than 128 run the CUDA-core kernel (but the
+    192/128 and 160/160 pairs, which the tensor cores take: here q and k
+    heads of 160 with v heads of 128)."""
     q = torch.randn((1, 230, 4, 160), generator=gen, device="cuda").to(dtype)
     k = torch.randn((1, 230, 2, 160), generator=gen, device="cuda").to(dtype)
     v = torch.randn((1, 230, 2, 128), generator=gen, device="cuda").to(dtype)
@@ -682,6 +683,44 @@ def test_flash_attention_mla_widths(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
     want = fa.blocked_attention(q, k, v, causal, window, q_chunk=128, kv_chunk=64)
     atol, rtol = _ATTN_TOL[dtype]
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16, torch.float32],
+                         ids=str)
+@pytest.mark.parametrize("B,S,H,Hkv,hd,hd_v,causal,window", [
+    (1, 64, 2, 2, 160, 160, True, None),     # one block
+    (2, 300, 4, 1, 160, 160, True, None),    # GQA, ragged sequence
+    (1, 257, 4, 2, 160, 160, False, None),   # non-causal, ragged
+    (1, 333, 2, 2, 160, 160, True, 70),      # window straddling tiles
+    (1, 150, 3, 3, 150, 150, True, None),    # narrower widths, same tiles, plain loads
+    (1, 190, 4, 2, 128, 160, True, None),    # hd 128, hd_v 160: the CUDA cores
+])
+def test_flash_attention_160_widths(gen, dtype, B, S, H, Hkv, hd, hd_v, causal,
+                                    window):
+    """stablelm-12b's heads of 160: bf16 and f16 on the tensor-core
+    instance sized to them (10 q/k tiles, 20 output tiles), f32 on the
+    CUDA-core kernel with 10 output columns a thread."""
+    q = torch.randn((B, S, H, hd), generator=gen, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, hd), generator=gen, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, hd_v), generator=gen, device="cuda").to(dtype)
+    before = fa.LAUNCHES["flash_attention"]
+    out = fa.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES["flash_attention"] - before == 1
+    assert out.dtype == dtype and out.shape == (B, S, H, hd_v)
+    want = fa.blocked_attention(q, k, v, causal, window, q_chunk=128, kv_chunk=64)
+    atol, rtol = _ATTN_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=rtol)
+
+
+def test_flash_attention_refuses_heads_wider_than_160(gen):
+    """A v head above the widest instance's 160 raises on the card, as on
+    the CPU; no launch is counted."""
+    q = torch.randn((1, 64, 2, 64), generator=gen, device="cuda")
+    before = fa.LAUNCHES["flash_attention"]
+    with pytest.raises(ValueError, match="hd_v 161 > 160"):
+        fa.flash_attention(q, q, torch.zeros((1, 64, 2, 161), device="cuda"))
+    assert fa.LAUNCHES["flash_attention"] == before
 
 
 def test_flash_attention_mma_unaligned_operands(gen):
@@ -792,9 +831,16 @@ def test_model_kernels_reject_mixed_devices_and_layouts(gen):
 
 
 @pytest.mark.parametrize("arch", ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "granite-3-2b", "stablelm-12b",
+                                  "stablelm-12b-hd160"])
 def test_model_prefill_cuda_matches_torch(gen, arch):
-    cfg = replace(get_config(arch, smoke=True), dtype="float32")
+    """A SMOKE config's f32 prefill on the card ("stablelm-12b-hd160":
+    stablelm's SMOKE with its FULL config's heads of 160) launches one
+    kernel an attention layer and one a mamba layer, and equals the
+    "torch" backend."""
+    arch, fields = {"stablelm-12b-hd160": ("stablelm-12b", {"head_dim": 160})}.get(
+        arch, (arch, {}))
+    cfg = replace(get_config(arch, smoke=True), dtype="float32", **fields)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     tok = torch.randint(0, cfg.vocab, (2, 70), generator=gen, device="cuda")
     pattern, R, shared = layer_pattern(cfg)

@@ -388,14 +388,15 @@ def test_argument_bytes_follow_the_specs(kind, multi):
 
 
 def test_prefill_cells_trace_the_plain_path():
-    """A prefill cell runs ``make_prefill_step(cfg, backend="torch")``: a
-    head wider than the flash kernel's 128 output columns (stablelm-12b's
-    160) traces, where the kernel's wrapper refuses it on any device."""
+    """A prefill cell runs ``make_prefill_step(cfg, backend="torch")``:
+    stablelm-12b's 160-wide heads trace on the plain path.  The flash
+    kernel's wrapper refuses a v head wider than its widest instance's
+    160 (here 176) on any device."""
     from dataclasses import replace
 
     cfg = replace(get_config("stablelm-12b", smoke=True), head_dim=160)
-    q = _meta((1, 8, cfg.n_heads, 160))
-    with pytest.raises(ValueError, match="hd_v 160"):
+    q = _meta((1, 8, cfg.n_heads, 176))
+    with pytest.raises(ValueError, match="hd_v 176 > 160"):
         fa.flash_attention(q, q, q)
     rec = dryrun.trace_cell(cfg, ShapeConfig("s", "prefill", 64, 2), make_production_mesh())
     want = weighted_cost(tt.prefill, tt.init_params(cfg, device="meta"), cfg,

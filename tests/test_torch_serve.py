@@ -1,8 +1,11 @@
 """The port's serving slice as a whole, held against the JAX package.
 
 On the SMOKE configs of qwen2-0.5b (GQA, qkv bias, tied embeddings),
-h2o-danube-1.8b (sliding window), mamba2-780m (ssm) and zamba2-2.7b
-(hybrid: mamba layers plus one shared attention block), the reference's
+granite-3-2b (tied embeddings, a vocab no mesh axis divides),
+h2o-danube-1.8b (sliding window), mamba2-780m (ssm), stablelm-12b (as
+published, and with its FULL config's heads of 160, the flash kernel's
+widest) and zamba2-2.7b (hybrid: mamba layers plus one shared attention
+block), the reference's
 ``init_params`` weights are carried across with ``params_from_jax`` and
 the same token ids (numpy, from a seed) go through both packages:
 ``prefill`` logits, eight ``decode_step``s from the same cache, and
@@ -39,7 +42,10 @@ from repro_torch.models.layers import embed_apply
 from repro_torch.models.convert import cache_from_jax, params_from_jax
 from repro_torch.serve.engine import Request, ServeLoop, make_prefill_step
 
-ARCHS = ["qwen2-0.5b", "h2o-danube-1.8b", "mamba2-780m", "zamba2-2.7b"]
+ARCHS = ["qwen2-0.5b", "granite-3-2b", "h2o-danube-1.8b", "mamba2-780m",
+         "stablelm-12b", "stablelm-12b-hd160", "zamba2-2.7b"]
+#: SMOKE variants: name -> (arch, fields replaced in both packages' config).
+VARIANTS = {"stablelm-12b-hd160": ("stablelm-12b", {"head_dim": 160})}
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 
 
@@ -54,8 +60,9 @@ def _one_torch_thread():
 
 
 def _configs(arch, dtype):
-    return (replace(jax_config(arch, smoke=True), dtype=dtype),
-            replace(get_config(arch, smoke=True), dtype=dtype))
+    arch, fields = VARIANTS.get(arch, (arch, {}))
+    return (replace(jax_config(arch, smoke=True), dtype=dtype, **fields),
+            replace(get_config(arch, smoke=True), dtype=dtype, **fields))
 
 
 def _numpy(tree):
