@@ -78,6 +78,13 @@ port's paths through their entry points at p = 1152 ranks (the paper's
     port's host_plan where one exists, "cuda" against "torch" (at 1 MiB a
     rank for the 16 MiB payloads), overlapped against sequential, and by
     its launches, and prints its time beside the flat host plan's;
+  * each overlapped path above (the host plans' broadcast_overlap,
+    reduce_overlap and allgather_overlap lines, and the communicator's
+    broadcast, reduce, allgather and reduce_scatter) is also run once,
+    warm, under ``torch.profiler``: its exchange (the rolls) must run on
+    a CUDA stream other than its pre-pack's, and its line gives the
+    stream ids, the share of rounds whose pre-pack meets that round's
+    rolls in time, and its time beside the sequential one's;
   * comm_quantized_allreduce: the communicator's int8-wire allreduce of
     the same 4 MiB bucket at p = 1152, root 100, as a one-leaf payload
     (its sums and errors equal to the host plan's bit for bit) and as the
@@ -102,9 +109,15 @@ weights from the seed) over ``StackedGroup(4)``:
     ``mp_worker.check_gradsync`` bound), the streamed step within it of
     the post-backward one (its loss, and the loss on the next batch after
     it); per step its time, tokens/s, loss, grad_norm, the sync's share
-    and the peak memory.  Training runs attention through its plain
-    version, as the reference trains through jnp: an auto step launches
-    no kernel.
+    and the peak memory.  The streamed step runs once more from the
+    same state, bit-equal to the first and with its loss, under
+    ``torch.cuda.set_sync_debug_mode("warn")``, where no module of the
+    sync may make the host wait, and under ``torch.profiler``, where
+    every round-step kernel (the bucket syncs) must run on one stream
+    other than the backward's and some of them must meet backward
+    kernels in time (``streamed_repeat`` gives the share).  Training
+    runs attention through its plain version, as the reference trains
+    through jnp: an auto step launches no kernel.
   * train_launch: the same configuration through the training
     launcher's entry point, ``repro_torch.launch.train.main`` with the
     reference's flags (``--mesh 4x1 --grad-sync compressed --global-batch
@@ -953,6 +966,138 @@ def counted_run(torch, kernels, fn):
     res = fn()
     torch.cuda.synchronize()
     return res, {k: v for mod in kernels for k, v in mod.LAUNCHES.items() if v}
+
+
+#: The round-step pack kernels (not the unpack ones) and torch.roll's
+#: kernel, by their names in a profiler trace.
+PACK_KERNEL = re.compile(r"(?<![A-Za-z_])pack(_short)?_kernel")
+ROLL_KERNEL = re.compile(r"(?<![A-Za-z_])roll")
+#: Every round-step kernel of csrc/block_pack.cu.
+ROUND_KERNEL = re.compile(r"(?<![A-Za-z])(un|q?acc_)?(pack|shuffle)\w*_kernel")
+#: The modules of the streamed bucket sync, whose host syncs count.
+SYNC_FILES = ("compression.py", "comm.py", "collectives.py", "quant_ops.py",
+              "block_pack.py", "_build.py")
+
+
+def traced_kernels(torch, fn) -> tuple:
+    """``fn()`` under ``torch.profiler`` with CUDA activity -> (its
+    result, its kernels as ``(name, stream, start_us, end_us)``, read
+    from the exported trace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return out, [(e["name"], e["args"]["stream"], e["ts"], e["ts"] + e["dur"])
+                 for e in events if e.get("cat") == "kernel"]
+
+
+def busy_union(spans) -> tuple:
+    """The union of ``(start, end)`` spans, sorted and merged -> its
+    ``(starts, ends)``."""
+    starts, ends = [], []
+    for a, b in sorted(spans):
+        if ends and a <= ends[-1]:
+            ends[-1] = max(ends[-1], b)
+        else:
+            starts.append(a)
+            ends.append(b)
+    return starts, ends
+
+
+def overlap_us(union, a, b) -> float:
+    """How much of the span ``(a, b)`` the merged ``union`` covers."""
+    import bisect
+
+    starts, ends = union
+    i, got = bisect.bisect_right(ends, a), 0.0    # the first span ending after a
+    while i < len(starts) and starts[i] < b:
+        got += min(b, ends[i]) - max(a, starts[i])
+        i += 1
+    return got
+
+
+def overlaps(union, a, b) -> bool:
+    """Whether the span ``(a, b)`` meets the merged ``union``."""
+    return overlap_us(union, a, b) > 0
+
+
+def overlap_streams(torch, name, fn) -> dict:
+    """One overlapped call of ``fn`` (warm: each caller has just timed
+    it) under the profiler: its rolls (the exchange) must run on a stream
+    other than its packs'.  Also the share of pre-packs (the packs after
+    the first roll) that meet a roll, and of their time under one; a pack
+    issued in round t can meet only round t's rolls."""
+    _, kern = traced_kernels(torch, fn)
+    rolls = [k for k in kern if ROLL_KERNEL.search(k[0])]
+    packs = [k for k in kern if PACK_KERNEL.search(k[0])]
+    check(rolls and packs, f"{name}: the trace shows {len(rolls)} rolls and "
+                           f"{len(packs)} packs")
+    roll_s, pack_s = sorted({k[1] for k in rolls}), sorted({k[1] for k in packs})
+    check(not set(roll_s) & set(pack_s) and len(pack_s) == 1,
+          f"{name}: the exchange ran on stream(s) {roll_s}, the pre-pack on {pack_s}")
+    first = min(k[2] for k in rolls)
+    pre = [k for k in packs if k[2] >= first]
+    union = busy_union([k[2:] for k in rolls])
+    met = [overlap_us(union, k[2], k[3]) for k in pre]
+    pre_us = sum(k[3] - k[2] for k in pre)
+    return {"exchange_streams": roll_s, "pack_stream": pack_s[0],
+            "rolls": len(rolls), "pre_packs": len(pre),
+            "rounds_overlapped_share": sum(m > 0 for m in met) / len(pre) if pre else 0.0,
+            "pre_pack_time_overlapped_share": sum(met) / pre_us if pre_us else 0.0,
+            "roll_us_mean": sum(k[3] - k[2] for k in rolls) / len(rolls),
+            "pre_pack_us_mean": pre_us / len(pre) if pre else 0.0,
+            "traced_call_ms": (max(k[3] for k in kern) - min(k[2] for k in kern)) / 1e3}
+
+
+def sync_streams(kern) -> dict:
+    """A streamed train step's trace: its round-step kernels (the bucket
+    syncs) must run on one stream other than the backward's (the stream
+    with the most kernel time), and the share of that stream's kernels
+    whose time meets a backward kernel's."""
+    busy = {}
+    for _, stream, a, b in kern:
+        busy[stream] = busy.get(stream, 0.0) + (b - a)
+    main = max(busy, key=busy.get)
+    rounds = [k for k in kern if ROUND_KERNEL.search(k[0])]
+    side = sorted({k[1] for k in rounds})
+    check(rounds and len(side) == 1 and side[0] != main,
+          f"train streamed: the syncs' kernels ran on stream(s) {side}, the "
+          f"backward on {main}")
+    on_side = [k for k in kern if k[1] == side[0]]
+    union = busy_union([k[2:] for k in kern if k[1] == main])
+    hit = [k for k in on_side if overlaps(union, k[2], k[3])]
+    share = len(hit) / len(on_side)
+    check(share > 0, "train streamed: no sync kernel overlaps the backward")
+    return {"backward_stream": main, "sync_stream": side[0],
+            "round_step_kernels": len(rounds), "sync_stream_kernels": len(on_side),
+            "overlapping_backward_share": share,
+            "sync_stream_busy_ms": busy[side[0]] / 1e3,
+            "overlapping_busy_ms": sum(b - a for _, _, a, b in hit) / 1e3,
+            "backward_stream_busy_ms": busy[main] / 1e3}
+
+
+def host_syncs(torch, fn) -> tuple:
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")`` -> (its
+    result, the places of its synchronizing calls, as ``file:line``)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return out, sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in seen
+                        if "synchroniz" in str(w.message)})
 
 
 def same_or_nan(torch, a, b, rows: int = 64) -> bool:
@@ -2076,6 +2221,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
     fresh()
     t = timed(plan, x)
     t_ov = timed(plan_ov, x)["ms"]
+    st_ov = overlap_streams(torch, "comm_broadcast overlap", lambda: plan_ov(x))
     recv_h, send_h = plan.statics[0].slots
     by = {k: bcast_bytes(P, n, R, -(-v.shape[1] // n) * v.element_size(),
                          recv_h, send_h, upload_rows=2)[0] for k, v in x.items()}
@@ -2116,7 +2262,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           "launches": got, "every_rank_holds_root_slices": True,
           "leaves_equal_to_host_plan": True, "equal_to_torch_backend_at_1MiB": small_b,
           "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
-          **t, "overlap_ms": t_ov, "flat_ms": flat["broadcast"],
+          **t, "overlap_ms": t_ov, "overlap_streams": st_ov, "flat_ms": flat["broadcast"],
           "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound),
           "broadcast_state": {"n": st_plan.n_blocks, "rounds": st_plan.rounds,
                               "messages_a_round": 3, "launches": got_st,
@@ -2169,6 +2315,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
     fresh()
     t = timed(plan, x)
     t_ov = timed(plan_ov, x)["ms"]
+    st_ov = overlap_streams(torch, "comm_reduce overlap", lambda: plan_ov(x))
     fwd_h, acc_h = plan.statics[0].slots
     rows = {k: -(-v.shape[1] // n) * v.element_size() for k, v in x.items()}
     bound = sum(sum(reduce_bytes(P, n, R, rows[k], fwd_h, acc_h)[0].values())
@@ -2200,7 +2347,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           "non_roots_hold_zeros": True, "leaves_equal_to_host_plan": True,
           "max_root_equals_amax": True, "equal_to_torch_backend_at_1MiB": small_r,
           "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
-          **t, "overlap_ms": t_ov, "flat_ms": flat["reduce"],
+          **t, "overlap_ms": t_ov, "overlap_streams": st_ov, "flat_ms": flat["reduce"],
           "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound), "card": card})
     emit({"phase": "comm_allreduce", "p": P, "n": n, "rounds": plan_a.rounds,
           "root": BCAST_ROOT, "op": "sum",
@@ -2245,6 +2392,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
     fresh()
     t = timed(plan, x)
     t_ov = timed(plan_ov, x)["ms"]
+    st_ov = overlap_streams(torch, "comm_allgather overlap", lambda: plan_ov(x))
     bs = -(-E // n)
     by, _ = allgather_bytes(P, n, R, bs * 4, *hp.device_slots)
     bound = sum(by.values()) + 2 * P * E * 4     # + rank 0's rows out
@@ -2255,7 +2403,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           "every_rank_copy_exact": True, "every_rank_copy_equal_to_host_plan": True,
           "equal_to_host_plan": True, "equal_to_torch_backend": True,
           "overlap_equal_to_sequential": True, "overlap_launches": got_ov,
-          **t, "overlap_ms": t_ov, "flat_ms": flat["allgather"],
+          **t, "overlap_ms": t_ov, "overlap_streams": st_ov, "flat_ms": flat["allgather"],
           "bytes_moved": bound, "bytes_bound_ms": ms_of_bytes(bound), "card": card})
     del x, a, full
     torch.cuda.empty_cache()
@@ -2291,6 +2439,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
     fresh()
     t = timed(plan, x)
     t_ov = timed(plan_ov, x)["ms"]
+    st_ov = overlap_streams(torch, "comm_reduce_scatter overlap", lambda: plan_ov(x))
     bundle = get_bundle(P, 0)
     fwd, acc, _ = scatter_slot_plan(bundle, n)
     everyone = range(P)
@@ -2314,7 +2463,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
           "buffer_shape": [P * P, n + 1, bs], "plan_build_s": build_s,
           "launches": got, "rows_equal_exact_sums": True,
           "equal_to_torch_backend": True, "overlap_equal_to_sequential": True,
-          "overlap_launches": got_ov, **t, "overlap_ms": t_ov,
+          "overlap_launches": got_ov, **t, "overlap_ms": t_ov, "overlap_streams": st_ov,
           "flat_ms": None, "allgather_flat_ms": flat["allgather"],
           "bytes_moved": bound, "bytes_by_step": by,
           "acc_rows_acc_eq_fwd": rs_coincide,
@@ -2645,7 +2794,10 @@ def train_phases(torch, np, card, kmods, g) -> dict:
             return out
         return timed
 
-    def run(tcfg, n_steps, eval_after_first=False):
+    def run(tcfg, n_steps, eval_after_first=False, keep=False):
+        """``n_steps`` steps of ``tcfg`` from the initial state -> (their
+        records, the eval loss after the first, and with ``keep`` the
+        final state's leaves on the host)."""
         state = init_train_state(cfg, tcfg, params=tree0, group=group)
         step = make_train_step(cfg, tcfg, group=group)
         recs, evals = [], None
@@ -2672,17 +2824,46 @@ def train_phases(torch, np, card, kmods, g) -> dict:
             recs.append(rec)
             if eval_after_first and i == 0:
                 evals = float(evaluate(state["params"], batches[1]))
+        kept = [x.cpu() for x in tree_flatten(state)[0]] if keep else None
         del state
         torch.cuda.empty_cache()
-        return recs, evals
+        return (recs, evals, kept) if keep else (recs, evals)
+
+    def streamed_again(tcfg):
+        """The first step of ``tcfg`` again from the initial state, under
+        ``torch.profiler`` and ``set_sync_debug_mode("warn")`` -> (its
+        record, the state's leaves on the host, its kernels)."""
+        state = init_train_state(cfg, tcfg, params=tree0, group=group)
+        step = make_train_step(cfg, tcfg, group=group)
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ((state, m), kern), syncs = host_syncs(torch, lambda: traced_kernels(
+            torch, lambda: step(state, batches[0])))
+        ms = (time.perf_counter() - t0) * 1e3
+        in_sync = [at for at in syncs if at.split(":")[0] in SYNC_FILES]
+        check(not in_sync, f"train streamed: host syncs in the sync: {in_sync}")
+        rec = {"ms_traced": ms, "loss": float(m["loss"]), "host_syncs_in_the_sync": in_sync,
+               "host_syncs_elsewhere": [at for at in syncs if at not in in_sync]}
+        got = [x.cpu() for x in tree_flatten(state)[0]]
+        del state, step, m
+        torch.cuda.empty_cache()
+        return rec, got, kern
 
     trainer_mod.compressed_grad_sync = timer(real_sync, sync_times)
     trainer_mod.apply_updates = timer(real_update, update_times)
     try:
         comp_cfg = TrainConfig(grad_sync="compressed", microbatches=2, remat="full")
         comp_steps, comp_eval = run(comp_cfg, TRAIN_STEPS, eval_after_first=True)
-        stream_steps, stream_eval = run(replace(comp_cfg, stream_grad_sync=True), 1,
-                                        eval_after_first=True)
+        stream_cfg = replace(comp_cfg, stream_grad_sync=True)
+        stream_steps, stream_eval, leaves = run(stream_cfg, 1, eval_after_first=True,
+                                                keep=True)
+        # again from the same state, traced: bit-equal to the first
+        repeat, got, kern = streamed_again(stream_cfg)
+        check(all(torch.equal(bits(torch, a), bits(torch, b)) for a, b in zip(leaves, got)),
+              "train: two streamed steps from one state differ")
+        repeat["streams"] = sync_streams(kern)
+        del leaves, got, kern
         auto_steps, auto_eval = run(TrainConfig(grad_sync="auto", microbatches=2,
                                                 remat="full"), TRAIN_STEPS,
                                     eval_after_first=True)
@@ -2704,6 +2885,8 @@ def train_phases(torch, np, card, kmods, g) -> dict:
                      abs(stream_eval - comp_eval))
     check(stream_gap <= bound, f"train: the streamed step leaves the post-backward "
                                f"one by {stream_gap}")
+    check(repeat["loss"] == stream_steps[0]["loss"],
+          "train: the streamed repeat's loss differs from the first streamed step's")
     # streamed: each bucket's marker runs a one-leaf allreduce of its own
     expect_stream = {}
     for size in spec.bucket_sizes:
@@ -2729,6 +2912,7 @@ def train_phases(torch, np, card, kmods, g) -> dict:
           "eval_after_step_1": {"compressed": comp_eval, "auto": auto_eval,
                                 "streamed": stream_eval},
           "max_loss_gap": gap, "streamed_gap": stream_gap, "bound": bound,
+          "streamed_repeat": repeat, "streamed_repeat_bit_equal": True,
           "card": card})
     return launches
 
@@ -4315,6 +4499,7 @@ def main() -> None:
     plain = host_plan("broadcast", P, n, root=BCAST_ROOT, backend="torch")
     plain_ms, plain_times = median_ms(torch, lambda: plain.run(values), 3)
     ov_ms, ov_times = median_ms(torch, lambda: plan_ov.run(values), 5)
+    ov_streams = overlap_streams(torch, "broadcast_overlap", lambda: plan_ov.run(values))
     zeros_ms = cuda_ms(torch, lambda: torch.zeros((P, n + 1, bs),
                                                   device="cuda"), 3)
     upload_ms = cuda_ms(torch, lambda: vals_dev.copy_(torch.from_numpy(values)), 3)
@@ -4366,7 +4551,7 @@ def main() -> None:
                        "block_unpack": 1},
           "equal_to_sequential": True, "ms": ov_ms, "ms_runs": ov_times,
           "sequential_ms": bcast_ms, "bytes_bound_ms": ms_of_bytes(ov_bytes),
-          "card": card})
+          "streams": ov_streams, "card": card})
     del vals_dev
     torch.cuda.empty_cache()
 
@@ -4405,6 +4590,8 @@ def main() -> None:
     red_ms, red_times = median_ms(torch, lambda: plan_r.run(contrib), 5)
     red_peak = torch.cuda.max_memory_allocated()
     red_ov_ms, red_ov_times = median_ms(torch, lambda: plan_rov.run(contrib), 5)
+    red_ov_streams = overlap_streams(torch, "reduce_overlap",
+                                     lambda: plan_rov.run(contrib))
     plan_r_plain = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum",
                              backend="torch")
     red_plain_ms, red_plain_times = median_ms(
@@ -4510,7 +4697,8 @@ def main() -> None:
                        "block_acc_shuffle_staged": R},
           "equal_to_sequential": True, "ms": red_ov_ms,
           "ms_runs": red_ov_times, "sequential_ms": red_ms,
-          "bytes_bound_ms": ms_of_bytes(red_ov_bound), "card": card})
+          "bytes_bound_ms": ms_of_bytes(red_ov_bound), "streams": red_ov_streams,
+          "card": card})
     emit({"phase": "allreduce", "p": P, "n": n_red, "rounds": 2 * R,
           "root": BCAST_ROOT, "op": "sum",
           "launches": {"block_acc_shuffle": R + 1, "block_pack": 1,
@@ -4557,6 +4745,8 @@ def main() -> None:
     ag_ms, ag_times = median_ms(torch, lambda: plan_ag.run(vals_ag), 5)
     ag_peak = torch.cuda.max_memory_allocated()
     ag_ov_ms, ag_ov_times = median_ms(torch, lambda: plan_agov.run(vals_ag), 5)
+    ag_ov_streams = overlap_streams(torch, "allgather_overlap",
+                                    lambda: plan_agov.run(vals_ag))
     ag_plain_ms, ag_plain_times = median_ms(torch, lambda: plain_ag.run(vals_ag), 3)
     rows_ag, row_ag = P * P, bs_ag * 4
     recv_rows, send_rows = plan_ag.device_slots
@@ -4602,7 +4792,8 @@ def main() -> None:
                        "block_unpack": 1},
           "equal_to_sequential": True, "ms": ag_ov_ms,
           "ms_runs": ag_ov_times, "sequential_ms": ag_ms,
-          "bytes_bound_ms": ms_of_bytes(ag_ov_bound), "card": card})
+          "bytes_bound_ms": ms_of_bytes(ag_ov_bound), "streams": ag_ov_streams,
+          "card": card})
     del vals_ag
     torch.cuda.empty_cache()
 
@@ -4743,7 +4934,7 @@ def main() -> None:
     def q_bcast():
         qb_ = torch.zeros((P, n_q + 1, bs_q), dtype=torch.int8, device="cuda")
         sb_ = torch.zeros((P, n_q + 1, nb_q), device="cuda")
-        forward_rounds(plan_q.step, False, [qb_, sb_], [(recv_q, send_q)] * 2,
+        forward_rounds(plan_q.step, [qb_, sb_], [(recv_q, send_q)] * 2,
                        bc_skips, roll_rows)
 
     def q_dequant():

@@ -85,6 +85,7 @@ from .optim.compression import (
     make_bucket_spec,
     streamed_sync_params,
     unbucketize,
+    wait_streamed_sync,
 )
 
 __all__ = [
@@ -142,4 +143,5 @@ __all__ = [
     "streamed_sync_params",
     "unbucketize",
     "verify_bundle",
+    "wait_streamed_sync",
 ]

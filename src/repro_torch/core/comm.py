@@ -58,10 +58,20 @@ loops:
     broadcast's rounds over an int8 ``[p, n+1, bs]`` and an f32 scale
     ``[p, n+1, bs/qblock]`` buffer, and a dequantize.
 
-``overlap=True`` runs the reference's overlapped round loop: each round
-packs the next send block from the pre-update buffer, then calls the
-staged step, all on the current stream in the reference's order.  It
-equals the sequential loop bit for bit.
+``overlap=True`` runs the reference's overlapped round loop.  Each
+round starts its exchange, packs the next send (or forward) block from
+the pre-update buffer while the exchange is in flight, waits for it and
+takes the staged step, which patches the one slot the early pack could
+not see; it equals the sequential loop bit for bit.  The exchange is
+asynchronous (``start_exchange(msgs, shift) -> wait()``): on the card a
+:class:`StackedGroup`'s rolls (and a host plan's) run on a side stream
+of their own, one a group and device, which first waits for the current
+stream's work so far, while the pack runs on the current stream;
+``wait()`` makes the current stream wait for the rolls.  A
+:class:`DistGroup` posts its ``batch_isend_irecv`` and gloo's threads
+move the messages while this process packs.  On the CPU the stacked
+roll runs at once.  The sequential loops call the synchronous
+``exchange`` on the current stream.
 
 Plans are cached like the JAX package's: the clamped slot tables, the
 skip sequence and the step handle are resolved once per plan, and the
@@ -72,6 +82,7 @@ on the device once per plan, not once per round.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from functools import partial
 from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -117,6 +128,7 @@ __all__ = [
     "HostDataPlan",
     "host_plan",
     "resolve_device",
+    "side_stream",
 ]
 
 #: The kinds, with the audit records of their phases in execution order.
@@ -247,6 +259,51 @@ def _roll(msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
     return [torch.roll(m, shift, dims=0) for m in msgs]
 
 
+#: The side streams of the overlapped exchanges, one an (owner, device).
+_SIDE_STREAMS: dict = {}
+#: The owner of the host data plans' side stream.
+_HOST_PLANS = "host_plan"
+
+
+def side_stream(owner: Any, device: torch.device):
+    """The side stream of ``owner`` (a group, or the host plans) on the
+    CUDA ``device``, made at its first use.  A card that cannot make one
+    raises: nothing falls back to one stream."""
+    key = (owner, device)
+    stream = _SIDE_STREAMS.get(key)
+    if stream is None:
+        stream = _SIDE_STREAMS[key] = torch.cuda.Stream(device)
+    return stream
+
+
+def _start_roll(msgs: List[torch.Tensor], shift: int, side=None) -> Callable:
+    """The stacked exchange, started -> ``wait()``, which returns the
+    rolled messages.  ``side=None`` (the CPU) rolls at once.  On the card
+    the rolls run on the stream ``side`` after the current stream's work
+    so far, and ``wait()`` makes the current stream wait for them.  Each
+    message read there, and each rolled tensor read here, is recorded on
+    the other stream, so that the caching allocator does not hand out a
+    freed block while the other stream may still read it."""
+    if side is None:
+        got = _roll(msgs, shift)
+        return lambda: got
+    cur = torch.cuda.current_stream(side.device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        got = _roll(msgs, shift)
+    for m in msgs:
+        m.record_stream(side)
+    done = side.record_event()
+
+    def wait():
+        cur.wait_event(done)
+        for g in got:
+            g.record_stream(cur)
+        return got
+
+    return wait
+
+
 def _by_rank(exchange: Callable, nranks: int) -> Callable:
     """An exchange of messages whose rows are rank-major: each rank's
     rows travel together (``msg.view(nranks, -1)``)."""
@@ -257,6 +314,24 @@ def _by_rank(exchange: Callable, nranks: int) -> Callable:
     return rank_major
 
 
+def _by_rank_started(start: Callable, nranks: int) -> Callable:
+    """:func:`_by_rank` of an asynchronous exchange: its ``wait()``
+    returns the messages in their own shapes."""
+    def rank_major(msgs, shift):
+        shapes = [m.shape for m in msgs]
+        wait = start([m.view(nranks, -1) for m in msgs], shift)
+        return lambda: [g.view(sh) for g, sh in zip(wait(), shapes)]
+
+    return rank_major
+
+
+def _starter(level) -> Callable:
+    """A group's asynchronous exchange, its side stream made now, at plan
+    time, so that a card that cannot make one fails the plan."""
+    level.side_stream()
+    return level.start_exchange
+
+
 # ------------------------------------------------------------ round loops
 #
 # One copy of each round loop, shared by the host data plans and the
@@ -265,42 +340,52 @@ def _by_rank(exchange: Callable, nranks: int) -> Callable:
 # i's device slot rows; ``shifts[t]`` is round t's rotation.
 
 
-def _forward_rounds(step: RoundStep, overlap: bool, bufs: List[torch.Tensor],
-                    tables, shifts: Sequence[int],
-                    exchange: Callable) -> List[torch.Tensor]:
+def _forward_rounds(step: RoundStep, bufs: List[torch.Tensor], tables,
+                    shifts: Sequence[int], exchange: Callable,
+                    start: Optional[Callable] = None) -> List[torch.Tensor]:
     """The broadcast family's rounds, in place: pack, then per round the
     exchange and a shuffle, the last round an unpack.  ``tables[i]`` is
-    ``(recv, send)``, each ``[R, rows]`` int32.  Overlapped: each round
-    first packs the next send block from the pre-update buffer, then
-    takes the staged shuffle."""
+    ``(recv, send)``, each ``[R, rows]`` int32.  Given ``start``, the
+    asynchronous exchange (``start(msgs, shift) -> wait()``), the rounds
+    are the reference's overlapped ones: start the exchange, pack every
+    next send block from the pre-update buffer meanwhile, ``wait()``,
+    then the staged shuffles."""
+    overlap = start is not None
     R = len(shifts)
     msgs = [step.pack(b, send[0]) for b, (_, send) in zip(bufs, tables)]
     for t in range(R):
-        got = exchange(msgs, shifts[t])
+        last = t + 1 == R
+        if overlap:
+            wait = start(msgs, shifts[t])
+            pres = [] if last else [step.pack(b, send[t + 1])
+                                    for b, (_, send) in zip(bufs, tables)]
+            got = wait()
+        else:
+            got = exchange(msgs, shifts[t])
         for i, (recv, send) in enumerate(tables):
-            if t + 1 < R:
-                if overlap:
-                    pre = step.pack(bufs[i], send[t + 1])
-                    bufs[i], msgs[i] = step.shuffle_staged(
-                        bufs[i], got[i], pre, recv[t], send[t + 1])
-                else:
-                    bufs[i], msgs[i] = step.shuffle(bufs[i], got[i], recv[t],
-                                                    send[t + 1])
-            else:
+            if last:
                 bufs[i] = step.unpack(bufs[i], got[i], recv[t])
+            elif overlap:
+                bufs[i], msgs[i] = step.shuffle_staged(
+                    bufs[i], got[i], pres[i], recv[t], send[t + 1])
+            else:
+                bufs[i], msgs[i] = step.shuffle(bufs[i], got[i], recv[t],
+                                                send[t + 1])
     return bufs
 
 
-def _reduce_rounds(step: RoundStep, overlap: bool, bufs: List[torch.Tensor],
-                   tables, shifts: Sequence[int], exchange: Callable,
-                   op: str) -> List[torch.Tensor]:
+def _reduce_rounds(step: RoundStep, bufs: List[torch.Tensor], tables,
+                   shifts: Sequence[int], exchange: Callable, op: str,
+                   start: Optional[Callable] = None) -> List[torch.Tensor]:
     """The reduction's rounds, in place: the initial capture and drain of
     round 0's forwarded partials (folding a zero message into the garbage
     slot), then per round the exchange and an acc_shuffle.  ``tables[i]``
     is ``(fwd, acc)``: ``fwd`` ``[R+1, rows]`` with the garbage slot as
-    its last row, ``acc`` ``[R, rows]``.  Overlapped: each round first
-    packs the next forward block from the pre-accumulate buffer, then
-    takes the staged step."""
+    its last row, ``acc`` ``[R, rows]``.  Given ``start``, overlapped as
+    :func:`_forward_rounds`: start the exchange, pack every next forward
+    block from the pre-accumulate buffer meanwhile, ``wait()``, then the
+    staged steps."""
+    overlap = start is not None
     R = len(shifts)
     msgs = []
     for i, (fwd, _) in enumerate(tables):
@@ -310,12 +395,16 @@ def _reduce_rounds(step: RoundStep, overlap: bool, bufs: List[torch.Tensor],
         bufs[i], m = step.acc_shuffle(b, zero, fwd[R], fwd[0], op=op)
         msgs.append(m)
     for t in range(R):
-        got = exchange(msgs, shifts[t])
+        if overlap:
+            wait = start(msgs, shifts[t])
+            pres = [step.pack(b, fwd[t + 1]) for b, (fwd, _) in zip(bufs, tables)]
+            got = wait()
+        else:
+            got = exchange(msgs, shifts[t])
         for i, (fwd, acc) in enumerate(tables):
             if overlap:
-                pre = step.pack(bufs[i], fwd[t + 1])
                 bufs[i], msgs[i] = step.acc_shuffle_staged(
-                    bufs[i], got[i], pre, acc[t], fwd[t + 1], op=op)
+                    bufs[i], got[i], pres[i], acc[t], fwd[t + 1], op=op)
             else:
                 bufs[i], msgs[i] = step.acc_shuffle(bufs[i], got[i], acc[t],
                                                     fwd[t + 1], op=op)
@@ -369,6 +458,17 @@ class HostDataPlan:
         return tuple(static(bundle, self.n, overlap=self.overlap)
                      for static in _STATICS[self.kind])
 
+    def _start(self, nranks: Optional[int] = None) -> Optional[Callable]:
+        """The overlapped loops' asynchronous roll (rank-major with
+        ``nranks``), on the card on the host plans' side stream of
+        ``device``; None where the loops are sequential."""
+        if not self.overlap:
+            return None
+        side = (side_stream(_HOST_PLANS, self.device)
+                if self.device.type == "cuda" else None)
+        start = partial(_start_roll, side=side)
+        return start if nranks is None else _by_rank_started(start, nranks)
+
     def run(self, values):
         if self.kind == "broadcast":
             return self._run_broadcast(values)
@@ -394,8 +494,9 @@ class HostDataPlan:
                           device=self.device)
         buf[self.root, :n] = vals
         if len(self.ks):                             # p == 1: nothing moves
-            (buf,) = _forward_rounds(self.step, self.overlap, [buf],
-                                     [self.device_slots], self.skips, _roll)
+            (buf,) = _forward_rounds(self.step, [buf],
+                                     [self.device_slots], self.skips, _roll,
+                                     self._start())
         return buf[:, :n]
 
     def _run_allgather(self, values) -> torch.Tensor:
@@ -413,9 +514,9 @@ class HostDataPlan:
                           device=self.device)
         buf[:: p + 1, :n] = vals                     # row j*p + j: root j's own
         if len(self.ks):
-            (buf,) = _forward_rounds(self.step, self.overlap, [buf],
+            (buf,) = _forward_rounds(self.step, [buf],
                                      [self.device_slots], self.skips,
-                                     _by_rank(_roll, p))
+                                     _by_rank(_roll, p), self._start(p))
         return buf.view(p, p, n + 1, bs)[:, :, :n]
 
     def _run_reduce(self, values) -> torch.Tensor:
@@ -435,9 +536,10 @@ class HostDataPlan:
         buf[:, n].zero_()                            # garbage slot n
         buf[:, n + 1].fill_(op_identity(op, vals.dtype))  # identity slot n+1
         if len(self.ks):
-            (buf,) = _reduce_rounds(self.step, self.overlap, [buf],
+            (buf,) = _reduce_rounds(self.step, [buf],
                                     [self.device_slots],
-                                    [-s for s in self.skips], _roll, op)
+                                    [-s for s in self.skips], _roll, op,
+                                    self._start())
         return buf[:, :n]
 
     def _run_quantized(self, values) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -496,7 +598,7 @@ class HostDataPlan:
         qbuf[root, :n] = q.view(n, bs)
         sbuf = torch.zeros((p, n + 1, nb), dtype=torch.float32, device=dev)
         sbuf[root, :n] = sc.view(n, nb)
-        qbuf, sbuf = _forward_rounds(step, False, [qbuf, sbuf],
+        qbuf, sbuf = _forward_rounds(step, [qbuf, sbuf],
                                      [(recv, send)] * 2, bc_skips, _roll)
         out = qbuf[:, :n].float().view(p, n, nb, qb)
         out.mul_(sbuf[:, :n, :, None])
@@ -540,6 +642,8 @@ def host_plan(kind: str, p: int, n: int, *, root: int = 0, op: str = "sum",
     if kind == "reduce":
         _validate(op)
     dev = resolve_device(device)
+    if overlap and dev.type == "cuda":
+        side_stream(_HOST_PLANS, dev)   # made at plan time: a card without one fails here
     root_key = int(root) if kind != "allgather" else 0
     op_key = op if kind in ("reduce", "quantized_allreduce") else None
     key = ("hostplan", kind, int(p), int(n), root_key, op_key, backend,
@@ -745,6 +849,19 @@ class StackedGroup:
         observe_exchange(self, msgs)
         return _roll(msgs, shift)
 
+    def side_stream(self):
+        """The stream this group's started exchanges run on: its own on
+        the card (made at the first call), None on the CPU."""
+        return side_stream(self, self.device) if self.device.type == "cuda" else None
+
+    def start_exchange(self, msgs: List[torch.Tensor], shift: int) -> Callable:
+        """:meth:`exchange`, started -> ``wait()``, which returns its
+        result.  On the card the rolls run on :meth:`side_stream` after
+        the current stream's work so far, and ``wait()`` makes the
+        current stream wait for them; on the CPU they run at once."""
+        observe_exchange(self, msgs)
+        return _start_roll(msgs, shift, self.side_stream())
+
 
 @dataclass(frozen=True)
 class DistGroup:
@@ -791,6 +908,16 @@ class DistGroup:
         return r if self.group is None else dist.get_global_rank(self.group, r)
 
     def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
+        return self.start_exchange(msgs, shift)()
+
+    def side_stream(self) -> None:
+        """A gloo group runs on the CPU: no stream."""
+        return None
+
+    def start_exchange(self, msgs: List[torch.Tensor], shift: int) -> Callable:
+        """Post the round's ``batch_isend_irecv`` -> ``wait()``, which
+        waits for its works and returns the received messages: gloo's
+        threads move them while the caller goes on."""
         import torch.distributed as dist
 
         observe_exchange(self, msgs)
@@ -803,10 +930,14 @@ class DistGroup:
                 ops.append(dist.P2POp(dist.isend, m.contiguous(), dst,
                                       self.group, tag=i))
                 ops.append(dist.P2POp(dist.irecv, g, src, self.group, tag=i))
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
+        works = dist.batch_isend_irecv(ops) if ops else []
+
+        def wait():
+            for work in works:
                 work.wait()
-        return got
+            return got
+
+        return wait
 
 
 def check_devices(group, leaves) -> None:
@@ -847,6 +978,7 @@ def _bcast_phase(level, bundle, n: int, step: RoundStep,
     row starts at zero, as the reference's root-masked phase, and every
     row ends holding the root's data -> ``[rows, m]`` views of the
     ``[rows, n+1, bs]`` buffers."""
+    start = _starter(level) if overlap else None
     recv, send, ks = broadcast_slot_plan(bundle, n)
     shifts = [int(bundle.skip[int(k)]) for k in ks]
     cols, dev = np.asarray(level.ranks), level.device
@@ -865,8 +997,8 @@ def _bcast_phase(level, bundle, n: int, step: RoundStep,
             flats[i] = x = None
             bufs.append(buf)
             sizes.append(size)
-        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
-                               shifts, level.exchange)
+        bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
+                               shifts, level.exchange, start)
         return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
     return run, records
@@ -878,6 +1010,7 @@ def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
     every row contributes its flat; the level root's row ends with the
     op-reduction, every other row drained -> ``[rows, m]`` views of the
     ``[rows, n+2, bs]`` buffers (slot n garbage, slot n+1 the identity)."""
+    start = _starter(level) if overlap else None
     p = bundle.p
     fwd, acc, ks = reduce_slot_plan(bundle, n)
     shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
@@ -895,8 +1028,8 @@ def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
             sizes.append(x.shape[1])
             flats[i] = x = None
             bufs.append(buf)
-        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
-                              shifts, level.exchange, op)
+        bufs = _reduce_rounds(step, bufs, [tables] * len(bufs),
+                              shifts, level.exchange, op, start)
         return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
     return run, records
@@ -910,6 +1043,7 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
     n+1, bs]`` buffers of rank-major rows (row ``(r, j)``: held row r's
     copy of level rank j's blocks; the exchange moves a row's p messages
     together)."""
+    start = _starter(level) if overlap else None
     p = bundle.p
     recv, _, ks = broadcast_slot_plan(bundle, n)
     shifts = [int(bundle.skip[int(k)]) for k in ks]
@@ -920,6 +1054,8 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
     rows = len(cols)
     own = torch.as_tensor(np.arange(rows) * p + cols, device=dev)  # row (r, rank r)
     exchange = _by_rank(level.exchange, rows)
+    if start is not None:
+        start = _by_rank_started(start, rows)
 
     def run(flats: list) -> List[torch.Tensor]:
         bufs, sizes = [], []
@@ -932,8 +1068,8 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
             flats[i] = x = None
             bufs.append(buf)
             sizes.append(size)
-        bufs = _forward_rounds(step, overlap, bufs, [tables] * len(bufs),
-                               shifts, exchange)
+        bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
+                               shifts, exchange, start)
         return [b.view(rows, p, b.shape[1] * b.shape[2])[:, :, :size]
                 for b, size in zip(bufs, sizes)]
 
@@ -1052,7 +1188,7 @@ def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
                 bufs.append(buf)
                 bufs_tables.append(tables[roots][:2])
             metas.append((x.dtype, cap))
-        bufs = _forward_rounds(step, False, bufs, bufs_tables, shifts, exchange)
+        bufs = _forward_rounds(step, bufs, bufs_tables, shifts, exchange)
         # the first rank held, or (copies) each: rows j of its copy, cut
         # at sizes[j]
         held = lr if copies else 1
@@ -1074,6 +1210,7 @@ def _lower_allgatherv(group, bundle, n: int, step: RoundStep,
 
 def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
                           overlap: bool) -> Callable:
+    start = _starter(group) if overlap else None
     p = bundle.p
     fwd, acc, ks = scatter_slot_plan(bundle, n)
     shifts = [(p - int(bundle.skip[int(k)])) % p for k in ks]
@@ -1083,6 +1220,8 @@ def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
     tables = tuple(t.tensor for t in records)
     lr = len(ranks)
     exchange = _by_rank(group.exchange, lr)
+    if start is not None:
+        start = _by_rank_started(start, lr)
 
     def execute(leaves):
         bufs, metas = [], []
@@ -1094,8 +1233,8 @@ def _lower_reduce_scatter(group, bundle, n: int, step: RoundStep,
             bufs.append(_split_blocks(x.reshape(lr * p, shard), n, n + 1,
                                       dtype=_acc_dtype(x.dtype)))
             metas.append((shard, x.dtype))
-        bufs = _reduce_rounds(step, overlap, bufs, [tables] * len(bufs),
-                              shifts, exchange, "sum")
+        bufs = _reduce_rounds(step, bufs, [tables] * len(bufs),
+                              shifts, exchange, "sum", start)
         return [_unblock(b[ranks.start::p + 1][:lr], n, shard).to(dt)
                 for b, (shard, dt) in zip(bufs, metas)]
 
@@ -1171,7 +1310,7 @@ def _lower_quantized_allreduce(group, bundle, n: int, root: int,
             bufs[i] = None
             qbufs.append(qbuf)
             sbufs.append(sbuf)
-        outs = _forward_rounds(step, False, qbufs + sbufs, [bc_tables] * (2 * L),
+        outs = _forward_rounds(step, qbufs + sbufs, [bc_tables] * (2 * L),
                                bc_shifts, group.exchange)
         sums, out_errs = [], []
         for i, (shape, size, bs, nb) in enumerate(metas):

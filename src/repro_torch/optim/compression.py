@@ -20,7 +20,10 @@ gradient buckets (``BucketSpec``, ``make_bucket_spec``, ``bucketize``,
 ``unbucketize``, ``init_grad_sync_state``) group leaves so that one
 bucket spec freezes one quantized-allreduce plan; ``compressed_grad_sync``
 syncs a gradient after the backward, ``streamed_sync_params`` inside it
-(an autograd marker a bucket).
+(an autograd marker a bucket).  On the card over a ``StackedGroup`` the
+streamed sync of a bucket runs on a side stream of its own, overlapping
+the backward of the buckets after it, and ``wait_streamed_sync`` joins
+it once the backward returns; over a ``DistGroup`` it runs inline.
 
 Error-feedback convention, as in the reference: error leaves are f32
 and live in SUM units -- each rank keeps exactly the quantization error
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from ..core.collectives import circulant_qallreduce
-from ..core.comm import resolve_device
+from ..core.comm import StackedGroup, get_comm, resolve_device, side_stream
 from ..core.tree import tree_flatten, tree_unflatten
 from ..kernels.quant_ops import (
     QBLOCK,
@@ -71,6 +74,7 @@ __all__ = [
     "init_grad_sync_state",
     "compressed_grad_sync",
     "streamed_sync_params",
+    "wait_streamed_sync",
 ]
 
 
@@ -355,12 +359,49 @@ def compressed_grad_sync(grads, err_buckets, group, spec: BucketSpec, *,
     return tree_unflatten(treedef, outs), tuple(errs)
 
 
+def _sync_stream(group, device: torch.device):
+    """The side stream the streamed bucket syncs of ``group`` run on: a
+    :class:`StackedGroup`'s own on the card; None where they run inline
+    (the CPU, and a ``DistGroup``, whose gloo allreduce would need a
+    thread of its own a bucket to overlap)."""
+    if isinstance(group, StackedGroup) and device.type == "cuda":
+        return side_stream(("bucket_sync", group), device)
+    return None
+
+
+def _sync_bucket(target: torch.Tensor, meta) -> tuple:
+    """One bucket's quantized allreduce of ``target`` ``[lr, size]`` ->
+    the gradients of :class:`_BucketSync`'s inputs: ``(new_err, None,
+    *leaf_means)``, each mean cast to its leaf's dtype, the downcast
+    losses folded into the new error."""
+    shapes, group, backend, _, n_blocks, qblock = meta
+    (total,), (new_err,) = circulant_qallreduce(
+        group, [target], n_blocks=n_blocks, backend=backend, qblock=qblock)
+    mean = total * inv(group.p)
+    out, off = [], 0
+    for shape, dtype in shapes:
+        size = _numel_of(shape)
+        cast, delta = _cast_with_delta(mean[:, off:off + size], dtype)
+        out.append(cast[0].reshape(shape))
+        new_err[:, off:off + size] += delta
+        off += size
+    return (new_err, None) + tuple(out)
+
+
 class _BucketSync(torch.autograd.Function):
     """One bucket's streamed sync marker: the identity on the bucket's
     leaves in the forward (each leaf viewed once a held rank); the
     backward runs the bucket's quantized allreduce on
     ``(acc + cotangents) * accum_scale + err`` and returns the mean as
-    the leaves' gradient and the new error as the error's."""
+    the leaves' gradient and the new error as the error's.
+
+    On the card, over a :class:`StackedGroup`, the backward computes the
+    target on the autograd stream and leaves the allreduce, the mean, its
+    downcast and the error update on the group's bucket-sync stream
+    (:func:`_sync_stream`), where they overlap the backward of the
+    buckets still to come; it returns without waiting.  The caller makes
+    its stream wait (:func:`wait_streamed_sync`) before it reads the
+    gradients.  Elsewhere the allreduce runs inline."""
 
     @staticmethod
     def forward(ctx, meta, err, acc, *leaves):
@@ -372,22 +413,23 @@ class _BucketSync(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *cts):
         err, acc = ctx.saved_tensors
-        shapes, group, backend, accum_scale, n_blocks, qblock = ctx.meta
+        group, accum_scale = ctx.meta[1], ctx.meta[3]
         lr = err.shape[0]
         parts = [ct.to(torch.float32).reshape(lr, -1) for ct in cts]
         flat = parts[0] if len(parts) == 1 else torch.cat(parts, dim=1)
         target = (acc + flat) * accum_scale + err
-        (total,), (new_err,) = circulant_qallreduce(
-            group, [target], n_blocks=n_blocks, backend=backend, qblock=qblock)
-        mean = total * inv(group.p)
-        out, off = [], 0
-        for (shape, dtype), ct in zip(shapes, cts):
-            size = _numel_of(shape)
-            cast, delta = _cast_with_delta(mean[:, off:off + size], dtype)
-            out.append(cast[0].reshape(shape))
-            new_err[:, off:off + size] += delta
-            off += size
-        return (None, new_err, None) + tuple(out)
+        side = _sync_stream(group, target.device)
+        if side is None:
+            return (None,) + _sync_bucket(target, ctx.meta)
+        cur = torch.cuda.current_stream(target.device)
+        side.wait_stream(cur)
+        target.record_stream(side)
+        with torch.cuda.stream(side):
+            grads = _sync_bucket(target, ctx.meta)
+        for g in grads:
+            if g is not None:
+                g.record_stream(cur)
+        return (None,) + grads
 
 
 def _numel_of(shape) -> int:
@@ -413,6 +455,13 @@ def streamed_sync_params(params, err_buckets, acc_buckets, spec: BucketSpec,
     by its marker as the backward completes its cotangents -- and the
     gradient of ``err_buckets`` is the new error state (sum units, the
     downcast losses folded in, as :func:`compressed_grad_sync`).
+
+    On the card, over a :class:`StackedGroup`, each bucket's sync runs on
+    a side stream while the backward of the buckets after it goes on, as
+    the reference's ``streamed_body`` lets XLA schedule it: once the
+    backward returns, call :func:`wait_streamed_sync` before reading
+    either gradient.  Over a ``DistGroup`` the allreduce runs inline in
+    the backward.
     """
     leaves, treedef = tree_flatten(params)
     if len(leaves) != len(spec.leaf_sizes):
@@ -421,6 +470,13 @@ def streamed_sync_params(params, err_buckets, acc_buckets, spec: BucketSpec,
     if len(err_buckets) != spec.num_buckets:
         raise ValueError(f"{len(err_buckets)} error buckets, spec expects "
                          f"{spec.num_buckets}")
+    # Each bucket's plan is built now: inside the backward the upload of
+    # its device tables would make the host wait.
+    comm = get_comm(group, backend=backend)
+    for size in spec.bucket_sizes:
+        comm.plan("quantized_allreduce",
+                  [torch.empty((len(group.ranks), size), device="meta")],
+                  n_blocks=n_blocks, qblock=qblock)
     groups: List[List[torch.Tensor]] = [[] for _ in spec.bucket_sizes]
     for leaf, b in zip(leaves, spec.assignment):
         groups[b].append(leaf)
@@ -436,3 +492,13 @@ def streamed_sync_params(params, err_buckets, acc_buckets, spec: BucketSpec,
         out.append(synced[b][taken[b]])
         taken[b] += 1
     return tree_unflatten(treedef, out)
+
+
+def wait_streamed_sync(group, device) -> None:
+    """Make the current stream wait for the bucket syncs that a backward
+    through :func:`streamed_sync_params` left on ``group``'s bucket-sync
+    stream; a no-op where they ran inline.  Call it once the backward
+    has returned, before the gradients or the new error state are read."""
+    side = _sync_stream(group, torch.device(device))
+    if side is not None:
+        torch.cuda.current_stream(side.device).wait_stream(side)

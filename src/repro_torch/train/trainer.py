@@ -24,7 +24,10 @@ place:
     model), then the bucketed int8 quantized circulant allreduce with
     error feedback syncs them -- after the backward
     (``compressed_grad_sync``), or inside it through per-bucket markers
-    (``stream_grad_sync=True``, ``streamed_sync_params``).  The error
+    (``stream_grad_sync=True``, ``streamed_sync_params``; on the card over
+    a ``StackedGroup`` each bucket's sync runs on a side stream under the
+    backward of the buckets after it, and the step waits for them once
+    the backward returns).  The error
     buckets ride in ``state["gsync_err"]`` as ``[len(group.ranks),
     bucket]`` f32.
 
@@ -54,6 +57,7 @@ from ..optim.compression import (
     inv,
     make_bucket_spec,
     streamed_sync_params,
+    wait_streamed_sync,
 )
 
 __all__ = ["TrainConfig", "grad_bucket_spec", "init_train_state",
@@ -304,6 +308,8 @@ def _build_step(cfg: ModelConfig, tcfg: TrainConfig, group=None, counter=None):
             losses.append((lead_losses[i] + loss.detach()) * inv(nbm))
             mets.append({k: v.detach() for k, v in metrics.items()})
         grads = torch.autograd.grad(total, p_in + e_in)
+        # the bucket syncs may still run on their side stream
+        wait_streamed_sync(group, dev)
         del synced, total
         state["gsync_err"] = tuple(grads[len(p_in):])
         metrics = {k: pmean([m[k] for m in mets]) for k in mets[0]}

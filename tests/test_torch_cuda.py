@@ -1105,6 +1105,79 @@ def test_comm_cuda_matches_torch_at_1152(gen):
         torch.cuda.empty_cache()
 
 
+OVERLAP_KINDS = ["broadcast", "reduce", "reduce_max", "allgather", "reduce_scatter"]
+#: p and about the elements a rank; p = 1152 with narrow blocks.
+OVERLAP_SIZES = [(2, 300), (5, 300), (64, 300), (1152, 24)]
+
+
+@pytest.mark.parametrize("kind", OVERLAP_KINDS)
+@pytest.mark.parametrize("p,elems", OVERLAP_SIZES)
+def test_comm_overlap_equals_sequential_on_two_streams(gen, kind, p, elems):
+    """The overlapped plan, its rolls on the group's side stream, equals
+    the sequential plan bit for bit in each of 20 repeats, with the
+    sequential plan's launch counts."""
+    op = "max" if kind == "reduce_max" else "sum"
+    kind = "reduce" if kind == "reduce_max" else kind
+    x, kw, buffers = _comm_case(gen, kind, p, elems)
+    if kind == "reduce":
+        kw["op"] = op
+    group = StackedGroup(p)
+    want = tree_flatten(get_comm(group).plan(kind, x, **kw)(x))[0]
+    plan = get_comm(group).plan(kind, x, overlap=True, **kw)
+    side = group.side_stream()
+    assert side is not None and side != torch.cuda.current_stream()
+    for _ in range(20):
+        before = dict(bp.LAUNCHES)
+        got = tree_flatten(plan(x))[0]
+        assert _launched(before) == comm_launches(plan, buffers)
+        assert all(_same_bits(g.contiguous(), w.contiguous()) for g, w in zip(got, want))
+        del got
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "reduce", "reduce_max", "allgather"])
+@pytest.mark.parametrize("p,n,bs", [(2, 3, 50), (5, 4, 64), (64, 6, 33), (1152, 8, 4)])
+def test_host_plan_overlap_equals_sequential_on_two_streams(gen, kind, p, n, bs):
+    """host_plan: the overlapped run, its rolls on the host plans' side
+    stream, equals the sequential run bit for bit in each of 20 repeats."""
+    op = "max" if kind == "reduce_max" else "sum"
+    kind = "reduce" if kind == "reduce_max" else kind
+    shape = (n, bs) if kind == "broadcast" else (p, n, bs)
+    values = torch.randn(shape, generator=gen, device="cuda")
+    want = host_plan(kind, p, n, root=p // 3, op=op).run(values).clone()
+    plan = host_plan(kind, p, n, root=p // 3, op=op, overlap=True)
+    for _ in range(20):
+        assert _same_bits(plan.run(values), want)
+
+
+def test_streamed_step_on_the_side_stream_repeats_bit_for_bit(gen, monkeypatch):
+    """A streamed compressed step of qwen2-smoke over StackedGroup(2), its
+    bucket syncs on the side stream: three steps from one state leave the
+    same state and loss, bit for bit, and the same as the step with the
+    syncs run inline on the autograd stream."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.optim import compression as tcomp
+    from repro_torch.train import TrainConfig, init_train_state, make_train_step
+
+    cfg = get_config("qwen2-0.5b", smoke=True)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4))
+    tcfg = TrainConfig(grad_sync="compressed", stream_grad_sync=True, microbatches=2)
+    group = StackedGroup(2)
+    step = make_train_step(cfg, tcfg, group=group)
+
+    def one_step():
+        state = init_train_state(cfg, tcfg, torch.Generator("cuda").manual_seed(0),
+                                 group=group)
+        state, m = step(state, data.batch_at(0))
+        return [m["loss"]] + tree_flatten(state)[0]
+
+    runs = [one_step() for _ in range(3)]
+    assert tcomp._sync_stream(group, torch.device("cuda")) is not None
+    monkeypatch.setattr(tcomp, "_sync_stream", lambda group, device: None)
+    runs.append(one_step())
+    for run in runs[1:]:
+        assert all(_same_bits(a, b) for a, b in zip(runs[0], run))
+
+
 def test_broadcast_state_on_the_card(gen):
     p = 37
     state = {"w": torch.randn((p, 64, 3), generator=gen, device="cuda").to(torch.bfloat16),
