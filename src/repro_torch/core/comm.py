@@ -90,6 +90,7 @@ import torch
 
 from ..kernels.quant_ops import QBLOCK, quant_blocks, quant_error
 from ..kernels.reduce_ops import _validate, op_identity
+from . import trace
 from .costmodel import (
     DEFAULT_MODEL,
     CommModel,
@@ -97,7 +98,7 @@ from .costmodel import (
     optimal_num_blocks_bcast,
     optimal_num_blocks_reduce,
 )
-from .engine import cached_plan, get_bundle
+from .engine import cached_plan, get_bundle, traced_plan
 from .roundstep import (
     BACKENDS,
     PhaseStatic,
@@ -220,10 +221,12 @@ def _device_table(source: np.ndarray, device: torch.device, ranks=None,
     ranks = tuple(range(p)) if ranks is None else tuple(int(r) for r in ranks)
     roots = tuple(int(j) for j in roots)
     table = source if garbage is None else _with_garbage(source, garbage)
-    if roots == (0,) and shifts is None:
-        tensor = _upload(table[:, list(ranks)], device)
-    else:
-        tensor = _rotated_rows(table, p, ranks, roots, shifts, device)
+    with trace.span("plan.tables", keep=True, rounds=len(table),
+                    rows=len(ranks) * len(roots)):
+        if roots == (0,) and shifts is None:
+            tensor = _upload(table[:, list(ranks)], device)
+        else:
+            tensor = _rotated_rows(table, p, ranks, roots, shifts, device)
     return DeviceTable(tensor=tensor, source=source, ranks=ranks, roots=roots,
                        shifts=None if shifts is None else tuple(int(s) for s in shifts),
                        garbage=garbage)
@@ -245,11 +248,13 @@ def _drain(out: torch.Tensor, keep: slice) -> None:
 #: Observers of the groups' exchange rounds: each is called with the
 #: group (or level) and the round's messages before they move.
 #: :func:`repro_torch.launch.op_analysis.collective_stats` holds one for
-#: the length of a call.
+#: the length of a call.  Under the profiler the messages' bytes are
+#: also counted on the open spans (:func:`repro_torch.core.trace.count_exchange`).
 EXCHANGE_OBSERVERS: List[Callable] = []
 
 
 def observe_exchange(level, msgs: List[torch.Tensor]) -> None:
+    trace.count_exchange(msgs)
     for fn in EXCHANGE_OBSERVERS:
         fn(level, msgs)
 
@@ -337,7 +342,9 @@ def _starter(level) -> Callable:
 # One copy of each round loop, shared by the host data plans and the
 # communicator's plans: the buffers of all leaves ride one schedule, each
 # round one exchange of every buffer's message.  ``tables[i]`` are buffer
-# i's device slot rows; ``shifts[t]`` is round t's rotation.
+# i's device slot rows; ``shifts[t]`` is round t's rotation.  Each round
+# is a ``round.exchange`` span (in the overlapped loops: the exchange's
+# start) and a ``round.step`` span (the early packs, the wait, the step).
 
 
 def _forward_rounds(step: RoundStep, bufs: List[torch.Tensor], tables,
@@ -355,22 +362,25 @@ def _forward_rounds(step: RoundStep, bufs: List[torch.Tensor], tables,
     msgs = [step.pack(b, send[0]) for b, (_, send) in zip(bufs, tables)]
     for t in range(R):
         last = t + 1 == R
-        if overlap:
-            wait = start(msgs, shifts[t])
-            pres = [] if last else [step.pack(b, send[t + 1])
-                                    for b, (_, send) in zip(bufs, tables)]
-            got = wait()
-        else:
-            got = exchange(msgs, shifts[t])
-        for i, (recv, send) in enumerate(tables):
-            if last:
-                bufs[i] = step.unpack(bufs[i], got[i], recv[t])
-            elif overlap:
-                bufs[i], msgs[i] = step.shuffle_staged(
-                    bufs[i], got[i], pres[i], recv[t], send[t + 1])
+        with trace.span("round.exchange", round=t, shift=shifts[t]):
+            if overlap:
+                wait = start(msgs, shifts[t])
             else:
-                bufs[i], msgs[i] = step.shuffle(bufs[i], got[i], recv[t],
-                                                send[t + 1])
+                got = exchange(msgs, shifts[t])
+        with trace.span("round.step", round=t):
+            if overlap:
+                pres = [] if last else [step.pack(b, send[t + 1])
+                                        for b, (_, send) in zip(bufs, tables)]
+                got = wait()
+            for i, (recv, send) in enumerate(tables):
+                if last:
+                    bufs[i] = step.unpack(bufs[i], got[i], recv[t])
+                elif overlap:
+                    bufs[i], msgs[i] = step.shuffle_staged(
+                        bufs[i], got[i], pres[i], recv[t], send[t + 1])
+                else:
+                    bufs[i], msgs[i] = step.shuffle(bufs[i], got[i], recv[t],
+                                                    send[t + 1])
     return bufs
 
 
@@ -395,19 +405,23 @@ def _reduce_rounds(step: RoundStep, bufs: List[torch.Tensor], tables,
         bufs[i], m = step.acc_shuffle(b, zero, fwd[R], fwd[0], op=op)
         msgs.append(m)
     for t in range(R):
-        if overlap:
-            wait = start(msgs, shifts[t])
-            pres = [step.pack(b, fwd[t + 1]) for b, (fwd, _) in zip(bufs, tables)]
-            got = wait()
-        else:
-            got = exchange(msgs, shifts[t])
-        for i, (fwd, acc) in enumerate(tables):
+        with trace.span("round.exchange", round=t, shift=shifts[t]):
             if overlap:
-                bufs[i], msgs[i] = step.acc_shuffle_staged(
-                    bufs[i], got[i], pres[i], acc[t], fwd[t + 1], op=op)
+                wait = start(msgs, shifts[t])
             else:
-                bufs[i], msgs[i] = step.acc_shuffle(bufs[i], got[i], acc[t],
-                                                    fwd[t + 1], op=op)
+                got = exchange(msgs, shifts[t])
+        with trace.span("round.step", round=t):
+            if overlap:
+                pres = [step.pack(b, fwd[t + 1])
+                        for b, (fwd, _) in zip(bufs, tables)]
+                got = wait()
+            for i, (fwd, acc) in enumerate(tables):
+                if overlap:
+                    bufs[i], msgs[i] = step.acc_shuffle_staged(
+                        bufs[i], got[i], pres[i], acc[t], fwd[t + 1], op=op)
+                else:
+                    bufs[i], msgs[i] = step.acc_shuffle(bufs[i], got[i], acc[t],
+                                                        fwd[t + 1], op=op)
     return bufs
 
 
@@ -963,7 +977,10 @@ def check_devices(group, leaves) -> None:
 # ``run(flats, ...)`` over ``[rows, m]`` flats on the level's device, and
 # the :class:`DeviceTable` records of the tables it indexes.  ``run`` empties
 # ``flats`` as it copies each leaf into its buffer, so that an earlier
-# level's buffer goes before the whole of the next is allocated.
+# level's buffer goes before the whole of the next is allocated.  A run is
+# a ``phase`` span (``level``: ``flat``, or a grid's ``inter`` or
+# ``intra``) holding its ``phase.setup`` (the buffers), its rounds and its
+# ``phase.result`` (the views of the buffers it returns).
 
 
 def _rows2d(x: torch.Tensor) -> torch.Tensor:
@@ -971,7 +988,8 @@ def _rows2d(x: torch.Tensor) -> torch.Tensor:
 
 
 def _bcast_phase(level, bundle, n: int, step: RoundStep,
-                 overlap: bool = False) -> Tuple[Callable, tuple]:
+                 overlap: bool = False,
+                 name: str = "flat") -> Tuple[Callable, tuple]:
     """The forward broadcast rounds over ``level`` -> ``run(flats, src)``:
     the rows of the slice ``src`` hold the level root's data (on a held
     root there is one; on a grid's intra level one a node), every other
@@ -987,25 +1005,30 @@ def _bcast_phase(level, bundle, n: int, step: RoundStep,
     rows = len(cols)
 
     def run(flats: list, src: slice) -> List[torch.Tensor]:
-        bufs, sizes = [], []
-        for i, x in enumerate(flats):
-            x = _rows2d(x)
-            size = x.shape[1]
-            bs = -(-size // n)
-            buf = torch.zeros((rows, n + 1, bs), dtype=x.dtype, device=dev)
-            buf.view(rows, (n + 1) * bs)[src, :size] = x[src]
-            flats[i] = x = None
-            bufs.append(buf)
-            sizes.append(size)
-        bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
-                               shifts, level.exchange, start)
-        return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
+        with trace.span("phase", device=dev, kind="broadcast", level=name,
+                        loop="forward"):
+            bufs, sizes = [], []
+            with trace.span("phase.setup", device=dev):
+                for i, x in enumerate(flats):
+                    x = _rows2d(x)
+                    size = x.shape[1]
+                    bs = -(-size // n)
+                    buf = torch.zeros((rows, n + 1, bs), dtype=x.dtype, device=dev)
+                    buf.view(rows, (n + 1) * bs)[src, :size] = x[src]
+                    flats[i] = x = None
+                    bufs.append(buf)
+                    sizes.append(size)
+            bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
+                                   shifts, level.exchange, start)
+            with trace.span("phase.result", device=dev):
+                return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
     return run, records
 
 
 def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
-                  overlap: bool = False) -> Tuple[Callable, tuple]:
+                  overlap: bool = False,
+                  name: str = "flat") -> Tuple[Callable, tuple]:
     """The reversed (reduction) rounds over ``level`` -> ``run(flats)``:
     every row contributes its flat; the level root's row ends with the
     op-reduction, every other row drained -> ``[rows, m]`` views of the
@@ -1020,23 +1043,28 @@ def _reduce_phase(level, bundle, n: int, op: str, step: RoundStep,
     tables = tuple(t.tensor for t in records)
 
     def run(flats: list) -> List[torch.Tensor]:
-        bufs, sizes = [], []
-        for i, x in enumerate(flats):
-            x = _rows2d(x)
-            buf = _split_blocks(x, n, n + 2)
-            buf[:, n + 1].fill_(op_identity(op, x.dtype))
-            sizes.append(x.shape[1])
-            flats[i] = x = None
-            bufs.append(buf)
-        bufs = _reduce_rounds(step, bufs, [tables] * len(bufs),
-                              shifts, level.exchange, op, start)
-        return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
+        with trace.span("phase", device=dev, kind="reduce", level=name,
+                        loop="reduce"):
+            bufs, sizes = [], []
+            with trace.span("phase.setup", device=dev):
+                for i, x in enumerate(flats):
+                    x = _rows2d(x)
+                    buf = _split_blocks(x, n, n + 2)
+                    buf[:, n + 1].fill_(op_identity(op, x.dtype))
+                    sizes.append(x.shape[1])
+                    flats[i] = x = None
+                    bufs.append(buf)
+            bufs = _reduce_rounds(step, bufs, [tables] * len(bufs),
+                                  shifts, level.exchange, op, start)
+            with trace.span("phase.result", device=dev):
+                return [_unblock(b, n, size) for b, size in zip(bufs, sizes)]
 
     return run, records
 
 
 def _allgather_phase(level, bundle, n: int, step: RoundStep,
-                     overlap: bool = False) -> Tuple[Callable, tuple]:
+                     overlap: bool = False,
+                     name: str = "flat") -> Tuple[Callable, tuple]:
     """The all-to-all broadcast rounds over ``level`` -> ``run(flats)``:
     every row contributes its flat and ends holding the level's p flats
     in level-rank order -> ``[rows, p, m]`` views of the ``[rows * p,
@@ -1058,20 +1086,25 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
         start = _by_rank_started(start, rows)
 
     def run(flats: list) -> List[torch.Tensor]:
-        bufs, sizes = [], []
-        for i, x in enumerate(flats):
-            x = _rows2d(x)
-            size = x.shape[1]
-            bs = -(-size // n)
-            buf = torch.zeros((rows * p, n + 1, bs), dtype=x.dtype, device=dev)
-            buf.view(rows * p, (n + 1) * bs)[own, :size] = x
-            flats[i] = x = None
-            bufs.append(buf)
-            sizes.append(size)
-        bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
-                               shifts, exchange, start)
-        return [b.view(rows, p, b.shape[1] * b.shape[2])[:, :, :size]
-                for b, size in zip(bufs, sizes)]
+        with trace.span("phase", device=dev, kind="allgather", level=name,
+                        loop="forward"):
+            bufs, sizes = [], []
+            with trace.span("phase.setup", device=dev):
+                for i, x in enumerate(flats):
+                    x = _rows2d(x)
+                    size = x.shape[1]
+                    bs = -(-size // n)
+                    buf = torch.zeros((rows * p, n + 1, bs), dtype=x.dtype,
+                                      device=dev)
+                    buf.view(rows * p, (n + 1) * bs)[own, :size] = x
+                    flats[i] = x = None
+                    bufs.append(buf)
+                    sizes.append(size)
+            bufs = _forward_rounds(step, bufs, [tables] * len(bufs),
+                                   shifts, exchange, start)
+            with trace.span("phase.result", device=dev):
+                return [b.view(rows, p, b.shape[1] * b.shape[2])[:, :, :size]
+                        for b, size in zip(bufs, sizes)]
 
     return run, records
 
@@ -1081,6 +1114,8 @@ def _allgather_phase(level, bundle, n: int, step: RoundStep,
 # One lowering per collective kind: it builds its phases over the group
 # once and returns ``(execute, tables)``: ``execute(leaves) -> leaves``
 # and the :class:`DeviceTable` records of every table its rounds index.
+# What a lowering does to its last phase's outputs (the drain, the
+# reshape back to the leaves' shapes) is one more ``phase.result`` span.
 
 
 def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
@@ -1092,7 +1127,8 @@ def _lower_broadcast(group, bundle, n: int, root: int, step: RoundStep,
         # every rank's slice but the root's is zero: only src is read
         xs = [torch.as_tensor(x) for x in leaves]
         outs = phase([x.reshape(lr, _leaf_elems(x.shape[1:])) for x in xs], src)
-        return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+        with trace.span("phase.result", device=group.device):
+            return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
     return execute, tables
 
@@ -1108,10 +1144,11 @@ def _lower_reduce(group, bundle, n: int, root: int, op: str, step: RoundStep,
     def execute(leaves):
         xs = [torch.as_tensor(x, device=dev) for x in leaves]
         outs = phase([x.reshape(lr, _leaf_elems(x.shape[1:])) for x in xs])
-        if drain:
-            for o in outs:
-                _drain(o, keep)
-        return [o.reshape(x.shape) for o, x in zip(outs, xs)]
+        with trace.span("phase.result", device=dev):
+            if drain:
+                for o in outs:
+                    _drain(o, keep)
+            return [o.reshape(x.shape) for o, x in zip(outs, xs)]
 
     return execute, tables
 
@@ -1128,8 +1165,10 @@ def _lower_allgather(group, bundle, n: int, step: RoundStep,
         # every rank holds the same p * size elements: return the first
         # rank's copy, or (copies) each held rank's
         held = lr if copies else 1
-        outs = [o[:held].reshape((held, p * (x.shape[0] // lr)) + tuple(x.shape[1:]))
-                for o, x in zip(outs, xs)]
+        with trace.span("phase.result", device=dev):
+            outs = [o[:held].reshape((held, p * (x.shape[0] // lr))
+                                     + tuple(x.shape[1:]))
+                    for o, x in zip(outs, xs)]
         return outs if copies else [o[0] for o in outs]
 
     return execute, tables
@@ -1366,17 +1405,19 @@ class CollectivePlan:
         """Execute the collective -> one payload-shaped tree;
         ``quantized_allreduce`` returns a ``(sums, errors)`` pair of
         payload-shaped trees."""
-        leaves = self._leaves(payload)
-        treedef = self.spec.treedef
-        if self.kind == "quantized_allreduce":
-            if self._execute is None:  # p == 1: nothing moves, no error
-                return payload, tree_unflatten(
-                    treedef, [torch.zeros_like(torch.as_tensor(x)) for x in leaves])
-            sums, errs = self._execute(leaves)
-            return tree_unflatten(treedef, sums), tree_unflatten(treedef, errs)
-        if self._execute is None:  # p == 1 fast path: nothing moves
-            return payload
-        return tree_unflatten(treedef, self._execute(leaves))
+        with trace.span("comm.call", device=self.group.device, kind=self.kind,
+                        level="flat"):
+            leaves = self._leaves(payload)
+            treedef = self.spec.treedef
+            if self.kind == "quantized_allreduce":
+                if self._execute is None:  # p == 1: nothing moves, no error
+                    return payload, tree_unflatten(
+                        treedef, [torch.zeros_like(torch.as_tensor(x)) for x in leaves])
+                sums, errs = self._execute(leaves)
+                return tree_unflatten(treedef, sums), tree_unflatten(treedef, errs)
+            if self._execute is None:  # p == 1 fast path: nothing moves
+                return payload
+            return tree_unflatten(treedef, self._execute(leaves))
 
     def per_rank(self, payload: Any) -> Any:
         """Execute an allgather or allgatherv and return every held rank's
@@ -1387,20 +1428,23 @@ class CollectivePlan:
         _require(self.kind in ("allgather", "allgatherv"),
                  f"per_rank applies to allgather and allgatherv, not "
                  f"{self.kind!r}")
-        leaves = self._leaves(payload)
-        if self._execute is None:
-            outs = [torch.as_tensor(x)[None] for x in leaves]
-        else:
-            outs = self._execute(leaves, copies=True)
-        return tree_unflatten(self.spec.treedef, outs)
+        with trace.span("comm.call", device=self.group.device, kind=self.kind,
+                        level="flat"):
+            leaves = self._leaves(payload)
+            if self._execute is None:
+                outs = [torch.as_tensor(x)[None] for x in leaves]
+            else:
+                outs = self._execute(leaves, copies=True)
+            return tree_unflatten(self.spec.treedef, outs)
 
     def _leaves(self, payload: Any) -> list:
         """The payload's leaves, checked against ``spec`` and the group's
         device."""
-        validate_payload(self.spec, payload)
-        leaves, _ = tree_flatten(payload)
-        check_devices(self.group, leaves)
-        return leaves
+        with trace.span("comm.validate"):
+            validate_payload(self.spec, payload)
+            leaves, _ = tree_flatten(payload)
+            check_devices(self.group, leaves)
+            return leaves
 
     def describe(self) -> str:
         """One-line human summary of the plan."""
@@ -1632,9 +1676,9 @@ class CirculantComm:
         n = self._resolve_n(kind, spec, n_blocks, sizes_key, qblock_key)
         key = ("commplan", self.group, self.backend, self.model, kind, spec,
                n, root_key, op_key, sizes_key, qblock_key, bool(overlap))
-        return cached_plan(key, lambda: self._build(
+        return traced_plan(key, lambda: self._build(
             kind, spec, n, root_key, op_key, sizes_key, qblock_key,
-            overlap=bool(overlap)))
+            overlap=bool(overlap)), kind=kind, level="flat")
 
     def _resolve_n(self, kind: str, spec: PayloadSpec,
                    n_blocks: Optional[int], sizes_canon,

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from . import trace
 from .schedule import (
     ceil_log2,
     compute_skips,
@@ -59,6 +60,7 @@ __all__ = [
     "bundle_cache_clear",
     "bundle_cache_info",
     "cached_plan",
+    "traced_plan",
     "plan_cache_clear",
     "plan_cache_info",
     "plan_cache_keys",
@@ -306,28 +308,34 @@ class ScheduleBundle:
         The q-regular circulant broadcast graph; identical for every
         root (relabeling is a rotation, which commutes with rotation).
         """
-        ranks = np.arange(self.p, dtype=np.int64)[:, None]
-        sk = np.asarray(self.skips[: self.q], dtype=np.int64)[None, :]
-        arr = (ranks + sk) % self.p
-        arr.setflags(write=False)
-        return arr
+        with trace.span("plan.schedule", keep=True, what="neighbors_out",
+                        p=self.p):
+            ranks = np.arange(self.p, dtype=np.int64)[:, None]
+            sk = np.asarray(self.skips[: self.q], dtype=np.int64)[None, :]
+            arr = (ranks + sk) % self.p
+            arr.setflags(write=False)
+            return arr
 
     @cached_property
     def neighbors_in(self) -> np.ndarray:
         """[p, q] from-processors: neighbors_in[r][k] = (r - skip[k]) % p."""
-        ranks = np.arange(self.p, dtype=np.int64)[:, None]
-        sk = np.asarray(self.skips[: self.q], dtype=np.int64)[None, :]
-        arr = (ranks - sk) % self.p
-        arr.setflags(write=False)
-        return arr
+        with trace.span("plan.schedule", keep=True, what="neighbors_in",
+                        p=self.p):
+            ranks = np.arange(self.p, dtype=np.int64)[:, None]
+            sk = np.asarray(self.skips[: self.q], dtype=np.int64)[None, :]
+            arr = (ranks - sk) % self.p
+            arr.setflags(write=False)
+            return arr
 
     @cached_property
     def baseblocks(self) -> np.ndarray:
         """[p] baseblock of each real rank's *virtual* rank (root has q)."""
-        virt = (np.arange(self.p) - self.root) % self.p
-        arr = baseblock_table(self.p)[virt]
-        arr.setflags(write=False)
-        return arr
+        with trace.span("plan.schedule", keep=True, what="baseblocks",
+                        p=self.p):
+            virt = (np.arange(self.p) - self.root) % self.p
+            arr = baseblock_table(self.p)[virt]
+            arr.setflags(write=False)
+            return arr
 
     # ----------------------------------------------------------- accessors
 
@@ -365,17 +373,19 @@ def _get_bundle(p: int, root: int) -> ScheduleBundle:
     q = ceil_log2(p)  # validates p >= 1 with its own message
     if not 0 <= root < p:
         raise ValueError(f"root must be in [0, p), got root={root} p={p}")
-    skips = compute_skips(p)
-    recv0, send0 = _tables0(p)
-    if root == 0:
-        recv, send = recv0, send0
-    else:
-        virt = (np.arange(p) - root) % p
-        recv = recv0[virt]
-        send = send0[virt]
-        recv.setflags(write=False)
-        send.setflags(write=False)
-    return ScheduleBundle(p=p, root=root, q=q, skips=skips, recv=recv, send=send)
+    with trace.span("plan.schedule", keep=True, what="bundle", p=p):
+        skips = compute_skips(p)
+        recv0, send0 = _tables0(p)
+        if root == 0:
+            recv, send = recv0, send0
+        else:
+            virt = (np.arange(p) - root) % p
+            recv = recv0[virt]
+            send = send0[virt]
+            recv.setflags(write=False)
+            send.setflags(write=False)
+        return ScheduleBundle(p=p, root=root, q=q, skips=skips, recv=recv,
+                              send=send)
 
 
 def bundle_cache_clear() -> None:
@@ -437,6 +447,20 @@ def cached_plan(key: Any, build: Callable[[], Any]) -> Any:
         while len(_plan_cache) > _plan_limit:
             oldest = next(iter(_plan_cache))
             del _plan_cache[oldest]
+    return val
+
+
+def traced_plan(key: Any, build: Callable[[], Any], **attrs) -> Any:
+    """:func:`cached_plan` inside a ``plan.build`` span
+    (:mod:`repro_torch.core.trace`) with ``attrs`` and ``cache``: ``"miss"``
+    where the plan cache counted a miss (the plan was built), else
+    ``"hit"``.  A miss is always kept, a hit only under the profiler."""
+    misses = _plan_stats["misses"]
+    with trace.span("plan.build", keep=True, **attrs) as s:
+        val = cached_plan(key, build)
+        hit = _plan_stats["misses"] == misses
+        s.set(cache="hit" if hit else "miss")
+        s.keep = not hit
     return val
 
 

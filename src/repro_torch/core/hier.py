@@ -62,6 +62,7 @@ import numpy as np
 import torch
 
 from ..kernels.reduce_ops import _validate
+from . import trace
 from .comm import (
     DistGroup,
     PayloadSpec,
@@ -81,7 +82,7 @@ from .comm import (
     validate_payload,
 )
 from .costmodel import DEFAULT_MODEL, CommModel, optimal_hier_blocks
-from .engine import cached_plan, get_bundle
+from .engine import cached_plan, get_bundle, traced_plan
 from .roundstep import (
     BACKENDS,
     PhaseStatic,
@@ -299,7 +300,9 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
         replicated result, or (``copies``) every held rank's.
 
     A level's phase empties its input list as it copies each leaf in, so
-    at most two levels' buffers are alive at once.  ``tables`` are the
+    at most two levels' buffers are alive at once.  Each phase is a
+    ``phase`` span of level ``inter`` or ``intra``; the drain and the
+    reshape back to the leaves' shapes a ``phase.result``.  ``tables`` are the
     :class:`~repro_torch.core.comm.DeviceTable` records of the levels'
     slot tables, in the phases' run order."""
     N, C = bN.p, bC.p
@@ -313,24 +316,24 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
 
     tables: tuple = ()
 
-    def level(p, make, lvl, b, n, *args):
+    def level(p, make, name, b, n, *args):
         nonlocal tables
         if p == 1:
             return None
-        run, records = make(lvl, b, n, *args)
+        run, records = make(getattr(grid, name), b, n, *args, name=name)
         tables += records
         return run
 
     intra_g = inter_g = intra_r = inter_r = inter_b = intra_b = None
     if kind == "allgather":
-        intra_g = level(C, _allgather_phase, grid.intra, bC, nC, step)
-        inter_g = level(N, _allgather_phase, grid.inter, bN, nN, step)
+        intra_g = level(C, _allgather_phase, "intra", bC, nC, step)
+        inter_g = level(N, _allgather_phase, "inter", bN, nN, step)
     if kind in ("reduce", "allreduce"):
-        intra_r = level(C, _reduce_phase, grid.intra, bC, nC, op, step)
-        inter_r = level(N, _reduce_phase, grid.inter, bN, nN, op, step)
+        intra_r = level(C, _reduce_phase, "intra", bC, nC, op, step)
+        inter_r = level(N, _reduce_phase, "inter", bN, nN, op, step)
     if kind in ("broadcast", "allreduce"):
-        inter_b = level(N, _bcast_phase, grid.inter, bN, nN, step)
-        intra_b = level(C, _bcast_phase, grid.intra, bC, nC, step)
+        inter_b = level(N, _bcast_phase, "inter", bN, nN, step)
+        intra_b = level(C, _bcast_phase, "intra", bC, nC, step)
 
     def execute(leaves, copies=False):
         xs = [torch.as_tensor(x, device=dev) for x in leaves]
@@ -341,22 +344,25 @@ def _lower_hier(grid, kind: str, bN, bC, nN: int, nC: int, root: int,
             if inter_g is not None:
                 flats = inter_g(flats)                 # [lr, N, C*m]
             n_held = lr if copies else 1
-            outs = [f[:n_held].reshape((n_held, N * C * (x.shape[0] // lr))
-                                       + tuple(x.shape[1:]))
-                    for f, x in zip(flats, xs)]
+            with trace.span("phase.result", device=dev):
+                outs = [f[:n_held].reshape((n_held, N * C * (x.shape[0] // lr))
+                                           + tuple(x.shape[1:]))
+                        for f, x in zip(flats, xs)]
             return outs if copies else [o[0] for o in outs]
         if intra_r is not None:                        # each node to its leader
             flats = intra_r(flats)
         if inter_r is not None:                        # the leaders to the root
             flats = inter_r(flats)
         if kind == "reduce":
-            for f in flats:
-                _drain(f, src_inter)
+            with trace.span("phase.result", device=dev):
+                for f in flats:
+                    _drain(f, src_inter)
         if inter_b is not None:                        # the root to the leaders
             flats = inter_b(flats, src_inter)
         if intra_b is not None:                        # the leaders to their nodes
             flats = intra_b(flats, src_intra)
-        return [f.reshape(x.shape) for f, x in zip(flats, xs)]
+        with trace.span("phase.result", device=dev):
+            return [f.reshape(x.shape) for f, x in zip(flats, xs)]
 
     return execute, tables
 
@@ -429,10 +435,11 @@ class HierPlan:
         return self.nodes * self.cores
 
     def __call__(self, payload: Any) -> Any:
-        leaves = self._leaves(payload)
-        if self._execute is None:  # p == 1 fast path: nothing moves
-            return payload
-        return tree_unflatten(self.spec.treedef, self._execute(leaves))
+        with trace.span("hier.call", device=self._device, kind=self.kind):
+            leaves = self._leaves(payload)
+            if self._execute is None:  # p == 1 fast path: nothing moves
+                return payload
+            return tree_unflatten(self.spec.treedef, self._execute(leaves))
 
     def per_rank(self, payload: Any) -> Any:
         """Execute an allgather and return every held rank's copy of its
@@ -440,19 +447,25 @@ class HierPlan:
         ``grid.ranks``.  ``plan(payload)`` returns the first copy."""
         _require(self.kind == "allgather",
                  f"per_rank applies to allgather, not {self.kind!r}")
-        leaves = self._leaves(payload)
-        if self._execute is None:
-            outs = [torch.as_tensor(x)[None] for x in leaves]
-        else:
-            outs = self._execute(leaves, copies=True)
-        return tree_unflatten(self.spec.treedef, outs)
+        with trace.span("hier.call", device=self._device, kind=self.kind):
+            leaves = self._leaves(payload)
+            if self._execute is None:
+                outs = [torch.as_tensor(x)[None] for x in leaves]
+            else:
+                outs = self._execute(leaves, copies=True)
+            return tree_unflatten(self.spec.treedef, outs)
+
+    @property
+    def _device(self) -> Optional[torch.device]:
+        return None if self.grid is None else self.grid.device
 
     def _leaves(self, payload: Any) -> list:
-        validate_payload(self.spec, payload)
-        leaves, _ = tree_flatten(payload)
-        if self.grid is not None:
-            check_devices(self.grid, leaves)
-        return leaves
+        with trace.span("comm.validate"):
+            validate_payload(self.spec, payload)
+            leaves, _ = tree_flatten(payload)
+            if self.grid is not None:
+                check_devices(self.grid, leaves)
+            return leaves
 
     def describe(self) -> str:
         """One-line human summary of the plan."""
@@ -590,8 +603,8 @@ class HierComm:
         nN, nC = self._resolve_n(kind, spec, n_inter, n_intra)
         key = ("hierplan", self.grid, self.backend, self.inter_model,
                self.intra_model, kind, spec, nN, nC, root_key, op_key)
-        return cached_plan(key, lambda: self._build(
-            kind, spec, nN, nC, root_key, op_key))
+        return traced_plan(key, lambda: self._build(
+            kind, spec, nN, nC, root_key, op_key), kind=kind, level="hier")
 
     def _resolve_n(self, kind: str, spec: PayloadSpec,
                    n_inter: Optional[int],

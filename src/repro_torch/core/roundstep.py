@@ -40,6 +40,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from . import trace
+
 __all__ = [
     "BACKENDS",
     "RoundStep",
@@ -88,8 +90,10 @@ def broadcast_slot_plan(bundle, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndar
     from .engine import cached_plan
 
     def build():
-        recv_eff, send_eff, ks = bundle.per_round_tables(n)
-        return _frozen(clamp_slots(recv_eff, n), clamp_slots(send_eff, n), ks)
+        with trace.span("plan.schedule", keep=True, what="slots/bcast",
+                        p=bundle.p, n=int(n)):
+            recv_eff, send_eff, ks = bundle.per_round_tables(n)
+            return _frozen(clamp_slots(recv_eff, n), clamp_slots(send_eff, n), ks)
 
     return cached_plan(("slots/bcast", bundle.p, bundle.root, int(n)), build)
 
@@ -107,10 +111,12 @@ def reduce_slot_plan(bundle, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     from .engine import cached_plan
 
     def build():
-        fwd_eff, acc_eff, ks = bundle.reversed_per_round_tables(n)
-        fwd = clamp_slots(fwd_eff, n)
-        fwd[:, bundle.root] = n + 1
-        return _frozen(fwd, clamp_slots(acc_eff, n), ks)
+        with trace.span("plan.schedule", keep=True, what="slots/reduce",
+                        p=bundle.p, n=int(n)):
+            fwd_eff, acc_eff, ks = bundle.reversed_per_round_tables(n)
+            fwd = clamp_slots(fwd_eff, n)
+            fwd[:, bundle.root] = n + 1
+            return _frozen(fwd, clamp_slots(acc_eff, n), ks)
 
     return cached_plan(("slots/reduce", bundle.p, bundle.root, int(n)), build)
 
@@ -123,8 +129,10 @@ def scatter_slot_plan(bundle, n: int) -> Tuple[np.ndarray, np.ndarray, np.ndarra
     from .engine import cached_plan
 
     def build():
-        fwd_eff, acc_eff, ks = bundle.reversed_per_round_tables(n)
-        return _frozen(clamp_slots(fwd_eff, n), clamp_slots(acc_eff, n), ks)
+        with trace.span("plan.schedule", keep=True, what="slots/scatter",
+                        p=bundle.p, n=int(n)):
+            fwd_eff, acc_eff, ks = bundle.reversed_per_round_tables(n)
+            return _frozen(clamp_slots(fwd_eff, n), clamp_slots(acc_eff, n), ks)
 
     return cached_plan(("slots/scatter", bundle.p, bundle.root, int(n)), build)
 
