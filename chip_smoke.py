@@ -367,7 +367,8 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 ODD = (37, 6, 131)            # R, nslots, bs: a row with no 16-byte multiple
 KERNEL_SOURCE = "src/repro_torch/kernels/csrc/block_pack.cu"
 SOURCES = {"flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
-           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+           "roll_rows": "src/repro_torch/kernels/csrc/row_roll.cu"}
 REPLACES = {
     "block_pack": "src/repro/kernels/block_pack.py:140",
     "block_unpack": "src/repro/kernels/block_pack.py:172",
@@ -378,6 +379,8 @@ REPLACES = {
     "block_qacc_shuffle": "src/repro/kernels/block_pack.py:507",
     "flash_attention": "src/repro/kernels/flash_attention.py:91",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:70",
+    # no TPU kernel: the exchange's jnp.roll (torch.roll in the plain version)
+    "roll_rows": "src/repro/core/comm.py:1376",
 }
 #: The path whose run gives each kernel's launch count in the kernels line.
 PATH_OF = {
@@ -386,6 +389,7 @@ PATH_OF = {
     "block_acc_shuffle": "reduce", "block_acc_shuffle_staged": "reduce_overlap",
     "block_qacc_shuffle": "quantized_allreduce",
     "flash_attention": "prefill", "ssd_scan": "prefill",
+    "roll_rows": "broadcast",
 }
 #: The allgather path whose run gives each copy kernel's launch count at
 #: the allgather's short rows: block_pack runs once a round only there.
@@ -957,26 +961,115 @@ def compare_reduce_kernels(torch, bp, ref, g, R, nslots, bs, dtype, op,
     return out
 
 
+#: The wrapper of the exchange's row-rotation kernel, whose launches are
+#: counted by path (``"vector16"``, ``"narrow"``), not by kernel.
+ROW_ROLL = "repro_torch.kernels.row_roll"
+
+
 def counted_run(torch, kernels, fn):
     """``fn()`` with every launch count set to 0 just before it and read
     just after -> (result, {kernel: launches > 0}).  ``kernels``: the
-    wrapper modules, each with ``LAUNCHES`` and ``reset_launches``."""
+    wrapper modules, each with ``LAUNCHES`` and ``reset_launches``.  The
+    row-rotation kernel's launches are reset with the others and left out
+    of the result: :func:`roll_launches` reads them."""
     for mod in kernels:
         mod.reset_launches()
     res = fn()
     torch.cuda.synchronize()
-    return res, {k: v for mod in kernels for k, v in mod.LAUNCHES.items() if v}
+    return res, {k: v for mod in kernels if mod.__name__ != ROW_ROLL
+                 for k, v in mod.LAUNCHES.items() if v}
 
 
-#: The round-step pack kernels (not the unpack ones) and torch.roll's
-#: kernel, by their names in a profiler trace.
+def roll_launches(kernels) -> dict:
+    """The row-rotation kernel's launches by path since the last
+    :func:`counted_run` (those > 0)."""
+    (rr,) = [mod for mod in kernels if mod.__name__ == ROW_ROLL]
+    return {k: v for k, v in rr.LAUNCHES.items() if v}
+
+
+def rolls_of(*messages) -> dict:
+    """The row-rotation launches that ``(rolls, row bytes)`` of fresh
+    messages make: one a roll, on the 16-byte path where the row's bytes
+    are a multiple of 16 (a fresh allocation's address always is)."""
+    out = {}
+    for count, row_bytes in messages:
+        path = "vector16" if row_bytes % 16 == 0 else "narrow"
+        out[path] = out.get(path, 0) + count
+    return {k: v for k, v in out.items() if v}
+
+
+def compare_roll(torch, rr, g, cases) -> list:
+    """The row-rotation kernel against ``torch.roll``, bit for bit, on
+    ``(shape, dtype, dim)`` cases at shifts of either sign, 0 and past
+    the rolled axis, one launch a roll on the path :func:`rolls_of`
+    gives -> the cases as records."""
+    out = []
+    for shape, dtype, dim in cases:
+        if dtype.is_floating_point:
+            x = torch.randn(shape, generator=g, device="cuda").to(dtype)
+        else:
+            x = torch.randint(-100, 100, shape, generator=g, device="cuda",
+                              dtype=dtype)
+        A = shape[dim]
+        inner = x.numel() // (A * (shape[0] if dim else 1)) * x.element_size()
+        for shift in (0, 1, -1, A // 2 + 3, -A - 5):
+            rr.reset_launches()
+            got = rr.roll(x, shift, dim)
+            check(same_bits(torch, got, torch.roll(x, shift, dims=dim)),
+                  f"roll_rows != torch.roll at {shape} {dtype} dim {dim} shift {shift}")
+            check(roll_launches((rr,)) == rolls_of((1, inner)),
+                  f"roll_rows at {shape} {dtype} dim {dim}: launches "
+                  f"{roll_launches((rr,))} != {rolls_of((1, inner))}")
+            del got
+        out.append({"shape": list(shape), "dtype": str(dtype).removeprefix("torch."),
+                    "dim": dim, "path": next(iter(rolls_of((1, inner))))})
+        del x
+    return out
+
+
+@contextlib.contextmanager
+def torch_rolls(torch):
+    """Inside, the stacked exchange rolls with ``torch.roll`` in place of
+    the row-rotation kernel: the "torch" backend's runs, which the "cuda"
+    ones are held against, then share no code with the kernel."""
+    from repro_torch.kernels import row_roll
+
+    kernel = row_roll.roll
+    row_roll.roll = lambda x, shift, dim=0: torch.roll(x, shift, dims=dim)
+    try:
+        yield
+    finally:
+        row_roll.roll = kernel
+
+
+class TorchRolled:
+    """A "torch"-backend host plan, plan or communicator whose runs (and
+    whose plans' runs) roll inside :func:`torch_rolls`."""
+
+    def __init__(self, torch, obj):
+        self.torch, self.obj = torch, obj
+
+    def run(self, *args, **kw):
+        with torch_rolls(self.torch):
+            return self.obj.run(*args, **kw)
+
+    def __call__(self, *args, **kw):
+        with torch_rolls(self.torch):
+            return self.obj(*args, **kw)
+
+    def plan(self, *args, **kw):
+        return TorchRolled(self.torch, self.obj.plan(*args, **kw))
+
+
+#: The round-step pack kernels (not the unpack ones) and the exchange's
+#: row-rotation kernel (csrc/row_roll.cu), by their names in a profiler trace.
 PACK_KERNEL = re.compile(r"(?<![A-Za-z_])pack(_short)?_kernel")
 ROLL_KERNEL = re.compile(r"(?<![A-Za-z_])roll")
 #: Every round-step kernel of csrc/block_pack.cu.
 ROUND_KERNEL = re.compile(r"(?<![A-Za-z])(un|q?acc_)?(pack|shuffle)\w*_kernel")
 #: The modules of the streamed bucket sync, whose host syncs count.
 SYNC_FILES = ("compression.py", "comm.py", "collectives.py", "quant_ops.py",
-              "block_pack.py", "_build.py")
+              "block_pack.py", "row_roll.py", "_build.py")
 
 
 def traced_kernels(torch, fn) -> tuple:
@@ -1594,8 +1687,8 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> tuple:
     payload = np.random.default_rng(SEED).standard_normal(elems, dtype=np.float32)
     want_row = torch.from_numpy(payload).cuda()
     plan = hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC, root=BCAST_ROOT)
-    plain = hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC,
-                           root=BCAST_ROOT, backend="torch")
+    plain = TorchRolled(torch, hier_host_plan("broadcast", NODES, HIER_CORES, nN, nC,
+                                              root=BCAST_ROOT, backend="torch"))
     expect, rounds = launches_of(plan)
     check(sum(rounds.values()) == hier_rounds("broadcast", NODES, HIER_CORES,
                                               nN, nC), f"hier rounds {rounds}")
@@ -1637,14 +1730,15 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> tuple:
                             device="cuda", dtype=torch.float32)
     plans = {op: (hier_host_plan("reduce", NODES, HIER_CORES, nN, nC,
                                  root=BCAST_ROOT, op=op),
-                  hier_host_plan("reduce", NODES, HIER_CORES, nN, nC,
-                                 root=BCAST_ROOT, op=op, backend="torch"))
+                  TorchRolled(torch, hier_host_plan(
+                      "reduce", NODES, HIER_CORES, nN, nC, root=BCAST_ROOT, op=op,
+                      backend="torch")))
              for op in ("sum", "max")}
     plan_r, plain_r = plans["sum"]
     plan_a = hier_host_plan("allreduce", NODES, HIER_CORES, nNa, nCa,
                             root=BCAST_ROOT)
-    plain_a = hier_host_plan("allreduce", NODES, HIER_CORES, nNa, nCa,
-                             root=BCAST_ROOT, backend="torch")
+    plain_a = TorchRolled(torch, hier_host_plan("allreduce", NODES, HIER_CORES, nNa, nCa,
+                                                root=BCAST_ROOT, backend="torch"))
     expect_r, rounds_r = launches_of(plan_r)
     expect_a, rounds_a = launches_of(plan_a)
     out, got = counted_run(torch, kmods, lambda: plan_r.run(contrib))
@@ -1724,8 +1818,8 @@ def hier_phases(torch, np, card, kmods, g, flat_ms) -> tuple:
     nN, nC = hier_blocks(torch, "allgather", (P * e,))
     vals = torch.randn((NODES, HIER_CORES, e), generator=g, device="cuda")
     plan_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC)
-    plain_g = hier_host_plan("allgather", NODES, HIER_CORES, nN, nC,
-                             backend="torch")
+    plain_g = TorchRolled(torch, hier_host_plan("allgather", NODES, HIER_CORES, nN, nC,
+                                                backend="torch"))
     expect_g, rounds_g = launches_of(plan_g)
     torch.cuda.reset_peak_memory_stats()
     before = torch.cuda.memory_allocated()
@@ -1781,7 +1875,7 @@ def hiercomm_phases(torch, np, card, kmods, g, host_ms) -> dict:
     from repro_torch.core import StackedGrid, get_hier_comm, hier_host_plan
 
     grid = StackedGrid(NODES, HIER_CORES)
-    hc, plain = get_hier_comm(grid), get_hier_comm(grid, backend="torch")
+    hc, plain = get_hier_comm(grid), TorchRolled(torch, get_hier_comm(grid, backend="torch"))
     elems, small = PAYLOAD_BYTES // 4, (1 << 20) // 4
     rN, rC = divmod(BCAST_ROOT, HIER_CORES)
     counts = {}
@@ -2124,7 +2218,7 @@ def comm_phases(torch, np, card, kmods, g, flat):
     from repro_torch.train.restore_broadcast import DCN_MODEL, broadcast_state
 
     group = StackedGroup(P)
-    comm, plain = get_comm(group), get_comm(group, backend="torch")
+    comm, plain = get_comm(group), TorchRolled(torch, get_comm(group, backend="torch"))
     counts = {}
     f32, i32, bf16 = torch.float32, torch.int32, torch.bfloat16
 
@@ -2242,8 +2336,9 @@ def comm_phases(torch, np, card, kmods, g, flat):
     check(all(every_row(o.reshape(P, -1), v[BCAST_ROOT].reshape(1, -1))
               for o, v in zip(tree_flatten(st)[0], leaves)),
           "broadcast_state: a rank does not hold the root's state")
-    check(same_tree(st, broadcast_state(group, state, root=BCAST_ROOT, backend="torch")),
-          "broadcast_state: cuda backend != torch backend")
+    with torch_rolls(torch):
+        st_plain = broadcast_state(group, state, root=BCAST_ROOT, backend="torch")
+    check(same_tree(st, st_plain), "broadcast_state: cuda backend != torch backend")
     packed = {}
     for v in leaves:
         packed[v.dtype] = packed.get(v.dtype, 0) + v[0].numel()
@@ -2532,7 +2627,7 @@ def comm_quantized_phase(torch, np, card, kmods, g, host) -> dict:
     from repro_torch.optim.compression import tree_flatten, tree_unflatten
 
     group = StackedGroup(P)
-    comm, plain = get_comm(group), get_comm(group, backend="torch")
+    comm, plain = get_comm(group), TorchRolled(torch, get_comm(group, backend="torch"))
     n, bs, elems = host["n"], host["bs"], host["elems"]
     lines, out_launches = {}, {}
 
@@ -2722,7 +2817,8 @@ def train_phases(torch, np, card, kmods, g) -> dict:
             worst = max(worst, resid)
         del targets, means
         torch.cuda.empty_cache()
-        pmean, pnew = comp.compressed_grad_sync(gr, errs, group, spec, backend="torch")
+        with torch_rolls(torch):
+            pmean, pnew = comp.compressed_grad_sync(gr, errs, group, spec, backend="torch")
         check(all(same_or_nan(torch, a, b) for a, b in
                   zip(m_l + list(new), tree_flatten(pmean)[0] + list(pnew))),
               f"compressed_grad_sync step {step_no}: cuda != torch")
@@ -4372,6 +4468,7 @@ def main() -> None:
     from repro_torch.kernels import block_pack as bp
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import quant_ops as qops
+    from repro_torch.kernels import row_roll as rr
     from repro_torch.kernels import ssd_scan as ss
     from repro_torch.optim.compression import (
         bucketize,
@@ -4383,7 +4480,7 @@ def main() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kmods = (bp, fa, ss)
+    kmods = (bp, fa, ss, rr)
 
     # 1. the card
     smi = subprocess.run(
@@ -4452,6 +4549,26 @@ def main() -> None:
               "dtype": "float32", "op": op, "inputs": "nan, +-0, denormal",
               "equal": True,
               "max_abs_diff": {k: v["max_abs_err"] for k, v in odd.items()}})
+    # the exchange's row rotation: the broadcast's [P, bs] message, the
+    # hier grid's two levels, odd rows on the narrow path; then timed at
+    # the broadcast's message against torch.roll
+    roll_cases = compare_roll(torch, rr, g, [
+        ((P, bs), torch.float32, 0), ((NODES, HIER_CORES, bs), torch.float32, 0),
+        ((NODES, HIER_CORES, bs), torch.float32, 1), ((37, 4100), torch.int8, 0),
+        ((37, 33), torch.bfloat16, 0), ((37, 3), torch.float32, 0),
+        ((NODES, HIER_CORES, 131), torch.int64, 1)])
+    torch.cuda.empty_cache()
+    msg = torch.randn((P, bs), generator=g, device="cuda")
+    torch_roll_ms = cuda_ms(torch, lambda: torch.roll(msg, 5, dims=0), 5)
+    kern["roll_rows"] = {"kernel": "roll_rows", "max_abs_err": 0.0,
+                         "ms": cuda_ms(torch, lambda: rr.roll(msg, 5), 5),
+                         "plain_ms": torch_roll_ms, "library_ms": torch_roll_ms,
+                         "bound_ms": ms_of_bytes(2 * P * bs * 4)}
+    del msg
+    emit({"phase": "kernels_vs_plain", "kernel": "roll_rows", "plain": "torch.roll",
+          "cases": roll_cases, "equal": True, "max_abs_diff": {"roll_rows": 0.0},
+          **{k: kern["roll_rows"][k] for k in ("ms", "library_ms", "bound_ms")}})
+    torch.cuda.empty_cache()
 
     launches = {}               # kernel -> launches on its path's run
 
@@ -4473,14 +4590,19 @@ def main() -> None:
     expect = {"block_pack": 1, "block_shuffle": rounds - 1, "block_unpack": 1}
     check(got == expect, f"broadcast launches {got} != {expect}")
     launches.update(got)
+    rolls_b = rolls_of((rounds, bs * 4))        # one a round, [P, bs] f32
+    check(roll_launches(kmods) == rolls_b,
+          f"broadcast rolls {roll_launches(kmods)} != {rolls_b}")
+    launches["roll_rows"] = rounds
     check(tuple(out.shape) == (P, n, bs), f"result shape {tuple(out.shape)}")
     vals_dev = torch.from_numpy(values).cuda()
     for i in range(0, P, 64):
         j = min(i + 64, P)
         check(torch.equal(out[i:j], vals_dev.expand(j - i, n, bs)),
               f"ranks {i}..{j - 1} do not hold the root payload")
-    out_plain = host_plan("broadcast", P, n, root=BCAST_ROOT,
-                          backend="torch").run(values)
+    plain = TorchRolled(torch, host_plan("broadcast", P, n, root=BCAST_ROOT,
+                                         backend="torch"))
+    out_plain = plain.run(values)
     check(same_bits(torch, out, out_plain), "broadcast: cuda backend != torch backend")
     del out_plain
     plan_ov = host_plan("broadcast", P, n, root=BCAST_ROOT, overlap=True)
@@ -4488,6 +4610,8 @@ def main() -> None:
     expect = {"block_pack": rounds, "block_shuffle_staged": rounds - 1,
               "block_unpack": 1}
     check(got == expect, f"overlapped broadcast launches {got} != {expect}")
+    check(roll_launches(kmods) == rolls_b,
+          f"overlapped broadcast rolls {roll_launches(kmods)} != {rolls_b}")
     launches["block_shuffle_staged"] = got["block_shuffle_staged"]
     check(same_bits(torch, out_ov, out), "overlapped broadcast != sequential")
     del out, out_ov
@@ -4496,7 +4620,6 @@ def main() -> None:
     torch.cuda.reset_peak_memory_stats()
     bcast_ms, times = median_ms(torch, lambda: plan.run(values), 5)
     peak_bytes = torch.cuda.max_memory_allocated()
-    plain = host_plan("broadcast", P, n, root=BCAST_ROOT, backend="torch")
     plain_ms, plain_times = median_ms(torch, lambda: plain.run(values), 3)
     ov_ms, ov_times = median_ms(torch, lambda: plan_ov.run(values), 5)
     ov_streams = overlap_streams(torch, "broadcast_overlap", lambda: plan_ov.run(values))
@@ -4511,7 +4634,7 @@ def main() -> None:
 
     def rolls():
         for s in plan.skips:
-            torch.roll(msg, s, dims=0)
+            roll_rows([msg], s)
 
     def shuffles():
         for t in range(rounds - 1):
@@ -4536,6 +4659,7 @@ def main() -> None:
           "buffer_bytes": P * (n + 1) * row,
           "launches": {k: launches[k] for k in
                        ("block_pack", "block_shuffle", "block_unpack")},
+          "roll_launches": rolls_b,
           "all_ranks_hold_payload": True, "equal_to_torch_backend": True,
           "ms": bcast_ms, "ms_runs": times,
           "plain_ms": plain_ms, "plain_ms_runs": plain_times,
@@ -4565,6 +4689,9 @@ def main() -> None:
     out, got = counted_run(torch, kmods, lambda: plan_r.run(contrib))
     check(got == {"block_acc_shuffle": R + 1},
           f"reduce launches {got} != {{'block_acc_shuffle': {R + 1}}}")
+    rolls_r = rolls_of((R, bs_red * 4))         # one a round, [P, bs_red] f32
+    check(roll_launches(kmods) == rolls_r,
+          f"reduce rolls {roll_launches(kmods)} != {rolls_r}")
     launches["block_acc_shuffle"] = got["block_acc_shuffle"]
     exact = contrib.sum(0)
     check(torch.equal(out[BCAST_ROOT], exact), "reduce: root != values.sum(0)")
@@ -4579,6 +4706,8 @@ def main() -> None:
     expect = {"block_acc_shuffle": 1, "block_pack": R,
               "block_acc_shuffle_staged": R}
     check(got == expect, f"overlapped reduce launches {got} != {expect}")
+    check(roll_launches(kmods) == rolls_r,
+          f"overlapped reduce rolls {roll_launches(kmods)} != {rolls_r}")
     launches["block_acc_shuffle_staged"] = got["block_acc_shuffle_staged"]
     # Sequential non-root rows are all +0 (checked above), so this is the
     # whole result compared bit for bit.
@@ -4592,8 +4721,8 @@ def main() -> None:
     red_ov_ms, red_ov_times = median_ms(torch, lambda: plan_rov.run(contrib), 5)
     red_ov_streams = overlap_streams(torch, "reduce_overlap",
                                      lambda: plan_rov.run(contrib))
-    plan_r_plain = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="sum",
-                             backend="torch")
+    plan_r_plain = TorchRolled(torch, host_plan("reduce", P, n_red, root=BCAST_ROOT,
+                                                op="sum", backend="torch"))
     red_plain_ms, red_plain_times = median_ms(
         torch, lambda: plan_r_plain.run(contrib), 3)
 
@@ -4608,6 +4737,8 @@ def main() -> None:
     expect = {"block_acc_shuffle": R + 1, "block_pack": 1,
               "block_shuffle": R - 1, "block_unpack": 1}
     check(got == expect, f"allreduce launches {got} != {expect}")
+    check(roll_launches(kmods) == rolls_of((2 * R, bs_red * 4)),
+          f"allreduce rolls {roll_launches(kmods)}")
     for i in range(0, P, 64):
         j = min(i + 64, P)
         check(torch.equal(out[i:j], exact.expand(j - i, n_red, bs_red)),
@@ -4631,6 +4762,7 @@ def main() -> None:
     plan_max = host_plan("reduce", P, n_red, root=BCAST_ROOT, op="max")
     out, got = counted_run(torch, kmods, lambda: plan_max.run(contrib))
     check(got == {"block_acc_shuffle": R + 1}, f"max launches {got}")
+    check(roll_launches(kmods) == rolls_r, f"max rolls {roll_launches(kmods)}")
     check(torch.equal(out[BCAST_ROOT], contrib.amax(0)),
           "reduce max: root != values.amax(0)")
     check(all_equal_to(torch, out[:BCAST_ROOT], float("-inf"))
@@ -4653,7 +4785,7 @@ def main() -> None:
 
     def red_rolls():
         for s in plan_r.skips:
-            torch.roll(msg, -s, dims=0)
+            roll_rows([msg], -s)
 
     def acc_shuffles():
         bp.block_acc_shuffle(work, msg, fwd_d[R], fwd_d[0])
@@ -4681,7 +4813,7 @@ def main() -> None:
           "root": BCAST_ROOT, "op": "sum", "payload_bytes": PAYLOAD_BYTES,
           "buffer_bytes": P * (n_red + 2) * row_r,
           "contribution_bytes": P * n_red * row_r,
-          "launches": {"block_acc_shuffle": R + 1},
+          "launches": {"block_acc_shuffle": R + 1}, "roll_launches": rolls_r,
           "root_equals_exact_sum": True, "non_roots_drained": True,
           "equal_to_torch_backend_on_normal_values": True,
           "max_root_equals_amax": True, "max_non_roots_drained": True,
@@ -4723,12 +4855,15 @@ def main() -> None:
     out, got = counted_run(torch, kmods, lambda: plan_ag.run(vals_ag))
     expect = {"block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1}
     check(got == expect, f"allgather launches {got} != {expect}")
+    rolls_ag = rolls_of((R_ag, P * bs_ag * 4))  # rank-major: [P, P * bs_ag]
+    check(roll_launches(kmods) == rolls_ag,
+          f"allgather rolls {roll_launches(kmods)} != {rolls_ag}")
     ag_launches = {"allgather": got}
     for i in range(0, P, 64):
         j = min(i + 64, P)
         check(torch.equal(out[i:j], vals_ag.expand(j - i, P, n_ag, bs_ag)),
               f"allgather: ranks {i}..{j - 1} do not hold every rank's blocks")
-    plain_ag = host_plan("allgather", P, n_ag, backend="torch")
+    plain_ag = TorchRolled(torch, host_plan("allgather", P, n_ag, backend="torch"))
     out_plain = plain_ag.run(vals_ag)
     check(same_bits(torch, out, out_plain), "allgather: cuda backend != torch backend")
     del out_plain
@@ -4738,6 +4873,8 @@ def main() -> None:
     expect = {"block_pack": R_ag, "block_shuffle_staged": R_ag - 1,
               "block_unpack": 1}
     check(got == expect, f"overlapped allgather launches {got} != {expect}")
+    check(roll_launches(kmods) == rolls_ag,
+          f"overlapped allgather rolls {roll_launches(kmods)} != {rolls_ag}")
     ag_launches["allgather_overlap"] = got
     check(same_bits(torch, out_ov, out), "overlapped allgather != sequential")
     del out, out_ov
@@ -4776,6 +4913,7 @@ def main() -> None:
           "buffer_bytes": rows_ag * (n_ag + 1) * row_ag,
           "plan_build_s": plan_s, "launches": {
               "block_pack": 1, "block_shuffle": R_ag - 1, "block_unpack": 1},
+          "roll_launches": rolls_ag,
           "every_rank_holds_every_block": True,
           "equal_to_torch_backend": True,
           "ms": ag_ms, "ms_runs": ag_times,
@@ -4816,6 +4954,10 @@ def main() -> None:
           "qblock": QBLOCK, "equal": True, "nan_by_position": True,
           "max_abs_diff": {"block_qacc_shuffle":
                            kern["block_qacc_shuffle"]["max_abs_err"]}})
+    emit({"phase": "kernels_vs_plain", "kernel": "roll_rows", "plain": "torch.roll",
+          "cases": compare_roll(torch, rr, g, [((P, bs_q), torch.int8, 0),
+                                               ((P, nb_q), torch.float32, 0)]),
+          "equal": True, "max_abs_diff": {"roll_rows": 0.0}})
     odd = compare_qacc(torch, bp, ref, qops, g, *ODD_Q, timed=False)
     emit({"phase": "kernels_vs_plain", "shape": [ODD_Q[0], ODD_Q[1],
                                                  ODD_Q[2] * ODD_Q[3]],
@@ -4855,9 +4997,13 @@ def main() -> None:
                 "block_shuffle": 2 * (R_q - 1), "block_unpack": 2}
     plan_q = host_plan("quantized_allreduce", P, n_q, root=BCAST_ROOT,
                        qblock=QBLOCK)
-    plain_q = host_plan("quantized_allreduce", P, n_q, root=BCAST_ROOT,
-                        qblock=QBLOCK, backend="torch")
+    plain_q = TorchRolled(torch, host_plan("quantized_allreduce", P, n_q,
+                                           root=BCAST_ROOT, qblock=QBLOCK,
+                                           backend="torch"))
     check(len(plan_q.ks) == R_q, f"quantized rounds {len(plan_q.ks)} != {R_q}")
+    # each round of both phases rolls an int8 payload and its f32 scales
+    q_rounds = sum(map(len, plan_q.skips))
+    rolls_q = rolls_of((q_rounds, bs_q), (q_rounds, nb_q * 4))
     torch.cuda.reset_peak_memory_stats()
     vals, tree0 = grads_as_bucket()
     steps = []
@@ -4865,6 +5011,9 @@ def main() -> None:
         (out, err), got = counted_run(torch, kmods, lambda: plan_q.run(vals))
         check(got == expect_q,
               f"quantized allreduce step {step_no} launches {got} != {expect_q}")
+        check(roll_launches(kmods) == rolls_q,
+              f"quantized allreduce step {step_no} rolls {roll_launches(kmods)} "
+              f"!= {rolls_q}")
         launches["block_qacc_shuffle"] = got["block_qacc_shuffle"]
         check(tuple(out.shape) == (P, n_q, bs_q) and tuple(err.shape) == (P, n_q, bs_q),
               f"quantized result shapes {tuple(out.shape)}, {tuple(err.shape)}")
@@ -4923,8 +5072,7 @@ def main() -> None:
 
     def q_rolls():
         for s_ in red_skips:
-            torch.roll(qmsg, -s_, dims=0)
-            torch.roll(smsg, -s_, dims=0)
+            roll_rows([qmsg, smsg], -s_)
 
     def q_root():
         d = work[BCAST_ROOT, :n_q].reshape(n_q * nb_q, QBLOCK)
@@ -4960,7 +5108,7 @@ def main() -> None:
           "leaves": {k: {n_: list(sh) for n_, sh in d.items()}
                      for k, d in QKV_SHAPES.items()},
           "buffer_bytes": P * (n_q + 2) * row_q,
-          "launches": expect_q, "steps": steps,
+          "launches": expect_q, "roll_launches": rolls_q, "steps": steps,
           "every_rank_identical": True, "equal_to_torch_backend": True,
           "sums_plus_errors_complete": True,
           "ms": q_ms, "ms_runs": q_times,

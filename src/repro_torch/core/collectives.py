@@ -163,7 +163,7 @@ def ring_allgather(group: Any, x: torch.Tensor) -> torch.Tensor:
     ranks = group.ranks
     lr = len(ranks)
     x = torch.as_tensor(x, device=group.device)
-    cur = x.reshape(lr, -1)
+    cur = x.reshape(lr, -1).contiguous()
     buf = torch.empty((lr, p) + tuple(cur.shape[1:]), dtype=x.dtype,
                       device=group.device)
     rows = torch.arange(lr, device=group.device)

@@ -31,7 +31,8 @@ r -> (r + shift) mod p):
 
   * :class:`StackedGroup`: all p ranks on one device, as the leading axis
     of every leaf (the reference's global array, unsharded); the
-    exchange is ``torch.roll`` along that axis;
+    exchange rolls that axis (:func:`repro_torch.kernels.row_roll.roll`:
+    a CUDA kernel on the card, ``torch.roll`` on the CPU);
   * :class:`DistGroup`: one rank a process of a ``torch.distributed``
     group; each process passes and gets its own shard (allgather and
     allgatherv return the whole gathered array, which every rank holds);
@@ -88,6 +89,7 @@ from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels import row_roll
 from ..kernels.quant_ops import QBLOCK, quant_blocks, quant_error
 from ..kernels.reduce_ops import _validate, op_identity
 from . import trace
@@ -261,7 +263,7 @@ def observe_exchange(level, msgs: List[torch.Tensor]) -> None:
 
 def _roll(msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
     """The stacked exchange: rank r's row takes rank (r - shift)'s."""
-    return [torch.roll(m, shift, dims=0) for m in msgs]
+    return [row_roll.roll(m, shift) for m in msgs]
 
 
 #: The side streams of the overlapped exchanges, one an (owner, device).
@@ -601,8 +603,7 @@ class HostDataPlan:
             torch.zeros((p, nb), dtype=torch.float32, device=dev),
             fwd[R], fwd[0])
         for t in range(R):
-            gq = torch.roll(qm, -red_skips[t], dims=0)
-            gs = torch.roll(sm, -red_skips[t], dims=0)
+            gq, gs = _roll([qm, sm], -red_skips[t])
             buf, err, qm, sm = step.qacc_shuffle(buf, err, gq, gs, acc[t],
                                                  fwd[t + 1])
         droot = buf[root, :n].reshape(n * nb, qb)

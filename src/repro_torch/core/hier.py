@@ -61,6 +61,7 @@ from typing import Any, Callable, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..kernels import row_roll
 from ..kernels.reduce_ops import _validate
 from . import trace
 from .comm import (
@@ -170,8 +171,8 @@ class _StackedLevel:
     def exchange(self, msgs: List[torch.Tensor], shift: int) -> List[torch.Tensor]:
         observe_exchange(self, msgs)
         grid = (self.nodes, self.cores)
-        return [torch.roll(m.view(grid + tuple(m.shape[1:])), shift,
-                           dims=self.dim).view(m.shape) for m in msgs]
+        return [row_roll.roll(m.view(grid + tuple(m.shape[1:])), shift,
+                              self.dim).view(m.shape) for m in msgs]
 
 
 @dataclass(frozen=True)

@@ -4,14 +4,16 @@ reduction ops of :mod:`.reduce_ops` and the int8 block quantization of
 CUDA kernels: the round steps (:mod:`.block_pack`, as in
 ``repro.kernels.block_pack``), forward flash attention
 (:mod:`.flash_attention`) and the Mamba2 SSD scan (:mod:`.ssd_scan`), each
-of the last two with its plain version beside it.  Nothing here builds or
-loads a kernel at import; :mod:`._build` compiles ``csrc/*.cu`` at the
-first launch."""
+of the last two with its plain version beside it, and the exchange's row
+rotation (:mod:`.row_roll`, ``torch.roll`` on the CPU; its launches are
+counted by path in ``row_roll.LAUNCHES``, not in :func:`launches`).
+Nothing here builds or loads a kernel at import; :mod:`._build` compiles
+``csrc/*.cu`` at the first launch."""
 
-from . import block_pack, flash_attention, quant_ops, reduce_ops, ref, ssd_scan
+from . import block_pack, flash_attention, quant_ops, reduce_ops, ref, row_roll, ssd_scan
 
 __all__ = ["block_pack", "flash_attention", "quant_ops", "reduce_ops", "ref",
-           "ssd_scan", "launches"]
+           "row_roll", "ssd_scan", "launches"]
 
 
 def launches() -> dict:

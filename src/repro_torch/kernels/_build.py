@@ -68,6 +68,11 @@ SIGNATURES: Dict[str, Dict[str, Tuple[tuple, type]]] = {
         "ssd_chunk_outputs_launch": ((_P,) * 9 + (_I,) * 7 + (_E, _P), _E),
         "ssd_scan_error_string": ((_E,), ctypes.c_char_p),
     },
+    "row_roll": {
+        # in, out, outer, row_bytes, split_bytes, unit, device, stream
+        "row_roll_launch": ((_P, _P, _I, _I, _I, _E, _E, _P), _E),
+        "row_roll_error_string": ((_E,), ctypes.c_char_p),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -25,6 +25,7 @@ f32.  TF32 is off for these (``allow_tf32 = False`` for matmul and
 cuDNN), so the plain versions' products are full f32.
 """
 
+import contextlib
 import copy
 from dataclasses import replace
 
@@ -92,6 +93,22 @@ def gen():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.Generator(device="cuda").manual_seed(0)
+
+
+@contextlib.contextmanager
+def _torch_rolls():
+    """Inside, the stacked exchange rolls with ``torch.roll`` in place of
+    the row-rotation kernel: the "torch" references of the tests below
+    then share no code with the kernel under test, on the card as in the
+    JAX reference's ``jnp.roll``."""
+    from repro_torch.kernels import row_roll
+
+    kernel = row_roll.roll
+    row_roll.roll = lambda x, shift, dim=0: torch.roll(x, shift, dims=dim)
+    try:
+        yield
+    finally:
+        row_roll.roll = kernel
 
 
 def _offset(t, off):
@@ -274,7 +291,8 @@ def test_broadcast_cuda_matches_torch(gen):
     assert {k: bp.LAUNCHES[k] - before[k] for k in before} == {
         **dict.fromkeys(before, 0),
         "block_pack": 1, "block_unpack": 1, "block_shuffle": rounds - 1}
-    want = host_plan("broadcast", p, n, root=root, backend="torch").run(vals)
+    with _torch_rolls():
+        want = host_plan("broadcast", p, n, root=root, backend="torch").run(vals)
     assert got.is_cuda and torch.equal(got, want)
     assert torch.equal(got, torch.from_numpy(vals).cuda().expand(p, n, 300))
 
@@ -304,8 +322,9 @@ def test_reduce_cuda_matches_torch(gen, op, dtype, overlap):
              "block_acc_shuffle_staged": R} if overlap
             else {"block_acc_shuffle": R + 1})
     assert _launched(before) == want
-    plain = host_plan("reduce", p, n, root=root, op=op, backend="torch",
-                      overlap=overlap).run(vals)
+    with _torch_rolls():
+        plain = host_plan("reduce", p, n, root=root, op=op, backend="torch",
+                          overlap=overlap).run(vals)
     assert got.is_cuda and _same_bits(got, plain)
     if dtype == torch.int64:
         expect = vals.sum(0) if op == "sum" else vals.amax(0)
@@ -324,8 +343,9 @@ def test_allgather_cuda_matches_torch(gen, overlap):
             if overlap else
             {"block_pack": 1, "block_shuffle": R - 1, "block_unpack": 1})
     assert _launched(before) == want
-    plain = host_plan("allgather", p, n, backend="torch",
-                      overlap=overlap).run(vals)
+    with _torch_rolls():
+        plain = host_plan("allgather", p, n, backend="torch",
+                          overlap=overlap).run(vals)
     assert torch.equal(got, plain) and torch.equal(got, vals.expand(p, p, n, 40))
 
 
@@ -387,8 +407,9 @@ def test_hier_cuda_matches_torch(gen, kind, nodes, cores, nN, nC, m, op):
     before = dict(bp.LAUNCHES)
     got = plan.run(vals)
     assert _launched(before) == _hier_launches(plan)
-    want = hier_host_plan(kind, nodes, cores, nN, nC, root=root, op=op,
-                          backend="torch").run(vals)
+    with _torch_rolls():
+        want = hier_host_plan(kind, nodes, cores, nN, nC, root=root, op=op,
+                              backend="torch").run(vals)
     assert got.is_cuda and _same_bits(got, want)
     if kind == "broadcast":
         assert torch.equal(got, vals.expand(nodes, cores, m))
@@ -424,7 +445,8 @@ def test_hiercomm_cuda_matches_torch(gen, kind, op):
     out = plan(x)
     got = tree_flatten(out)[0]
     assert _launched(before) == comm_launches(plan, len(got))
-    want = tree_flatten(plain(x))[0]
+    with _torch_rolls():
+        want = tree_flatten(plain(x))[0]
     for g, w in zip(got, want):
         assert g.is_cuda and _same_bits(g.contiguous(), w.contiguous())
     if plan.kind == "allgather":
@@ -534,13 +556,15 @@ def test_quantized_allreduce_cuda_matches_torch(gen, p, n, root):
     assert _launched(before) == {k: v for k, v in want.items() if v}
     plain = host_plan("quantized_allreduce", p, n, root=root, qblock=qb,
                       backend="torch")
-    pout, perr = plain.run(vals)
+    with _torch_rolls():
+        pout, perr = plain.run(vals)
     assert out.is_cuda and _same_or_nan(out, pout) and _same_or_nan(err, perr)
     assert all(_same_or_nan(out[r], out[0]) for r in range(p))
     # second step with error feedback
     vals2 = torch.randn((p, n, 5 * qb), generator=gen, device="cuda") + err
     o2, e2 = plan.run(vals2)
-    po2, pe2 = plain.run(vals2)
+    with _torch_rolls():
+        po2, pe2 = plain.run(vals2)
     assert _same_or_nan(o2, po2) and _same_or_nan(e2, pe2)
 
 
@@ -1062,12 +1086,15 @@ def test_comm_cuda_matches_torch(gen, kind, p, overlap):
     before = dict(bp.LAUNCHES)
     got = plan(x)
     assert _launched(before) == comm_launches(plan, buffers)
-    want = plain(x)
+    with _torch_rolls():
+        want = plain(x)
+        plain_per_rank = (plain.per_rank(x) if plan.kind in ("allgather", "allgatherv")
+                          else None)
     for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
         assert g.is_cuda and _same_bits(g.contiguous(), w.contiguous())
     if plan.kind in ("allgather", "allgatherv"):     # every rank's copy
         for g, w in zip(tree_flatten(plan.per_rank(x))[0],
-                        tree_flatten(plain.per_rank(x))[0]):
+                        tree_flatten(plain_per_rank)[0]):
             assert g.shape[0] == p and _same_bits(g.contiguous(), w.contiguous())
     if kind == "reduce":
         y = {"w": x["w"], "b": x["b"]}
@@ -1091,7 +1118,8 @@ def test_comm_cuda_matches_torch_at_1152(gen):
         before = dict(bp.LAUNCHES)
         got = tree_flatten(plan(x))[0]
         assert _launched(before) == comm_launches(plan, buffers), kind
-        want = tree_flatten(get_comm(group, backend="torch").plan(kind, x, **kw)(x))[0]
+        with _torch_rolls():
+            want = tree_flatten(get_comm(group, backend="torch").plan(kind, x, **kw)(x))[0]
         assert all(_same_bits(g.contiguous(), w.contiguous())
                    for g, w in zip(got, want)), kind
         if plan.kind in ("allgather", "allgatherv"):
@@ -1225,7 +1253,8 @@ def test_comm_quantized_cuda_matches_torch(gen, p, root):
         before = dict(bp.LAUNCHES)
         sums, errs = plan(x)
         assert _launched(before) == quantized_launches(plan, 3)
-        psums, perrs = plain(x)
+        with _torch_rolls():
+            psums, perrs = plain(x)
         for k in x:
             assert sums[k].is_cuda and _same_or_nan(sums[k], psums[k])
             assert _same_or_nan(errs[k], perrs[k]) and torch.isfinite(errs[k]).all()
@@ -1250,8 +1279,9 @@ def test_compressed_grad_sync_cuda_matches_torch(gen):
                       "b": torch.randn((p, 3, 24), generator=gen, device="cuda")}}
         out = {}
         for be in ("cuda", "torch"):
-            out[be], errs[be] = comp.compressed_grad_sync(g, errs[be], StackedGroup(p),
-                                                          spec, backend=be)
+            with _torch_rolls() if be == "torch" else contextlib.nullcontext():
+                out[be], errs[be] = comp.compressed_grad_sync(g, errs[be], StackedGroup(p),
+                                                              spec, backend=be)
         for a, b in zip(tree_flatten(out["cuda"])[0], tree_flatten(out["torch"])[0]):
             assert a.is_cuda and _same_bits(a, b)
         for a, b in zip(errs["cuda"], errs["torch"]):
@@ -1298,9 +1328,10 @@ def test_train_step_sync_backends_agree_on_the_card(gen):
                                      group=StackedGroup(2))
             step = make_train_step(cfg, tcfg, group=StackedGroup(2))
             before = dict(bp.LAUNCHES)
-            for i in range(2):
-                state, m = step(state, data.batch_at(i))
-                assert torch.isfinite(m["loss"])
+            with _torch_rolls() if be == "torch" else contextlib.nullcontext():
+                for i in range(2):
+                    state, m = step(state, data.batch_at(i))
+                    assert torch.isfinite(m["loss"])
             launched = _launched(before)
             assert (launched.get("block_qacc_shuffle", 0) > 0) == (be == "cuda")
             states[be] = state
@@ -1483,3 +1514,116 @@ def test_cuda_operands_never_reach_the_plain_version(gen, monkeypatch):
     torch.cuda.synchronize()
     assert all(v == 1 for v in bp.LAUNCHES.values()), bp.LAUNCHES
     assert fa.LAUNCHES["flash_attention"] == 1 and ss.LAUNCHES["ssd_scan"] == 1
+
+
+#: The benchmark cells' exchange messages at reduced row counts, (shape,
+#: dim): the broadcast's f32 rows of 289,264 bytes, the allgather's
+#: rank-major rows (p = 37: p x 192 bytes), the hier inter level (32 rows
+#: of 409,204 bytes move together) and intra level (rows of 453,440 bytes).
+ROLL_SHAPES = [((37, 72316), 0), ((37, 37 * 48), 0), ((6, 32, 102301), 0),
+               ((6, 32, 113360), 1)]
+
+
+def _roll_launched(before):
+    from repro_torch.kernels import row_roll as rr
+
+    return {k: v - before[k] for k, v in rr.LAUNCHES.items()}
+
+
+@pytest.mark.parametrize("shape,dim", ROLL_SHAPES, ids=str)
+def test_row_roll_matches_torch_roll_on_the_cells_messages(gen, shape, dim):
+    """The row-rotation kernel equals torch.roll bit for bit at the cells'
+    row widths, one 16-byte launch a roll."""
+    from repro_torch.kernels import row_roll as rr
+
+    x = torch.randn(shape, generator=gen, device="cuda")
+    for shift in (0, 1, -1, 5, shape[dim] + 3):
+        before = dict(rr.LAUNCHES)
+        got = rr.roll(x, shift, dim)
+        assert _same_bits(got, torch.roll(x, shift, dims=dim)), shift
+        assert _roll_launched(before) == {"vector16": 1, "narrow": 0}
+
+
+@pytest.mark.parametrize("bs", [1000, 1001])
+def test_row_roll_on_the_hier_grid_levels(gen, bs):
+    """StackedGrid(6, 32)'s two levels roll through the kernel, bit for
+    bit as torch.roll of the [nodes, cores, bs] view; the intra level's
+    rows of 4,004 bytes take the narrow path."""
+    from repro_torch.core.hier import StackedGrid
+    from repro_torch.kernels import row_roll as rr
+
+    grid = StackedGrid(6, 32)
+    msg = torch.randn((6 * 32, bs), generator=gen, device="cuda")
+    for level in (grid.inter, grid.intra):
+        for shift in (1, -3, 7):
+            before = dict(rr.LAUNCHES)
+            (got,) = level.exchange([msg], shift)
+            want = torch.roll(msg.view(6, 32, bs), shift, dims=level.dim)
+            assert _same_bits(got, want.view(msg.shape))
+            path = "narrow" if level.dim and bs % 4 else "vector16"
+            assert _roll_launched(before) == {**dict.fromkeys(rr.LAUNCHES, 0), path: 1}
+
+
+@pytest.mark.parametrize("bs,nb", [(4096, 16), (4100, 3)])
+def test_row_roll_on_the_quantized_messages(gen, bs, nb):
+    """The quantized allreduce's int8 payload and f32 scales, rolled
+    together as its reduce rounds do, bit for bit; rows of 4,100 and 12
+    bytes take the narrow path."""
+    from repro_torch.core.comm import _roll
+    from repro_torch.kernels import row_roll as rr
+
+    qm = torch.randint(-127, 128, (37, bs), generator=gen, device="cuda",
+                       dtype=torch.int8)
+    sm = torch.rand((37, nb), generator=gen, device="cuda")
+    before = dict(rr.LAUNCHES)
+    gq, gs = _roll([qm, sm], -5)
+    assert _same_bits(gq, torch.roll(qm, -5, dims=0))
+    assert _same_bits(gs, torch.roll(sm, -5, dims=0))
+    path = "vector16" if bs % 16 == 0 else "narrow"
+    assert _roll_launched(before) == {**dict.fromkeys(rr.LAUNCHES, 0), path: 2}
+
+
+@pytest.mark.parametrize("kind", ["broadcast", "allgather", "reduce",
+                                  "quantized_allreduce"])
+def test_row_roll_launches_once_a_message_a_round(gen, kind):
+    """A host plan at p = 37 launches the kernel once a message a round
+    (the quantized one two: payload and scales), all on 16-byte rows, and
+    its result is the "torch" backend's."""
+    from repro_torch.kernels import row_roll as rr
+
+    p, n, bs = 37, 5, 32
+    kw = {"qblock": 8} if kind == "quantized_allreduce" else {}
+    shape = (n, bs) if kind == "broadcast" else (p, n, bs)
+    values = torch.randint(-50, 50, shape, generator=gen, device="cuda").float()
+    plan = host_plan(kind, p, n, root=4, **kw)
+    with _torch_rolls():
+        want = host_plan(kind, p, n, root=4, backend="torch", **kw).run(values)
+    before = dict(rr.LAUNCHES)
+    got = plan.run(values)
+    rounds = (2 * sum(map(len, plan.skips)) if kind == "quantized_allreduce"
+              else len(plan.skips))
+    assert _roll_launched(before) == {"vector16": rounds, "narrow": 0}
+    for g, w in zip(tree_flatten(got)[0], tree_flatten(want)[0]):
+        assert _same_bits(g.contiguous(), w.contiguous())
+
+
+def test_start_roll_runs_the_kernel_on_the_side_stream(gen):
+    """_start_roll: the kernel's rolls on the side stream, waited for on
+    the current one, equal torch.roll bit for bit in each of 10 repeats;
+    the group's started exchange likewise."""
+    from repro_torch.core.comm import _start_roll, side_stream
+    from repro_torch.kernels import row_roll as rr
+
+    side = side_stream("row_roll_test", torch.device("cuda", torch.cuda.current_device()))
+    assert side != torch.cuda.current_stream()
+    for _ in range(10):
+        x = torch.randn((37, 72316), generator=gen, device="cuda")
+        q = torch.randint(-127, 128, (37, 4100), generator=gen, device="cuda",
+                          dtype=torch.int8)
+        before = dict(rr.LAUNCHES)
+        got = _start_roll([x, q], 5, side)()
+        assert _same_bits(got[0], torch.roll(x, 5, dims=0))
+        assert _same_bits(got[1], torch.roll(q, 5, dims=0))
+        assert _roll_launched(before) == {"vector16": 1, "narrow": 1}
+        (g,) = StackedGroup(37).start_exchange([x], -2)()
+        assert _same_bits(g, torch.roll(x, -2, dims=0))
